@@ -5,12 +5,18 @@ The layout mirrors the JAX package module for module, so each file has a
 counterpart to be held against:
 
 * ``data``     — vocabulary encoder tables and image transforms.
-* ``ops``      — GGNN propagation: the masked-sum math and the folded
-                 multi-step kernel (CUDA, ``csrc/ggnn_folded.cu``) with its
-                 plain PyTorch twin.
-* ``models``   — the ResNet v1.5 backbone and the FCGGNN head.
+* ``ops``      — GGNN propagation: the masked-sum math, the folded
+                 multi-step kernels in CUDA (``csrc/ggnn_folded.cu``: K1
+                 forward and K2 forward with residuals;
+                 ``csrc/ggnn_folded_bwd.cu``: K3 backward) with their plain
+                 PyTorch twins, and the K2/K3 autograd Function.
+* ``models``   — the ResNet v1.5 backbone (eval- and train-mode BN) and
+                 the FCGGNN head with its losses.
+* ``metrics``  — the imSitu scorer.
+* ``train``    — ``Trainer``: train and eval steps, ``train_epoch``,
+                 ``evaluate``.
 * ``convert``  — JAX parameter trees and reference checkpoints → this
-                 package's state dicts.
+                 package's state dicts, and back for comparisons.
 * ``serving``  — export → load → ``fn(images_u8)`` artifacts.
 * ``server``   — dynamic micro-batching and the HTTP face.
 

@@ -20,7 +20,9 @@ So a reference ``model_state_dict`` splits into the two with
   ``running_mean``/``running_var``, with ``num_batches_tracked`` 0.
 
 Inputs are nested dicts of numpy arrays (or anything ``np.asarray``
-takes); nothing here imports JAX.
+takes); nothing here imports JAX.  ``head_params_to_jax`` and
+``resnet_stats_to_jax`` go the other way, so that parameters and BN
+statistics can be compared with the JAX trainer's after training steps.
 """
 
 from __future__ import annotations
@@ -115,3 +117,43 @@ def from_reference(model_state_dict: Mapping
         elif not k.startswith(_REF_TWIN):
             head[k] = v
     return backbone, head
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy() if torch.is_tensor(t) \
+        else np.asarray(t, np.float32)
+
+
+def head_params_to_jax(head_state: Mapping) -> dict:
+    """The port's head state dict → flax params of ``FCGGNNHead`` (numpy;
+    the inverse of ``head_state_from_jax``)."""
+    out = {"role_emb": _np(head_state["role_emb.weight"]),
+           "verb_emb": _np(head_state["verb_emb.weight"]), "ggnn": {}}
+    for theirs in GGSNN_NAMES:
+        ours = theirs.lower()
+        out["ggnn"][ours] = _np(head_state[f"ggsnn.{theirs}.weight"]).T
+        out["ggnn"]["b_" + ours] = _np(head_state[f"ggsnn.{theirs}.bias"])
+    for name in ("verb_classifier", "nouns_classifier"):
+        out[name] = {"kernel": _np(head_state[f"{name}.1.weight"]).T,
+                     "bias": _np(head_state[f"{name}.1.bias"])}
+    return out
+
+
+def resnet_stats_to_jax(backbone_state: Mapping) -> dict:
+    """The port's ResNet state dict → the flax ``batch_stats`` tree of
+    ``models/resnet.py`` (numpy ``mean``/``var`` per BN)."""
+    out: dict = {}
+    for key, value in backbone_state.items():
+        if not key.endswith(".running_mean"):
+            continue
+        prefix = key[:-len(".running_mean")]
+        stats = {"mean": _np(value),
+                 "var": _np(backbone_state[prefix + ".running_var"])}
+        parts = prefix.split(".")
+        if len(parts) == 1:                       # the stem's bn1
+            out[parts[0]] = stats
+            continue
+        block = out.setdefault(f"{parts[0]}_{parts[1]}", {})
+        name = "downsample_bn" if parts[2] == "downsample" else parts[2]
+        block[name] = stats
+    return out

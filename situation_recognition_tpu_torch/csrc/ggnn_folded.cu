@@ -1,8 +1,13 @@
 // Folded multi-step GGNN propagation (forward) for NVIDIA Hopper, sm_90a.
 //
-// Replaces the TPU kernel `_folded_kernel` in
-// situation_recognition_tpu/ops/ggnn_pallas.py (driven there by
-// `ggnn_propagate_fused` / `_propagate_fwd_impl`).  For rows of whole
+// Replaces two TPU kernels of situation_recognition_tpu/ops/ggnn_pallas.py:
+//   K1 `_folded_kernel` (driven by `ggnn_propagate_fused` /
+//      `_propagate_fwd_impl`)        -> entry `ggnn_folded_forward`;
+//   K2 `_folded_kernel_res` (driven by `_propagate_fwd_res_impl`), the same
+//      forward that also writes each step's residuals for the backward
+//      kernel (csrc/ggnn_folded_bwd.cu)  -> entry `ggnn_folded_forward_res`.
+// The two entries launch the same kernels; K2's instantiation (RES = true)
+// adds the residual stores to the epilogues and nothing else.  For rows of whole
 // examples (r rows each) it runs `steps` GGNN steps with W_p folded into
 // the gate weights (see `fold_gate_weights` in ops/ggnn_kernel.py):
 //
@@ -37,6 +42,13 @@
 //   ggnn_cand_kernel  computes tanh(pre + (r*h) @ Uh) and updates h in
 //                     place (each element of h is read and written only by
 //                     the block that owns its tile).
+//
+// K2's residuals, each a (steps, M, d) bf16 stack: rh[t] is the step's
+// input h (copied by the gate kernel, which reads h and never writes it),
+// z[t] and r[t] are bf16 copies of the gates (r*h is still formed from
+// the f32 r), and c[t] is the bf16 candidate, stored by the candidate
+// kernel.  They add 8 M d bytes of writes per step (101 MB over 4 steps at
+// M = 1536, d = 2048: 0.03 ms at 3.35 TB/s against 0.31 ms of products).
 //
 // The weights stream from L2 (they fit in its 50 MB at d=2048).  This is
 // the simple first design: single-buffered shared-memory tiles and WMMA,
@@ -102,12 +114,15 @@ __device__ __forceinline__ void stage(float* cs, const FragC (&acc)[2],
                                 acc[i], C_LD, wmma::mem_row_major);
 }
 
+// RES: also store the step's residuals res_h (input h), res_z, res_r
+template <bool RES>
 __global__ void __launch_bounds__(THREADS)
 ggnn_gate_kernel(const bf16* __restrict__ h, const float* __restrict__ mask,
                  const bf16* __restrict__ wa, const bf16* __restrict__ uzr,
                  const float* __restrict__ ba, float* __restrict__ z_out,
                  bf16* __restrict__ rh_out, float* __restrict__ gc_out,
-                 int M, int d, int r) {
+                 bf16* __restrict__ res_h, bf16* __restrict__ res_z,
+                 bf16* __restrict__ res_r, int M, int d, int r) {
     __shared__ __align__(128) unsigned char smem[GATE_BYTES];
     bf16* a_agg = reinterpret_cast<bf16*>(smem);
     bf16* a_h = a_agg + A_TILE;
@@ -217,10 +232,17 @@ ggnn_gate_kernel(const bf16* __restrict__ h, const float* __restrict__ mask,
             const size_t o = (size_t)gr * d + gc;
             const float v = cs[row * C_LD + col];
             if (g == 0) {
-                z_out[o] = sigmoidf_(v + ba[gc]);
+                const float zz = sigmoidf_(v + ba[gc]);
+                z_out[o] = zz;
+                if (RES) res_z[o] = __float2bfloat16(zz);
             } else if (g == 1) {
                 const float rr = sigmoidf_(v + ba[d + gc]);
-                rh_out[o] = __float2bfloat16(rr * __bfloat162float(h[o]));
+                const bf16 hv = h[o];
+                rh_out[o] = __float2bfloat16(rr * __bfloat162float(hv));
+                if (RES) {
+                    res_h[o] = hv;
+                    res_r[o] = __float2bfloat16(rr);
+                }
             } else {
                 gc_out[o] = v + ba[2 * (size_t)d + gc];
             }
@@ -229,10 +251,13 @@ ggnn_gate_kernel(const bf16* __restrict__ h, const float* __restrict__ mask,
     }
 }
 
+// RES: also store the step's candidate gate res_c
+template <bool RES>
 __global__ void __launch_bounds__(THREADS)
 ggnn_cand_kernel(bf16* __restrict__ h, const bf16* __restrict__ rh,
                  const bf16* __restrict__ uh, const float* __restrict__ z,
-                 const float* __restrict__ gc_in, int M, int d) {
+                 const float* __restrict__ gc_in, bf16* __restrict__ res_c,
+                 int M, int d) {
     __shared__ __align__(128) unsigned char smem[CAND_BYTES];
     bf16* a_t = reinterpret_cast<bf16*>(smem);
     bf16* b_t = a_t + A_TILE;
@@ -279,46 +304,79 @@ ggnn_cand_kernel(bf16* __restrict__ h, const bf16* __restrict__ rh,
         if (gr >= M) continue;
         const size_t o = (size_t)gr * d + n0 + col;
         const float c = tanhf(gc_in[o] + cs[row * C_LD + col]);
+        if (RES) res_c[o] = __float2bfloat16(c);
         const float zz = z[o];
         const float hf = __bfloat162float(h[o]);
         h[o] = __float2bfloat16((1.f - zz) * hf + zz * c);
     }
 }
 
+// `steps` steps over h in place; with RES also the residual
+// stacks of K2 (steps x M x d each).  Returns 0 or the first launch error.
+template <bool RES>
+int run_steps(bf16* h, const float* mask, const bf16* wa, const bf16* uzr,
+              const bf16* uh, const float* ba, float* z, bf16* rh, float* gc,
+              bf16* res_h, bf16* res_z, bf16* res_r, bf16* res_c, int M,
+              int d, int r, int steps, cudaStream_t s) {
+    if (M < 1 || r < 1 || M % r != 0 || d < BN || d % BN != 0 || steps < 0)
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid(d / BN, (M + BM - 1) / BM);
+    if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
+    const size_t plane = (size_t)M * d;
+    for (int t = 0; t < steps; ++t) {
+        const size_t off = RES ? (size_t)t * plane : 0;
+        ggnn_gate_kernel<RES><<<grid, THREADS, 0, s>>>(
+            h, mask, wa, uzr, ba, z, rh, gc, RES ? res_h + off : nullptr,
+            RES ? res_z + off : nullptr, RES ? res_r + off : nullptr, M, d,
+            r);
+        cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+        ggnn_cand_kernel<RES><<<grid, THREADS, 0, s>>>(
+            h, rh, uh, z, gc, RES ? res_c + off : nullptr, M, d);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// h: (M, d) bf16, updated in place over `steps` steps.  mask: (M,) f32.
-// wa: (d, 3d) bf16, uzr: (d, 2d) bf16, uh: (d, d) bf16, ba: (3d,) f32.
-// z, gc: (M, d) f32 scratch; rh: (M, d) bf16 scratch.
+// K1.  h: (M, d) bf16, updated in place over `steps` steps.  mask: (M,)
+// f32.  wa: (d, 3d) bf16, uzr: (d, 2d) bf16, uh: (d, d) bf16, ba: (3d,)
+// f32.  z, gc: (M, d) f32 scratch; rh: (M, d) bf16 scratch.
 // Takes any M >= 1 that is a multiple of r, and any d that is a multiple
 // of 64.  Returns 0, or the CUDA error of the first failed launch.
 int ggnn_folded_forward(void* h, const void* mask, const void* wa,
                         const void* uzr, const void* uh, const void* ba,
                         void* z, void* rh, void* gc, int M, int d, int r,
                         int steps, void* stream) {
-    if (M < 1 || r < 1 || M % r != 0 || d < BN || d % BN != 0 || steps < 0)
-        return (int)cudaErrorInvalidValue;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const dim3 grid(d / BN, (M + BM - 1) / BM);
-    if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
-    for (int t = 0; t < steps; ++t) {
-        ggnn_gate_kernel<<<grid, THREADS, 0, s>>>(
-            static_cast<const bf16*>(h), static_cast<const float*>(mask),
-            static_cast<const bf16*>(wa), static_cast<const bf16*>(uzr),
-            static_cast<const float*>(ba), static_cast<float*>(z),
-            static_cast<bf16*>(rh), static_cast<float*>(gc), M, d, r);
-        cudaError_t e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
-        ggnn_cand_kernel<<<grid, THREADS, 0, s>>>(
-            static_cast<bf16*>(h), static_cast<const bf16*>(rh),
-            static_cast<const bf16*>(uh), static_cast<const float*>(z),
-            static_cast<const float*>(gc), M, d);
-        e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
-    }
-    return 0;
+    return run_steps<false>(
+        static_cast<bf16*>(h), static_cast<const float*>(mask),
+        static_cast<const bf16*>(wa), static_cast<const bf16*>(uzr),
+        static_cast<const bf16*>(uh), static_cast<const float*>(ba),
+        static_cast<float*>(z), static_cast<bf16*>(rh),
+        static_cast<float*>(gc), nullptr, nullptr, nullptr, nullptr, M, d,
+        r, steps, static_cast<cudaStream_t>(stream));
+}
+
+// K2: K1's arguments plus the residual stacks res_h, res_z, res_r, res_c,
+// each (steps, M, d) bf16, written step by step.
+int ggnn_folded_forward_res(void* h, const void* mask, const void* wa,
+                            const void* uzr, const void* uh, const void* ba,
+                            void* z, void* rh, void* gc, void* res_h,
+                            void* res_z, void* res_r, void* res_c, int M,
+                            int d, int r, int steps, void* stream) {
+    return run_steps<true>(
+        static_cast<bf16*>(h), static_cast<const float*>(mask),
+        static_cast<const bf16*>(wa), static_cast<const bf16*>(uzr),
+        static_cast<const bf16*>(uh), static_cast<const float*>(ba),
+        static_cast<float*>(z), static_cast<bf16*>(rh),
+        static_cast<float*>(gc), static_cast<bf16*>(res_h),
+        static_cast<bf16*>(res_z), static_cast<bf16*>(res_r),
+        static_cast<bf16*>(res_c), M, d, r, steps,
+        static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -7,16 +7,24 @@ is the reference ``model_state_dict`` without its two backbone copies.
 
 Semantics kept from the JAX head: node init ``relu(f * role_emb *
 verb_emb)``, relu on the features only in the verb branch, 4 GGNN steps,
-Dropout(0.5) before each classifier (inert in eval mode), and the
-``role_emb`` padding row fixed at zero.  ``dtype`` is the compute type:
-parameters stay f32 and are cast at each use, as flax does.
+Dropout(0.5) before each classifier, and the ``role_emb`` padding row
+fixed at zero.  ``dtype`` is the compute type: parameters stay f32 and are
+cast at each use, as flax does.  Dropout acts only when a branch is called
+with ``train=True``, like flax's ``deterministic=not train``, and draws
+its masks from the ``generator`` given with it (an explicit
+``torch.Generator``, never the global one); ``forward`` draws in the JAX
+head's order: verb, predicted-verb nouns, gt-verb nouns.
 
-GGNN implementations (``resolve_ggnn_impl``): ``kernel`` runs every
-propagate through the folded multi-step kernel (``ops/ggnn_kernel.py``,
-bf16 inside), ``masked`` runs the masked-sum math of ``ops/ggnn.py`` in
-``dtype``.  ``auto`` picks the kernel on a CUDA device at bf16, as the JAX
-trainer picks its Pallas kernel on a TPU at bf16.  The kernel path is
-forward-only; losses and gradients come with the training slice.
+GGNN implementations (``resolve_ggnn_impl``): ``kernel`` runs forward-only
+propagates through the folded multi-step kernel K1 (``ops/ggnn_kernel.py``,
+bf16 inside) and differentiated ones as the JAX package does
+(``ops/ggnn_train.py``): autograd over the masked-sum math by default, or,
+with ``SRTPU_GGNN_BWD=pallas``, the K2/K3 autograd Function.  ``masked``
+runs the masked-sum math of ``ops/ggnn.py`` in ``dtype`` everywhere.
+``auto`` picks the kernel on a CUDA device at bf16, as the JAX trainer
+picks its Pallas kernel on a TPU at bf16.
+
+The losses are the JAX package's (``models/fcggnn.py:218-298``), in f32.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ from situation_recognition_tpu_torch.ops.ggnn import (
     GGNNParams, ggnn_propagate, ggnn_propagate_verb)
 from situation_recognition_tpu_torch.ops.ggnn_kernel import (
     fold_gate_weights, ggnn_propagate_folded)
+from situation_recognition_tpu_torch.ops.ggnn_train import (
+    ggnn_propagate_train, resolve_ggnn_bwd)
 
 GGSNN_NAMES = ("W_p", "W_z", "U_z", "W_r", "U_r", "W_h", "U_h")
 
@@ -47,6 +57,20 @@ def resolve_ggnn_impl(impl: str, dtype: torch.dtype,
         raise ValueError(f"ggnn_impl must be auto|kernel|masked, got "
                          f"{impl!r}")
     return impl
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout`` in train mode: keep each element with
+    probability 1 - rate and scale the kept ones by 1 / (1 - rate); the
+    masks come from ``generator`` (on x's device)."""
+    if rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
 
 
 def _uniform_(t: torch.Tensor, bound: float, g: torch.Generator) -> None:
@@ -87,9 +111,12 @@ class GGNN(nn.Module):
             self._folded[bias_mult] = hit
         return hit[1]
 
+    def _differentiated(self, hidden: torch.Tensor) -> bool:
+        return torch.is_grad_enabled() and (hidden.requires_grad or any(
+            p.requires_grad for p in self.parameters()))
+
     def _kernel(self, hidden, mask):
-        if torch.is_grad_enabled() and any(
-                p.requires_grad for p in self.parameters()):
+        if self._differentiated(hidden):
             raise RuntimeError("the folded GGNN kernel is forward-only; run "
                                "it under torch.no_grad() or "
                                "torch.inference_mode()")
@@ -97,23 +124,40 @@ class GGNN(nn.Module):
         return ggnn_propagate_folded(None, hidden, mask, self.num_steps,
                                      weights=self.folded(float(r)))
 
+    def _route(self, hidden: torch.Tensor) -> str:
+        """'kernel' (K1), 'train_kernel' (K2/K3) or 'masked'."""
+        if self.impl != "kernel":
+            return "masked"
+        if not self._differentiated(hidden):
+            return "kernel"
+        return "train_kernel" if resolve_ggnn_bwd() == "pallas" else "masked"
+
+    def _propagate(self, hidden, mask):
+        route = self._route(hidden)
+        if route == "kernel":
+            return self._kernel(hidden, mask)
+        if route == "train_kernel":
+            r = float(hidden.shape[1])
+            return ggnn_propagate_train(self.params(), hidden, mask,
+                                        self.num_steps,
+                                        weights=self.folded(r))
+        return ggnn_propagate(self.params(), hidden, mask, self.num_steps)
+
     def propagate(self, hidden: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:
         """hidden (B, R, D), mask (B, R) → (B, R, D)."""
-        hidden = hidden.to(self.dtype)
-        if self.impl == "kernel":
-            return self._kernel(hidden, mask)
-        return ggnn_propagate(self.params(), hidden, mask, self.num_steps)
+        return self._propagate(hidden.to(self.dtype), mask)
 
     def propagate_verb(self, hidden: torch.Tensor) -> torch.Tensor:
-        """hidden (B, D) single-node graphs → (B, D).  Through the kernel
+        """hidden (B, D) single-node graphs → (B, D).  Through the kernels
         as r=1 with mask 0: every node self-messages (E = I)."""
         hidden = hidden.to(self.dtype)
-        if self.impl == "kernel":
-            zeros = torch.zeros(hidden.shape[0], 1, dtype=torch.float32,
-                                device=hidden.device)
-            return self._kernel(hidden[:, None, :], zeros)[:, 0, :]
-        return ggnn_propagate_verb(self.params(), hidden, self.num_steps)
+        if self._route(hidden) == "masked":
+            return ggnn_propagate_verb(self.params(), hidden,
+                                       self.num_steps)
+        zeros = torch.zeros(hidden.shape[0], 1, dtype=torch.float32,
+                            device=hidden.device)
+        return self._propagate(hidden[:, None, :], zeros)[:, 0, :]
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         bound = 1.0 / math.sqrt(self.W_p.in_features)
@@ -146,21 +190,27 @@ class FCGGNNHead(nn.Module):
         self.nouns_classifier = nn.Sequential(
             nn.Dropout(dropout_rate), nn.Linear(hidden, num_labels))
 
-    def _classify(self, seq: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    def _classify(self, seq: nn.Sequential, x: torch.Tensor, train: bool,
+                  generator) -> torch.Tensor:
         lin = seq[1]
-        x = seq[0](x)
+        if train:
+            x = dropout(x, seq[0].p, generator)
         return F.linear(x, lin.weight.to(self.dtype),
                         lin.bias.to(self.dtype)).float()
 
-    def predict_verb(self, features: torch.Tensor) -> torch.Tensor:
+    def predict_verb(self, features: torch.Tensor, train: bool = False,
+                     generator: torch.Generator | None = None
+                     ) -> torch.Tensor:
         """features (B, D) → verb logits (B, num_verbs) f32."""
         x = torch.relu(features.to(self.dtype))
         x = self.ggsnn.propagate_verb(x)
-        return self._classify(self.verb_classifier, x)
+        return self._classify(self.verb_classifier, x, train, generator)
 
     def predict_nouns(self, features: torch.Tensor, verb_ids: torch.Tensor,
-                      role_ids: torch.Tensor,
-                      role_mask: torch.Tensor) -> torch.Tensor:
+                      role_ids: torch.Tensor, role_mask: torch.Tensor,
+                      train: bool = False,
+                      generator: torch.Generator | None = None
+                      ) -> torch.Tensor:
         """features (B, D), verb_ids (B,) → noun logits (B, R, L) f32."""
         b = features.shape[0]
         verb_ids = verb_ids.long()
@@ -169,8 +219,33 @@ class FCGGNNHead(nn.Module):
         verb_e = self.verb_emb.weight[verb_ids].to(self.dtype)
         node = torch.relu(f * role_e * verb_e[:, None, :])
         out = self.ggsnn.propagate(node, role_mask[verb_ids])
-        logits = self._classify(self.nouns_classifier, out)
+        logits = self._classify(self.nouns_classifier, out, train, generator)
         return logits.reshape(b, self.max_role_count, self.num_labels)
+
+    def predict_train(self, features: torch.Tensor, role_ids: torch.Tensor,
+                      role_mask: torch.Tensor, train: bool = False,
+                      generator: torch.Generator | None = None):
+        """The differentiated branches of a train step: the verb branch,
+        then the noun branch of its argmax verb → (pred_verb,
+        pred_nouns).  The gt-verb branch is left to the caller, which runs
+        it forward-only (it is logged, never backpropagated)."""
+        pred_verb = self.predict_verb(features, train, generator)
+        pred_verb_ids = torch.argmax(pred_verb, dim=1)
+        pred_nouns = self.predict_nouns(features, pred_verb_ids, role_ids,
+                                        role_mask, train, generator)
+        return pred_verb, pred_nouns
+
+    def forward(self, features: torch.Tensor, gt_verb: torch.Tensor,
+                role_ids: torch.Tensor, role_mask: torch.Tensor,
+                train: bool = False,
+                generator: torch.Generator | None = None):
+        """All three branches → (pred_verb, pred_nouns, gt_pred_nouns),
+        dropout drawn in the order verb, nouns, nouns."""
+        pred_verb, pred_nouns = self.predict_train(
+            features, role_ids, role_mask, train, generator)
+        gt_pred_nouns = self.predict_nouns(features, gt_verb, role_ids,
+                                           role_mask, train, generator)
+        return pred_verb, pred_nouns, gt_pred_nouns
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Random weights from ``generator``: N(0, 1) embeddings with the
@@ -185,3 +260,75 @@ class FCGGNNHead(nn.Module):
         for seq in (self.verb_classifier, self.nouns_classifier):
             _uniform_(seq[1].weight, bound, generator)
             _uniform_(seq[1].bias, bound, generator)
+
+
+# -------------------------------------------------------------------- losses
+
+
+def _verb_nll(pred_verb: torch.Tensor, gt_verb: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(pred_verb.float(), dim=-1)
+    return -torch.gather(logp, -1, gt_verb.long()[:, None])[:, 0]
+
+
+def verb_loss(pred_verb: torch.Tensor, gt_verb: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over the batch."""
+    return torch.mean(_verb_nll(pred_verb, gt_verb))
+
+
+def verb_ce_term(pred_verb: torch.Tensor, gt_verb: torch.Tensor,
+                 valid: torch.Tensor):
+    """Masked verb CE as (numerator, denominator)."""
+    nll = _verb_nll(pred_verb, gt_verb)
+    return torch.sum(nll * valid), torch.sum(valid)
+
+
+def verb_loss_masked(pred_verb: torch.Tensor, gt_verb: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """``verb_loss`` over the ``valid`` rows only (pad rows of a wrapped
+    batch do not count)."""
+    num, den = verb_ce_term(pred_verb, gt_verb, valid)
+    return num / den
+
+
+def nouns_ce_terms(pred_nouns: torch.Tensor, gt_nouns: torch.Tensor,
+                   ignore_index: int, row_mask: torch.Tensor | None = None):
+    """Per-annotation masked CE as (numerator, denominator) pairs.
+    pred_nouns (B, R, L), gt_nouns (B, 3, R)."""
+    logp = torch.log_softmax(pred_nouns.float(), dim=-1)
+    terms = []
+    for n in range(3):
+        labels = gt_nouns[:, n, :].long()
+        ok = labels != ignore_index
+        if row_mask is not None:
+            ok = ok & row_mask
+        safe = torch.where(ok, labels, torch.zeros_like(labels))
+        nll = -torch.gather(logp, -1, safe[:, :, None])[:, :, 0]
+        terms.append((torch.sum(torch.where(ok, nll, torch.zeros_like(nll))),
+                      torch.sum(ok).float()))
+    return terms
+
+
+def _nouns_ce(pred_nouns, gt_nouns, ignore_index, row_mask, guard_empty):
+    total = torch.zeros((), dtype=torch.float32, device=pred_nouns.device)
+    for num, den in nouns_ce_terms(pred_nouns, gt_nouns, ignore_index,
+                                   row_mask):
+        if guard_empty:
+            den = torch.clamp_min(den, 1.0)
+        total = total + num / den
+    return total
+
+
+def nouns_loss(pred_nouns: torch.Tensor, gt_nouns: torch.Tensor,
+               ignore_index: int) -> torch.Tensor:
+    """Sum over the 3 annotations of the CE mean over non-ignored (batch,
+    role) positions — with torch's NaN for an annotation that has no
+    non-ignored position, as the reference."""
+    return _nouns_ce(pred_nouns, gt_nouns, ignore_index, None, False)
+
+
+def nouns_loss_masked(pred_nouns: torch.Tensor, gt_nouns: torch.Tensor,
+                      ignore_index: int, valid: torch.Tensor) -> torch.Tensor:
+    """``nouns_loss`` over the ``valid`` rows, with an all-ignored
+    annotation's denominator guarded to 1 (0, not NaN)."""
+    return _nouns_ce(pred_nouns, gt_nouns, ignore_index,
+                     valid[:, None].bool(), True)

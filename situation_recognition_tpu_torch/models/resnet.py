@@ -9,8 +9,9 @@ takes.  Module names are torchvision's (``layer3.17.conv2``,
 
 The public boundary is NHWC, as in the JAX package; inside, the NHWC
 tensor is viewed as NCHW in channels-last memory, which is also the layout
-cuDNN prefers.  Serving runs the backbone in eval mode (running BN
-statistics); training-mode BN belongs to the training slice.
+cuDNN prefers.  In eval mode BN normalises with the running statistics
+(``nn.BatchNorm2d``'s eval path); in train mode it is flax's BatchNorm
+(``BatchNorm`` below), which is not ``nn.BatchNorm2d``'s.
 """
 
 from __future__ import annotations
@@ -27,6 +28,38 @@ STAGE_SIZES = {
 }
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode is flax's ``nn.BatchNorm``
+    (momentum 0.9, the JAX package's ``models/resnet.py``):
+
+    * batch statistics in f32 over (N, H, W), with the biased variance, and
+      the input normalised with them in f32 and cast back to its type —
+      one fused call of torch's batch-norm kernel, which also returns the
+      statistics (flax takes the variance as E[x²] - E[x]², torch by a
+      running update: they differ by f32 rounding);
+    * running statistics ``(1 - momentum) * running + momentum * batch``
+      with torch's ``momentum`` = 0.1 = 1 - flax's 0.9, for the mean and
+      the *biased* variance (``nn.BatchNorm2d`` would blend in the
+      unbiased one).
+
+    Eval mode is ``nn.BatchNorm2d``'s, unchanged.  Train mode is meant for
+    a frozen backbone (the statistics are updated without a gradient)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            var = torch.clamp_min(torch.reciprocal(invstd * invstd)
+                                  - self.eps, 0.0)
+            m = self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * var)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 class Bottleneck(nn.Module):
     """torchvision-style bottleneck block (expansion 4, stride on the 3x3)."""
 
@@ -36,12 +69,12 @@ class Bottleneck(nn.Module):
                  downsample: nn.Module | None = None):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn1 = BatchNorm(planes, eps=1e-5)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
                                bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn2 = BatchNorm(planes, eps=1e-5)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(planes * 4, eps=1e-5)
+        self.bn3 = BatchNorm(planes * 4, eps=1e-5)
         self.downsample = downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -62,7 +95,7 @@ class ResNet(nn.Module):
         self.stage_sizes = tuple(stage_sizes)
         self.conv1 = nn.Conv2d(3, base_width, 7, stride=2, padding=3,
                                bias=False)
-        self.bn1 = nn.BatchNorm2d(base_width, eps=1e-5)
+        self.bn1 = BatchNorm(base_width, eps=1e-5)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         inplanes, planes = base_width, base_width
         for i, blocks in enumerate(self.stage_sizes):
@@ -71,7 +104,7 @@ class ResNet(nn.Module):
             downsample = nn.Sequential(
                 nn.Conv2d(inplanes, planes * 4, 1, stride=stride,
                           bias=False),
-                nn.BatchNorm2d(planes * 4, eps=1e-5))
+                BatchNorm(planes * 4, eps=1e-5))
             layers = [Bottleneck(inplanes, planes, stride, downsample)]
             inplanes = planes * 4
             layers += [Bottleneck(inplanes, planes)

@@ -44,28 +44,48 @@ def _nvcc() -> str:
     return path
 
 
+def _target(source: str) -> tuple:
+    src = os.path.join(_CSRC, source)
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
+                                ).hexdigest()[:16]
+    stem = os.path.splitext(source)[0]
+    return src, os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+
+
+def build(sources) -> None:
+    """Compile the libraries of ``sources`` that are not built yet, one
+    ``nvcc`` process each, all started together."""
+    with _lock:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        jobs = []
+        for source in sources:
+            src, out = _target(source)
+            if os.path.exists(out):
+                continue
+            tmp = f"{out}.{os.getpid()}.tmp"
+            jobs.append((source, out, tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for source, out, tmp, proc in jobs:
+            build_logs[source] = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(source)
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{s}:\n{build_logs[s]}" for s in failed))
+
+
 def load(source: str) -> ctypes.CDLL:
     """``csrc/<source>`` → loaded ``ctypes.CDLL`` (built once per process
     and once per source content)."""
+    if source not in _libs:
+        build([source])
     with _lock:
-        if source in _libs:
-            return _libs[source]
-        src = os.path.join(_CSRC, source)
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                    ).hexdigest()[:16]
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        stem = os.path.splitext(source)[0]
-        out = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
-        if not os.path.exists(out):
-            tmp = f"{out}.{os.getpid()}.tmp"
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                  capture_output=True, text=True)
-            build_logs[source] = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {source}:\n"
-                                   f"{build_logs[source]}")
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(out)
-        _libs[source] = lib
-        return lib
+        if source not in _libs:
+            _libs[source] = ctypes.CDLL(_target(source)[1])
+        return _libs[source]

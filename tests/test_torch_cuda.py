@@ -97,3 +97,74 @@ def test_serving_on_the_card_uses_the_kernel(cuda_device, tmp_path):
     assert torch.isfinite(verb_logits).all() and torch.isfinite(nouns).all()
     pv, _, _ = plain(images)
     assert (verb_logits - pv).abs().max().item() < 0.25
+
+
+# K3 against its twin, relative to the largest element of the twin's
+# output: a flipped bf16 da or dagg element propagates through the reverse
+# steps (the twin meets the JAX kernel to 2^-10 of it at d=128)
+BWD_REL_ATOL = 2 ** -5
+
+
+@pytest.mark.parametrize("b,r,d,verb", [(24, 6, 256, False),
+                                        (7, 6, 128, False),
+                                        (130, 1, 192, True)])
+def test_backward_pair_matches_twins(cuda_device, b, r, d, verb):
+    params, h, mask = _case(b, r, d, seed=b + d + 1, verb=verb)
+    weights = [w.to(cuda_device) for w in tk.fold_gate_weights(params,
+                                                               float(r))]
+    h, mask = h.to(cuda_device), mask.to(cuda_device)
+    before = (tk.folded_rows_res.launches, tk.folded_bwd_rows.launches)
+    out, res = tk.folded_rows_res(h, mask, weights, r, 4)
+    want_out, want_res = tk.folded_reference_res(h, mask, weights, r, 4)
+    for got, want in zip((out,) + res, (want_out,) + want_res):
+        assert (got.float() - want.float()).abs().max().item() <= KERNEL_ATOL
+    g = torch.randn(h.shape, generator=torch.Generator().manual_seed(b)).to(
+        torch.bfloat16).to(cuda_device)
+    wt = tk.transpose_folded(weights)
+    dh, da = tk.folded_bwd_rows(g, mask, res, wt, r, 4)
+    want_dh, want_da = tk.folded_bwd_reference(g, mask, res, wt, r, 4)
+    torch.cuda.synchronize()
+    assert (tk.folded_rows_res.launches,
+            tk.folded_bwd_rows.launches) == (before[0] + 1, before[1] + 1)
+    for got, want in ((dh, want_dh), (da, want_da)):
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= BWD_REL_ATOL * scale, (err, scale)
+
+
+def test_train_step_on_the_card_launches_the_kernels(cuda_device,
+                                                     monkeypatch):
+    """A bf16 train step and an eval step of the mini trainer on the card:
+    K1 once per train step (the gt branch) under both routes, K2 and K3
+    twice each under SRTPU_GGNN_BWD=pallas; K1 three times per eval
+    step."""
+    from situation_recognition_tpu_torch.data.encoder import ImsituEncoder
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+
+    enc = ImsituEncoder.synthetic_full(0)
+    rng = np.random.default_rng(0)
+    n = 4
+    verbs = rng.integers(0, 504, n)
+    labels = np.where(np.arange(6)[None, None, :]
+                      < enc.role_counts[verbs][:, None, None],
+                      rng.integers(0, 2001, (n, 3, 6)), 2001)
+    batch = {"images": rng.integers(0, 256, (n, 256, 256, 3),
+                                    dtype=np.uint8),
+             "flip": rng.random(n) < 0.5, "verbs": verbs, "labels": labels}
+    for route, k23 in (("xla", 0), ("pallas", 2)):
+        monkeypatch.setenv("SRTPU_GGNN_BWD", route)
+        tr = Trainer(enc, TrainerConfig(hidden=128, batch_size=n,
+                                        backbone="mini"))
+        assert tr.head.ggsnn.impl == "kernel"
+        before = (tk.folded_rows.launches, tk.folded_rows_res.launches,
+                  tk.folded_bwd_rows.launches)
+        _, _, losses = tr.train_epoch([batch], 0)
+        torch.cuda.synchronize()
+        assert np.isfinite(losses).all()
+        assert (tk.folded_rows.launches - before[0],
+                tk.folded_rows_res.launches - before[1],
+                tk.folded_bwd_rows.launches - before[2]) == (1, k23, k23)
+        before = tk.folded_rows.launches
+        _, _, val, _ = tr.evaluate([batch])
+        assert tk.folded_rows.launches - before == 3
+        assert all(np.isfinite(v) for v in val.values())

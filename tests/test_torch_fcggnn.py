@@ -83,9 +83,14 @@ def test_kernel_head_matches_jax_pallas_interpret():
 
 
 def test_kernel_impl_is_forward_only():
+    """The folded kernel K1 refuses a differentiated call; the head routes
+    those elsewhere (tests/test_torch_train_parts.py)."""
     _, _, _, head = _heads(64, "masked", "kernel")
     with pytest.raises(RuntimeError, match="forward-only"):
-        head.predict_verb(torch.zeros(2, 64))
+        head.ggsnn._kernel(torch.zeros(2, 6, 64), torch.ones(2, 6))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        head.ggsnn._kernel(torch.zeros(2, 1, 64, requires_grad=True)
+                           .to(torch.bfloat16), torch.zeros(2, 1))
 
 
 def test_folded_weights_follow_weight_updates():

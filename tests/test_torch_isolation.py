@@ -44,9 +44,9 @@ def test_no_jax_imports(path):
 
 def test_importing_the_port_loads_no_jax():
     modules = ["situation_recognition_tpu_torch." + m for m in (
-        "device", "convert", "serving", "server", "data.encoder",
-        "data.transforms", "ops.ggnn", "ops.ggnn_kernel", "ops._build",
-        "models.resnet", "models.fcggnn")]
+        "device", "convert", "serving", "server", "train", "data.encoder",
+        "data.transforms", "metrics.scorer", "ops.ggnn", "ops.ggnn_kernel",
+        "ops.ggnn_train", "ops._build", "models.resnet", "models.fcggnn")]
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
