@@ -41,6 +41,22 @@ Phases, each printing its seconds:
              for the gt branch; K2 and K3 twice each under ``pallas``,
              never under ``xla``) and per eval batch (K1 three times); 8
              finite scores in [0, 100]; training and eval img/s.
+6. vit     — ViT-L/14 + FCGGNN(1024) at full width (224², 257 tokens, 24
+             blocks, 16 heads, bf16, batch 256, random weights from
+             ``--seed``).  Kernels: K4 (qkv), K6 (out-MLP, both GELUs) and
+             the attention kernel as K7 and K5 (257-row stride, as the
+             paths call them; K7 also at the TPU stream's 264-row stride,
+             pad rows exactly zero; K5 also at 577 tokens, ViT-L/14 at
+             336²), both softmax flavours, each against its twin with
+             CUDA-event times, bounds, and SDPA on the same tensors as the
+             attention's yardstick.
+             Path: an artifact exported and loaded as in ``path``, batch 256
+             through the stream stack and through the per-block path
+             (``SRTPU_VIT_STREAM=0``) against the plain path on the card,
+             batch timing, a profile, and the batcher's bursts; then a
+             frozen-backbone ``Trainer``: train steps and an eval batch.
+             Fails unless K1, K4, K5, K6 and K7 launched there, as many
+             times as the paths call them.
 
 Then a ``kernels`` JSON line, the card's ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -106,8 +122,9 @@ BURSTS = 3
 # batch of the kernel phase's noun and verb shapes, of the throughput run
 # and of the trainer
 BATCH = 256
-# every kernel source of the serving and training paths
-SOURCES = ("ggnn_folded.cu", "ggnn_folded_bwd.cu")
+# every kernel source of the serving and training paths, ResNet and ViT
+SOURCES = ("ggnn_folded.cu", "ggnn_folded_bwd.cu", "vit_block.cu",
+           "vit_attention.cu")
 
 
 def _log(msg: str) -> None:
@@ -202,19 +219,22 @@ def _errors(got, want) -> tuple:
             (got == want).float().mean().item())
 
 
-def _shape_cases(enc, gen, batch):
+def _shape_cases(enc, gen, batch, d=None, ragged=True):
     import torch
 
+    d = D if d is None else d
     role_mask = torch.as_tensor(enc.role_mask)
-    for label, b, r in (("noun", batch, 6), ("verb", batch, 1),
-                        ("ragged", 7, 6)):
+    cases = [("noun", batch, 6), ("verb", batch, 1)]
+    if ragged:
+        cases.append(("ragged", 7, 6))
+    for label, b, r in cases:
         m = b * r
         if r == 1:
             mask = torch.zeros(m)
         else:
             verbs = torch.randint(0, enc.get_num_verbs(), (b,), generator=gen)
             mask = role_mask[verbs].reshape(-1)
-        h = torch.randn(m, D, generator=gen).to(torch.bfloat16).to(DEVICE)
+        h = torch.randn(m, d, generator=gen).to(torch.bfloat16).to(DEVICE)
         yield label, b, r, m, h, mask.to(DEVICE)
 
 
@@ -406,12 +426,93 @@ def _set_bn_statistics(backbone, x) -> None:
     backbone.eval()
 
 
+def _logit_errors(got, want) -> dict:
+    """Max abs differences of verb logits, and of noun logits where the
+    two argmax verbs agree, and whether the verb ids agree wherever the
+    plain path's top-2 margin exceeds ``LOGIT_TOL``."""
+    (vl, vi, nl), (pv, pi, pn) = got, want
+    same = vi == pi
+    top2 = pv.float().topk(2, dim=1).values
+    decided = (top2[:, 0] - top2[:, 1]) > LOGIT_TOL
+    return {"verb": (vl - pv).abs().max().item(),
+            "noun": (nl[same] - pn[same]).abs().max().item()
+            if same.any() else 0.0,
+            "verb_ids_agree": same.float().mean().item(),
+            "verb_ids_agree_where_decided": bool(same[decided].all()),
+            "tol": LOGIT_TOL}
+
+
+def _serve_bursts(fn, images, gt_verb: int) -> dict:
+    """``BURSTS`` rounds of one argmax request per image and one gt-verb
+    request through a ``DynamicBatcher`` over ``fn``: the last round's
+    answers, the wall time of each round, the batcher's statistics."""
+    import torch
+
+    from situation_recognition_tpu_torch.server import DynamicBatcher
+
+    batcher = DynamicBatcher(fn, max_batch=len(images), max_wait_ms=20)
+    try:
+        walls = []
+        for _ in range(BURSTS):
+            t0 = time.perf_counter()
+            futs = [batcher.submit(img) for img in images]
+            gt_fut = batcher.submit_gt(images[0], gt_verb)
+            rows = [f.result(timeout=300) for f in futs]
+            gt_row = gt_fut.result(timeout=300)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return {"rows": rows, "gt_row": gt_row, "walls": walls,
+                "stats": dict(batcher.stats),
+                "latency": batcher.latency_stats()}
+    finally:
+        batcher.close()
+
+
+def _check_bursts(bursts: dict, plain, images, gt_verb: int,
+                  tag: str) -> tuple:
+    """Shapes and finite values of the batcher's answers, and their
+    agreement with ``plain`` (the same weights on the plain paths) within
+    ``LOGIT_TOL``; verb ids must agree where the plain top-2 margin is
+    decisive.  Returns the verb, noun and gt-noun max abs differences."""
+    import numpy as np
+    import torch
+
+    n_req = len(images)
+    rows, gt_row = bursts["rows"], bursts["gt_row"]
+    verb_logits = np.stack([r["verb_logits"] for r in rows])
+    verb_ids = np.array([r["verb_id"] for r in rows])
+    nouns = np.stack([r["noun_logits"] for r in rows])
+    gt_nouns = gt_row["noun_logits"]
+    if (verb_logits.shape != (n_req, 504) or nouns.shape != (n_req, 6, 2001)
+            or gt_nouns.shape != (6, 2001)):
+        raise SystemExit(f"bad shapes {verb_logits.shape} {nouns.shape} "
+                         f"{gt_nouns.shape}")
+    for name, a in (("verb_logits", verb_logits), ("noun_logits", nouns),
+                    ("gt_noun_logits", gt_nouns)):
+        if not np.isfinite(a).all():
+            raise SystemExit(f"{name} has non-finite values")
+
+    errs = _logit_errors(
+        tuple(torch.from_numpy(a) for a in (verb_logits, verb_ids, nouns)),
+        tuple(x.cpu() for x in plain(images)))
+    pgt = plain.gt(images[:1], np.array([gt_verb]))[0].cpu().numpy()
+    gt_err = float(np.abs(gt_nouns - pgt).max())
+    _log(f"[{tag}] vs the plain path: verb max|d|={errs['verb']:.5f} "
+         f"noun max|d|={errs['noun']:.5f} gt-noun max|d|={gt_err:.5f} "
+         f"tol={LOGIT_TOL}; verb ids agree on "
+         f"{errs['verb_ids_agree'] * n_req:.0f}/{n_req}")
+    if max(errs["verb"], errs["noun"], gt_err) > LOGIT_TOL:
+        raise SystemExit("served logits disagree with the plain path")
+    if not errs["verb_ids_agree_where_decided"]:
+        raise SystemExit("verb ids disagree where the margin is decisive")
+    return errs["verb"], errs["noun"], gt_err
+
+
 def phase_path(enc, seed: int, batch: int, card: str) -> dict:
     import numpy as np
     import torch
 
     from situation_recognition_tpu_torch.ops import ggnn_kernel as tk
-    from situation_recognition_tpu_torch.server import DynamicBatcher
     from situation_recognition_tpu_torch.serving import (
         export_inference, load_inference)
 
@@ -442,60 +543,18 @@ def phase_path(enc, seed: int, batch: int, card: str) -> dict:
     fn.gt(images[:1], np.array([gt_verb]))
     torch.cuda.synchronize()
 
-    batcher = DynamicBatcher(fn, max_batch=n_req, max_wait_ms=20)
-    try:
-        tk.folded_rows.launches = 0
-        walls = []
-        for _ in range(BURSTS):
-            t0 = time.perf_counter()
-            futs = [batcher.submit(img) for img in images]
-            gt_fut = batcher.submit_gt(images[0], gt_verb)
-            rows = [f.result(timeout=300) for f in futs]
-            gt_row = gt_fut.result(timeout=300)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        launches = tk.folded_rows.launches
-        stats = dict(batcher.stats)
-        lat = batcher.latency_stats()
-    finally:
-        batcher.close()
+    tk.folded_rows.launches = 0
+    bursts = _serve_bursts(fn, images, gt_verb)
+    launches = tk.folded_rows.launches
+    stats, lat, walls = bursts["stats"], bursts["latency"], bursts["walls"]
     # one gt dispatch (one propagate) per burst, the rest argmax (two each)
     expected = 2 * (stats["dispatches"] - BURSTS) + BURSTS
     _log(f"[path] dispatches={stats['dispatches']} "
          f"ggnn_folded launches={launches} expected={expected}")
     if launches != expected or launches == 0:
         raise SystemExit(f"kernel launches {launches} != {expected}")
-
-    verb_logits = np.stack([r["verb_logits"] for r in rows])
-    verb_ids = np.array([r["verb_id"] for r in rows])
-    nouns = np.stack([r["noun_logits"] for r in rows])
-    gt_nouns = gt_row["noun_logits"]
-    if (verb_logits.shape != (n_req, 504) or nouns.shape != (n_req, 6, 2001)
-            or gt_nouns.shape != (6, 2001)):
-        raise SystemExit(f"bad shapes {verb_logits.shape} {nouns.shape} "
-                         f"{gt_nouns.shape}")
-    for name, a in (("verb_logits", verb_logits), ("noun_logits", nouns),
-                    ("gt_noun_logits", gt_nouns)):
-        if not np.isfinite(a).all():
-            raise SystemExit(f"{name} has non-finite values")
-
-    pv, pids, pn = (x.cpu().numpy() for x in plain(images))
-    pgt = plain.gt(images[:1], np.array([gt_verb]))[0].cpu().numpy()
-    verb_err = float(np.abs(verb_logits - pv).max())
-    gt_err = float(np.abs(gt_nouns - pgt).max())
-    top2 = np.sort(pv, axis=1)[:, -2:]
-    decided = (top2[:, 1] - top2[:, 0]) > LOGIT_TOL
-    same_verb = verb_ids == pids
-    noun_err = (float(np.abs(nouns[same_verb] - pn[same_verb]).max())
-                if same_verb.any() else 0.0)
-    _log(f"[path] vs masked plain path: verb max|d|={verb_err:.5f} "
-         f"noun max|d|={noun_err:.5f} gt-noun max|d|={gt_err:.5f} "
-         f"tol={LOGIT_TOL}; verb ids agree on {int(same_verb.sum())}/"
-         f"{n_req} ({int(decided.sum())} with top-2 margin > tol)")
-    if max(verb_err, noun_err, gt_err) > LOGIT_TOL:
-        raise SystemExit("served logits disagree with the plain path")
-    if not same_verb[decided].all():
-        raise SystemExit("verb ids disagree where the margin is decisive")
+    verb_err, noun_err, gt_err = _check_bursts(bursts, plain, images,
+                                               gt_verb, "path")
 
     # throughput at the kernel phase's batch, through the served model
     big = torch.from_numpy(rng.integers(0, 256, (batch, 256, 256, 3),
@@ -595,7 +654,7 @@ def _fixed_verb_grads(trainer, batch) -> dict:
     return {"grad_rel": rel, "verb_argmax_agree": agree}
 
 
-def _profile(label: str, fn) -> list:
+def _profile(label: str, fn, tag: str = "train") -> dict:
     """Device time of ``fn()`` by kernel name (torch.profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -617,10 +676,10 @@ def _profile(label: str, fn) -> list:
             rows.append((dev_us / 1e3, ev.count, ev.key[:90]))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    _log(f"[train] profile of {label}: device time {total:.3f} ms over "
+    _log(f"[{tag}] profile of {label}: device time {total:.3f} ms over "
          f"{len(rows)} kernel names; top 15:")
     for ms, count, key in rows[:15]:
-        _log(f"[train]   {ms:9.3f} ms  x{count:<5d} {key}")
+        _log(f"[{tag}]   {ms:9.3f} ms  x{count:<5d} {key}")
     return {"device_ms": total,
             "top": [{"ms": ms, "count": c, "kernel": k}
                     for ms, c, k in rows[:25]]}
@@ -760,6 +819,456 @@ def phase_train(enc, seed: int, batch: int) -> dict:
     return result
 
 
+# ----------------------------------------------------------------- the ViT
+
+VIT, VIT_D, VIT_HEADS, VIT_DEPTH, VIT_IMAGE = "vit_l14", 1024, 16, 24, 224
+VIT_N = (VIT_IMAGE // 14) ** 2 + 1            # 257 tokens
+# 264: the rows per example of the TPU's padded stream, a layout K7 takes
+VIT_N8 = -(-VIT_N // 8) * 8
+# the attention at ViT-L/14 at 336² (577 tokens), at a quarter batch
+VIT_LONG_N, VIT_LONG_BATCH = (336 // 14) ** 2 + 1, 64
+# the ViT kernels vs their twins, relative to the largest |element| of the
+# twin's output: the same bf16 operands with f32 sums in other orders flip
+# the last bit of a bf16 output now and then (2^-7 of its size at most) —
+# in q/k/v, in the bf16 probabilities or GELU values feeding the next
+# product; a wrong tile moves elements by the order of the largest one and
+# the mean error with it
+VIT_MAX_REL = 2 ** -6
+VIT_MEAN_REL = 2 ** -10
+# train steps (the first warms the trainer) and eval batches of the ViT
+VIT_TRAIN_STEPS, VIT_EVAL_BATCHES = 2, 1
+
+
+def _vit_counts() -> dict:
+    from situation_recognition_tpu_torch.ops import ggnn_kernel as tk
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+
+    return {"K1": tk.folded_rows.launches,
+            "K4": vk.vit_qkv_forward.launches,
+            "K5": vk.vit_attention_forward.launches,
+            "K6": vk.vit_out_mlp_forward.launches,
+            "K7": vk.vit_attention_stream_forward.launches}
+
+
+def _zero_vit_counts() -> None:
+    from situation_recognition_tpu_torch.ops import ggnn_kernel as tk
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+
+    tk.folded_rows.launches = 0
+    for w in (vk.vit_qkv_forward, vk.vit_attention_forward,
+              vk.vit_out_mlp_forward, vk.vit_attention_stream_forward):
+        w.launches = 0
+
+
+def _rel_errors(got, want) -> dict:
+    diff = (got.float() - want.float()).abs()
+    scale = want.float().abs().max().item()
+    return {"max": diff.max().item(), "mean": diff.mean().item(),
+            "equal_share": (got == want).float().mean().item(),
+            "scale": scale, "max_rel": diff.max().item() / scale,
+            "mean_rel": diff.mean().item() / scale}
+
+
+def _vit_row(name, shape, errs, ms, plain_ms, bound, library_ms=None,
+             **extra) -> dict:
+    bound_ms, bound_by, flops, nbytes = bound
+    row = {"shape": shape, "errors": errs,
+           "max_abs_err": max(e["max"] for e in errs.values()),
+           "tol_max_rel": VIT_MAX_REL, "tol_mean_rel": VIT_MEAN_REL,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "flop": flops,
+           "bytes": nbytes, "tflops": flops / ms / 1e9, **extra}
+    _log(f"[vit] {name} " + json.dumps(row))
+    bad = [k for k, e in errs.items()
+           if e["max_rel"] > VIT_MAX_REL or e["mean_rel"] > VIT_MEAN_REL]
+    if bad:
+        raise SystemExit(f"{name} disagrees with its twin at {shape}: {bad}")
+    return row
+
+
+def _k1_rows_at(enc, gen, batch: int, d: int) -> list:
+    """K1 against its twin at the noun and verb shapes of a head of width
+    ``d``, timed, with its bound."""
+    import torch
+
+    from situation_recognition_tpu_torch.ops import ggnn_kernel as tk
+
+    params = _ggnn_params(d, gen)
+    rows = []
+    for label, b, r, m, h, mask in _shape_cases(enc, gen, batch, d,
+                                                ragged=False):
+        weights = tk.fold_gate_weights(params, float(r))
+        want = tk.folded_reference(h, mask, weights, r, STEPS)
+        got = tk.folded_rows(h, mask, weights, r, STEPS)
+        torch.cuda.synchronize()
+        err, mean_err, same = _errors(got, want)
+        ms = _time_ms(lambda: tk.folded_rows(h, mask, weights, r, STEPS), 20)
+        plain_ms = _time_ms(
+            lambda: tk.folded_reference(h, mask, weights, r, STEPS), 5, 1)
+        bound_ms, bound_by, flops, nbytes = _folded_bound(m, d, r, STEPS,
+                                                          mask)
+        row = {"shape": f"{label} B={b} R={r} M={m} d={d} steps={STEPS}",
+               "max_abs_err": err, "mean_abs_err": mean_err,
+               "equal_share": same, "tol_max": KERNEL_MAX_TOL,
+               "tol_mean": KERNEL_MEAN_TOL, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "flop": flops,
+               "bytes": nbytes, "tflops": flops / ms / 1e9}
+        _log("[vit] K1 " + json.dumps(row))
+        if err > KERNEL_MAX_TOL or mean_err > KERNEL_MEAN_TOL:
+            raise SystemExit(f"GGNN kernel disagrees with its twin at "
+                             f"{row['shape']}: max {err} mean {mean_err}")
+        rows.append(row)
+    return rows
+
+
+def _attention_row(kname: str, q, k, v, batch: int, n: int, stride: int,
+                   heads: int) -> dict:
+    """The attention kernel through K5's wrapper (``stride == n``) or K7's
+    against its twin in both softmax flavours (pad rows exactly zero),
+    timed with CUDA events beside its bound and SDPA on the same real
+    rows as (B, h, N, 64) tensors."""
+    import torch
+    import torch.nn.functional as F
+
+    from situation_recognition_tpu_torch.ops import vit as tv
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+
+    d = q.shape[1]
+    if kname == "K5":
+        def call(folded):
+            return vk.vit_attention_forward(
+                *(t.reshape(batch, n, d) for t in (q, k, v)), heads,
+                folded).reshape(-1, d)
+    else:
+        def call(folded):
+            return vk.vit_attention_stream_forward(q, k, v, heads, folded,
+                                                   stride, n)
+    scale = 1.0 / 8.0
+    rows = {}
+    for flavour, folded in (("exp2", True), ("softmax", False)):
+        want = tv.attn_core_reference(q, k, v, heads, scale, folded, stride,
+                                      n)
+        got = call(folded)
+        torch.cuda.synchronize()
+        errs = _rel_errors(got, want)
+        pad_zero = bool((got.reshape(batch, stride, d)[:, n:] == 0).all())
+        del got, want
+        if not pad_zero:
+            raise SystemExit(f"{kname} wrote nonzero pad rows")
+        rows[flavour] = {
+            "errors": errs, "pad_rows_zero": pad_zero,
+            "ms": _time_ms(lambda: call(folded), 10),
+            "plain_ms": _time_ms(lambda: tv.attn_core_reference(
+                q, k, v, heads, scale, folded, stride, n), 3, 1)}
+    flops = 4 * batch * heads * n * n * (d // heads)
+    nbytes = 3 * batch * n * d * 2 + batch * stride * d * 2
+    q4, k4, v4 = (t.reshape(batch, stride, heads, d // heads)[:, :n]
+                  .transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4),
+                       10)
+    del q4, k4, v4
+    head = rows["exp2"]
+    return _vit_row(
+        f"{kname} attention", f"B={batch} heads={heads} N={n} "
+        f"row_stride={stride} dh={d // heads} exp2",
+        {f"{f}:ctx": r["errors"] for f, r in rows.items()},
+        head["ms"], head["plain_ms"], _bound(flops, nbytes),
+        library_ms=sdpa_ms, softmax_ms=rows["softmax"]["ms"],
+        softmax_plain_ms=rows["softmax"]["plain_ms"],
+        pad_rows_zero=all(r["pad_rows_zero"] for r in rows.values()))
+
+
+def phase_vit_kernel(enc, seed: int, batch: int) -> dict:
+    """K4, K5/K7 and K6 against their twins on the card at the shapes the
+    ViT-L/14 paths give them (batch 256, 257 tokens: a stream of
+    256·257 rows), timed with CUDA events beside their bounds; the
+    attention also in the TPU stream's padded layout (264-row stride) and
+    at 577 tokens (ViT-L/14 at 336²), with SDPA on the same (B, h, N, 64)
+    tensors as its library yardstick; and K1 at the head width 1024 that
+    the ViT gives it."""
+    import torch
+    import torch.nn.functional as F
+
+    from situation_recognition_tpu_torch.ops import vit as tv
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+
+    gen = torch.Generator().manual_seed(seed + 7)
+    d, hid, h, n, n8 = VIT_D, 4 * VIT_D, VIT_HEADS, VIT_N, VIT_N8
+
+    def rnd(*shape, scale=1.0, base=0.0):
+        return base + torch.randn(shape, generator=gen) * scale
+
+    bound = 1.0 / d ** 0.5
+    w = vk.kernel_weights(tv.BlockWeights(
+        rnd(d, base=1.0, scale=0.05), rnd(d, scale=0.05),
+        rnd(3 * d, d, scale=bound), rnd(3 * d, scale=bound),
+        rnd(d, d, scale=bound), rnd(d, scale=bound),
+        rnd(d, base=1.0, scale=0.05), rnd(d, scale=0.05),
+        rnd(hid, d, scale=bound), rnd(hid, scale=bound),
+        rnd(d, hid, scale=hid ** -0.5), rnd(d, scale=bound)))
+    w = tv.BlockWeights(*(t.to(DEVICE) for t in w))
+    m = batch * n
+    x = rnd(m, d).to(torch.bfloat16).to(DEVICE)
+    out = {}
+
+    # K4 on the stream
+    want = tv.qkv_reference(x, w, 1e-6)
+    got = vk.vit_qkv_forward(x, w, 1e-6)
+    torch.cuda.synchronize()
+    errs = {k: _rel_errors(g, t) for k, g, t in zip("qkv", got, want)}
+    del got, want
+    flops = 6 * m * d * d
+    nbytes = m * d * 2 + 3 * d * d * 2 + 5 * d * 4 + 3 * m * d * 2
+    out["K4"] = _vit_row(
+        "K4 qkv", f"M={m} (B={batch} x {n}) D={d}", errs,
+        _time_ms(lambda: vk.vit_qkv_forward(x, w, 1e-6), 10),
+        _time_ms(lambda: tv.qkv_reference(x, w, 1e-6), 3, 1),
+        _bound(flops, nbytes))
+
+    # K7 and K5 at the paths' shapes (stride 257), both softmax flavours;
+    # q, k, v from K4 so that the scores have its spread
+    q, k, v = vk.vit_qkv_forward(x, w, 1e-6)
+    out["K7"] = [_attention_row("K7", q, k, v, batch, n, n, h)]
+    out["K5"] = [_attention_row("K5", q, k, v, batch, n, n, h)]
+    # the TPU stream's layout, which K7 also takes: 264 rows per example,
+    # the pad rows never read and written as exactly zero
+    def padded(t):
+        return F.pad(t.reshape(batch, n, d), (0, 0, 0, n8 - n)).reshape(-1, d)
+
+    out["K7"].append(_attention_row("K7", *(padded(t) for t in (q, k, v)),
+                                    batch, n, n8, h))
+    ctx = vk.vit_attention_stream_forward(q, k, v, h, True, n, n)
+    del q, k, v
+    # ViT-L/14 at 336²: 577 tokens, ten key tiles per query tile
+    xl = rnd(VIT_LONG_BATCH * VIT_LONG_N, d).to(torch.bfloat16).to(DEVICE)
+    out["K5"].append(_attention_row(
+        "K5", *vk.vit_qkv_forward(xl, w, 1e-6), VIT_LONG_BATCH, VIT_LONG_N,
+        VIT_LONG_N, h))
+    del xl
+
+    # K6 on the stream, both GELUs
+    flops = 18 * m * d * d
+    nbytes = 2 * m * d * 2 + 9 * d * d * 2 + (4 * d + hid) * 4 + m * d * 2
+    errs, times = {}, {}
+    for flavour, quick in (("erf", False), ("quick", True)):
+        want = tv.out_mlp_reference(x, ctx, w, 1e-6, quick)
+        got = vk.vit_out_mlp_forward(x, ctx, w, 1e-6, quick)
+        torch.cuda.synchronize()
+        errs[f"{flavour}:out"] = _rel_errors(got, want)
+        del got, want
+        times[flavour] = (
+            _time_ms(lambda: vk.vit_out_mlp_forward(x, ctx, w, 1e-6, quick),
+                     10),
+            _time_ms(lambda: tv.out_mlp_reference(x, ctx, w, 1e-6, quick),
+                     3, 1))
+    out["K6"] = _vit_row(
+        "K6 out-MLP", f"M={m} (B={batch} x {n}) D={d} H={hid} erf", errs,
+        times["erf"][0], times["erf"][1], _bound(flops, nbytes),
+        quick_ms=times["quick"][0], quick_plain_ms=times["quick"][1])
+    del x, ctx
+    out["K1"] = _k1_rows_at(enc, gen, batch, d)
+    return out
+
+
+def _random_vit_model(enc, seed: int):
+    """ViT-L/14 + FCGGNN(1024) at bf16 with random weights from ``seed``,
+    on the host."""
+    import torch
+
+    from situation_recognition_tpu_torch.serving import SituationModel
+
+    model = SituationModel(enc, backbone=VIT, hidden=VIT_D,
+                           image_size=VIT_IMAGE, dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(seed)
+    model.backbone.reset_parameters(gen)
+    model.head.reset_parameters(gen)
+    return model.eval()
+
+
+def phase_vit_path(enc, seed: int, batch: int, card: str) -> dict:
+    """The ViT serving path: an artifact exported from ``--seed`` weights,
+    loaded on the card; batch 256 through the stream stack and the
+    per-block path against the plain path on the card; batch timing and a
+    profile; the batcher's bursts.  The kernel counts are zeroed before
+    each path and read after it."""
+    import numpy as np
+    import torch
+
+    from situation_recognition_tpu_torch.serving import (
+        export_inference, load_inference)
+
+    n_req = 8
+    t = time.perf_counter()
+    model = _random_vit_model(enc, seed)
+    tmp = tempfile.mkdtemp(prefix="srtorch_vit_artifact_")
+    try:
+        export_inference(model, tmp, batch_size=n_req)
+        del model
+        fn = load_inference(tmp, device="cuda")
+        plain = load_inference(tmp, device="cuda", ggnn_impl="masked",
+                               block_impl="plain")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _phase("vit: random weights + export + load", t)
+    vit = fn.model.backbone
+    if vit.resolved_impl(DEVICE) != "kernel" or \
+            fn.model.head.ggsnn.impl != "kernel":
+        raise SystemExit(f"the served ViT did not resolve to the kernels: "
+                         f"{vit.resolved_impl(DEVICE)}, "
+                         f"{fn.model.head.ggsnn.impl}")
+    if (vit.width, vit.depth, vit.heads, vit.n_tokens) != (
+            VIT_D, VIT_DEPTH, VIT_HEADS, VIT_N):
+        raise SystemExit("not the full-width ViT-L/14")
+
+    rng = np.random.default_rng(seed + 11)
+    big = torch.from_numpy(rng.integers(0, 256, (batch, 256, 256, 3),
+                                        dtype=np.uint8)).cuda()
+    result = {"card": card, "batch": batch, "launches": {}}
+    old_env = os.environ.get("SRTPU_VIT_STREAM")
+    try:
+        with torch.inference_mode():
+            want = plain.model.serve(big)
+            feats_plain = plain.model.features(big)
+            for label, stream in (("stream", "1"), ("block", "0")):
+                os.environ["SRTPU_VIT_STREAM"] = stream
+                fn.model.serve(big)                       # warm-up
+                torch.cuda.synchronize()
+                _zero_vit_counts()
+                got = fn.model.serve(big)
+                torch.cuda.synchronize()
+                result["launches"][label] = _vit_counts()
+                errs = _logit_errors(got, want)
+                feats = fn.model.features(big)
+                errs["features_rel"] = ((feats - feats_plain).norm()
+                                        / feats_plain.norm()).item()
+                t0 = time.perf_counter()
+                reps = 3 if label == "stream" else 1
+                for _ in range(reps):
+                    last = fn.model.serve(big)
+                torch.cuda.synchronize()
+                per_batch = (time.perf_counter() - t0) / reps
+                if not all(torch.isfinite(x).all() for x in (last[0],
+                                                             last[2])):
+                    raise SystemExit(f"non-finite logits on the {label} "
+                                     f"path")
+                result[label] = {"errors": errs,
+                                 "batch_ms": per_batch * 1e3,
+                                 "img_per_s": batch / per_batch}
+                _log(f"[vit] serve {label} " + json.dumps(
+                    {"launches": result["launches"][label],
+                     **result[label]}))
+                if max(errs["verb"], errs["noun"]) > LOGIT_TOL or not \
+                        errs["verb_ids_agree_where_decided"]:
+                    raise SystemExit(f"the {label} path disagrees with the "
+                                     f"plain path")
+            os.environ["SRTPU_VIT_STREAM"] = "1"
+            result["profile"] = _profile(
+                "one served batch (stream)",
+                lambda: fn.model.serve(big), tag="vit")
+    finally:
+        if old_env is None:
+            os.environ.pop("SRTPU_VIT_STREAM", None)
+        else:
+            os.environ["SRTPU_VIT_STREAM"] = old_env
+    per_call = {"K1": 2, "K4": VIT_DEPTH, "K6": VIT_DEPTH}
+    want_counts = {"stream": {**per_call, "K5": 0, "K7": VIT_DEPTH},
+                   "block": {**per_call, "K5": VIT_DEPTH, "K7": 0}}
+    if result["launches"] != want_counts:
+        raise SystemExit(f"ViT path launches {result['launches']}, want "
+                         f"{want_counts}")
+
+    images = rng.integers(0, 256, (n_req, 256, 256, 3), dtype=np.uint8)
+    gt_verb = int(rng.integers(0, enc.get_num_verbs()))
+    fn(images)
+    fn.gt(images[:1], np.array([gt_verb]))
+    torch.cuda.synchronize()
+    _zero_vit_counts()
+    bursts = _serve_bursts(fn, images, gt_verb)
+    result["launches"]["batcher"] = _vit_counts()
+    # every dispatch runs the encoder once; one gt dispatch (one propagate)
+    # per burst, the rest argmax (two each)
+    dispatches = bursts["stats"]["dispatches"]
+    want_batcher = {"K1": 2 * (dispatches - BURSTS) + BURSTS, "K5": 0,
+                    **{k: VIT_DEPTH * dispatches for k in ("K4", "K6",
+                                                           "K7")}}
+    if result["launches"]["batcher"] != want_batcher:
+        raise SystemExit(f"ViT batcher launches "
+                         f"{result['launches']['batcher']}, want "
+                         f"{want_batcher}")
+    _check_bursts(bursts, plain, images, gt_verb, "vit")
+    result["batcher"] = {"burst_wall_s": bursts["walls"],
+                         "latency_ms": bursts["latency"],
+                         "dispatches": bursts["stats"]["dispatches"],
+                         "launches": result["launches"]["batcher"]}
+    _log("[vit] batcher " + json.dumps(result["batcher"]))
+    return result
+
+
+def phase_vit_train(enc, seed: int, batch: int) -> dict:
+    """A frozen-backbone ViT-L/14 ``Trainer`` at batch 256: train steps
+    and an eval batch, their launches, losses, scores and img/s."""
+    import numpy as np
+    import torch
+
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+
+    trainer = Trainer(enc, TrainerConfig(
+        hidden=VIT_D, batch_size=batch, backbone=VIT,
+        image_size=VIT_IMAGE, compute_dtype=torch.bfloat16, seed=seed),
+        device=DEVICE)
+    if trainer.backbone.resolved_impl(DEVICE) != "kernel" or \
+            trainer.head.ggsnn.impl != "kernel":
+        raise SystemExit("the ViT trainer did not resolve to the kernels")
+    batches = _train_batches(enc, seed + 3, batch,
+                             VIT_TRAIN_STEPS + VIT_EVAL_BATCHES)
+    steps, losses = [], []
+    for i in range(VIT_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        _zero_vit_counts()
+        t0 = time.perf_counter()
+        _, _, step_losses = trainer.train_epoch([batches[i]], i)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "launches": _vit_counts()})
+        losses.append(list(step_losses))
+    _zero_vit_counts()
+    t0 = time.perf_counter()
+    top1, top5, val_losses, avg = trainer.evaluate(
+        batches[VIT_TRAIN_STEPS:], logging=True)
+    torch.cuda.synchronize()
+    eval_s = (time.perf_counter() - t0) / VIT_EVAL_BATCHES
+    eval_launches = _vit_counts()
+    scores = [100 * v for v in (
+        list(top1.get_average_results_both().values())
+        + list(top5.get_average_results_both().values()))]
+    last = steps[-1]["ms"]
+    result = {"steps": steps, "losses": losses, "val_losses": val_losses,
+              "scores": scores, "mean_of_eight": avg,
+              "train_step_ms": last, "train_img_per_s": batch / last * 1e3,
+              "eval_batch_ms": eval_s * 1e3,
+              "eval_img_per_s": batch / eval_s,
+              "eval_launches": eval_launches,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    _log("[vit] train " + json.dumps(result))
+    if not np.isfinite(np.asarray(losses)).all() or not all(
+            np.isfinite(v) for v in val_losses.values()):
+        raise SystemExit("non-finite ViT trainer losses")
+    if len(scores) != 8 or not all(0 <= v <= 100 for v in scores):
+        raise SystemExit(f"bad ViT trainer scores: {scores}")
+    per_step = {"K1": 1, "K4": VIT_DEPTH, "K5": 0, "K6": VIT_DEPTH,
+                "K7": VIT_DEPTH}
+    if any(s["launches"] != per_step for s in steps):
+        raise SystemExit(f"ViT train-step launches "
+                         f"{[s['launches'] for s in steps]}, want {per_step}")
+    per_eval = {"K1": 3 * VIT_EVAL_BATCHES, "K4": VIT_DEPTH * VIT_EVAL_BATCHES,
+                "K5": 0, "K6": VIT_DEPTH * VIT_EVAL_BATCHES,
+                "K7": VIT_DEPTH * VIT_EVAL_BATCHES}
+    if eval_launches != per_eval:
+        raise SystemExit(f"ViT eval launches {eval_launches}, want "
+                         f"{per_eval}")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -821,15 +1330,51 @@ def main(argv=None) -> int:
     if not all(train_launches.values()):
         raise SystemExit(f"a kernel of the training path never launched: "
                          f"{train_launches}")
+
+    t = time.perf_counter()
+    vit_kernel = phase_vit_kernel(enc, args.seed, BATCH)
+    _phase("vit kernel", t)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    vit_path = phase_vit_path(enc, args.seed, BATCH, smi)
+    _phase("vit path", t)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    vit_train = phase_vit_train(enc, args.seed, BATCH)
+    _phase("vit train", t)
+    vit_launches = {k: {path: c[k] for path, c in (
+        ("serve_stream", vit_path["launches"]["stream"]),
+        ("serve_block", vit_path["launches"]["block"]),
+        ("batcher", vit_path["launches"]["batcher"]),
+        ("train", vit_train["steps"][-1]["launches"]))}
+        for k in ("K1", "K4", "K5", "K6", "K7")}
+    for k, by_path in vit_launches.items():
+        if not sum(by_path.values()):
+            raise SystemExit(f"{k} never launched on the ViT path")
+
+    vit_pallas = "vit_pallas.py"
     print(json.dumps({"kernels": [
-        _kernel_line("ggnn_folded", "ggnn_folded.cu", 217, kernel["shapes"],
+        _kernel_line("ggnn_folded", "ggnn_folded.cu", 217,
+                     kernel["shapes"] + vit_kernel["K1"],
                      {"serve": path["launches"],
-                      "train": train_launches["K1"]}),
+                      "train": train_launches["K1"],
+                      **{f"vit_{p}": c
+                         for p, c in vit_launches["K1"].items()}}),
         _kernel_line("ggnn_folded_res", "ggnn_folded.cu", 492,
                      kernel["res_shapes"], {"train": train_launches["K2"]}),
         _kernel_line("ggnn_folded_bwd", "ggnn_folded_bwd.cu", 521,
                      kernel["bwd_shapes"], {"train": train_launches["K3"]},
                      routes=kernel["routes"]),
+        _kernel_line("vit_qkv", "vit_block.cu", 159, [vit_kernel["K4"]],
+                     vit_launches["K4"], replaces=vit_pallas),
+        _kernel_line("vit_attention_block", "vit_attention.cu", 174,
+                     vit_kernel["K5"], vit_launches["K5"],
+                     replaces=vit_pallas),
+        _kernel_line("vit_out_mlp", "vit_block.cu", 218, [vit_kernel["K6"]],
+                     vit_launches["K6"], replaces=vit_pallas),
+        _kernel_line("vit_attention_stream", "vit_attention.cu", 308,
+                     vit_kernel["K7"], vit_launches["K7"],
+                     replaces=vit_pallas),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -838,19 +1383,22 @@ def main(argv=None) -> int:
     return 0
 
 
-def _kernel_line(name, source, line, shapes, launches, **extra) -> dict:
-    """One entry of the ``kernels`` line, timed at the noun shape."""
+def _kernel_line(name, source, line, shapes, launches,
+                 replaces="ggnn_pallas.py", **extra) -> dict:
+    """One entry of the ``kernels`` line, timed at the first shape (the
+    noun shape of the GGNN kernels) of ``shapes``; ``replaces`` is the
+    TPU kernel's file under ``situation_recognition_tpu/ops``."""
     head = shapes[0]
     return {"name": name, "route": "cuda",
             "source": f"situation_recognition_tpu_torch/csrc/{source}",
-            "replaces": f"situation_recognition_tpu/ops/ggnn_pallas.py:{line}",
+            "replaces": f"situation_recognition_tpu/ops/{replaces}:{line}",
             "launches": sum(launches.values()),
             "launches_by_path": launches, "checked": True,
             "max_abs_err": max(s["max_abs_err"] for s in shapes),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": None, "timed_shape": head["shape"],
-            "shapes": shapes, **extra}
+            "library_ms": head.get("library_ms"),
+            "timed_shape": head["shape"], "shapes": shapes, **extra}
 
 
 if __name__ == "__main__":

@@ -9,9 +9,14 @@ counterpart to be held against:
                  multi-step kernels in CUDA (``csrc/ggnn_folded.cu``: K1
                  forward and K2 forward with residuals;
                  ``csrc/ggnn_folded_bwd.cu``: K3 backward) with their plain
-                 PyTorch twins, and the K2/K3 autograd Function.
-* ``models``   — the ResNet v1.5 backbone (eval- and train-mode BN) and
-                 the FCGGNN head with its losses.
+                 PyTorch twins, and the K2/K3 autograd Function; the ViT
+                 encoder block's kernels (``csrc/vit_block.cu``: K4 and
+                 K6; ``csrc/vit_attention.cu``: K5/K7) with their twins
+                 (``ops/vit.py``) and encoder paths (``ops/vit_kernel.py``).
+* ``models``   — the ResNet v1.5 backbone (eval- and train-mode BN), the
+                 ViT backbones (``vit_l14``, ``vit_l14_clip``, ``vit_b16``,
+                 ``vit_tiny``), ``build_backbone``, and the FCGGNN head
+                 with its losses.
 * ``metrics``  — the imSitu scorer.
 * ``train``    — ``Trainer``: train and eval steps, ``train_epoch``,
                  ``evaluate``.

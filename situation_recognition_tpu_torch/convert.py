@@ -19,10 +19,16 @@ So a reference ``model_state_dict`` splits into the two with
 * BatchNorm ``scale``/``bias``/``mean``/``var`` → ``weight``/``bias``/
   ``running_mean``/``running_var``, with ``num_batches_tracked`` 0.
 
+A ViT's tree converts with ``vit_state_from_jax`` into torchvision's
+``VisionTransformer`` layout (``models/vit.py``): the flax
+``DenseGeneral`` q/k/v kernels (D, h, dh) become the packed (3D, D)
+``in_proj_weight``, the out kernel (h, dh, D) ``out_proj.weight``.
+
 Inputs are nested dicts of numpy arrays (or anything ``np.asarray``
-takes); nothing here imports JAX.  ``head_params_to_jax`` and
-``resnet_stats_to_jax`` go the other way, so that parameters and BN
-statistics can be compared with the JAX trainer's after training steps.
+takes); nothing here imports JAX.  ``head_params_to_jax``,
+``resnet_stats_to_jax`` and ``vit_params_to_jax`` go the other way, so
+that parameters and BN statistics can be compared with the JAX trainer's
+after training steps.
 """
 
 from __future__ import annotations
@@ -156,4 +162,94 @@ def resnet_stats_to_jax(backbone_state: Mapping) -> dict:
         block = out.setdefault(f"{parts[0]}_{parts[1]}", {})
         name = "downsample_bn" if parts[2] == "downsample" else parts[2]
         block[name] = stats
+    return out
+
+
+_QKV = ("query", "key", "value")
+
+
+def vit_state_from_jax(params: Mapping) -> OrderedDict:
+    """flax params of ``models/vit.py`` ``ViT`` (either variant) → the
+    port's ViT state dict in torchvision's layout."""
+    out: OrderedDict = OrderedDict()
+    d = int(np.asarray(params["cls_token"]).shape[-1])
+    out["class_token"] = _t(params["cls_token"])
+    out["conv_proj.weight"] = _t(params["patch_embed"]["kernel"],
+                                 (3, 2, 0, 1))
+    if "bias" in params["patch_embed"]:
+        out["conv_proj.bias"] = _t(params["patch_embed"]["bias"])
+    if "ln_pre" in params:
+        out["ln_pre.weight"] = _t(params["ln_pre"]["scale"])
+        out["ln_pre.bias"] = _t(params["ln_pre"]["bias"])
+    out["encoder.pos_embedding"] = _t(params["pos_embed"])
+    blocks = sorted(int(k[len("block"):]) for k in params
+                    if k.startswith("block"))
+    if not blocks:
+        raise ValueError("no ViT blocks in the params tree")
+    for i in blocks:
+        p = params[f"block{i}"]
+        dst = f"encoder.layers.encoder_layer_{i}"
+        a = p["attn"]
+        out[f"{dst}.ln_1.weight"] = _t(p["ln1"]["scale"])
+        out[f"{dst}.ln_1.bias"] = _t(p["ln1"]["bias"])
+        out[f"{dst}.self_attention.in_proj_weight"] = torch.cat([
+            _t(np.asarray(a[n]["kernel"]).reshape(d, d), (1, 0))
+            for n in _QKV])
+        out[f"{dst}.self_attention.in_proj_bias"] = torch.cat([
+            _t(np.asarray(a[n]["bias"]).reshape(d)) for n in _QKV])
+        out[f"{dst}.self_attention.out_proj.weight"] = _t(
+            np.asarray(a["out"]["kernel"]).reshape(d, d), (1, 0))
+        out[f"{dst}.self_attention.out_proj.bias"] = _t(a["out"]["bias"])
+        out[f"{dst}.ln_2.weight"] = _t(p["ln2"]["scale"])
+        out[f"{dst}.ln_2.bias"] = _t(p["ln2"]["bias"])
+        for fc, idx in (("fc1", 0), ("fc2", 3)):
+            out[f"{dst}.mlp.{idx}.weight"] = _t(p["mlp"][fc]["kernel"],
+                                                (1, 0))
+            out[f"{dst}.mlp.{idx}.bias"] = _t(p["mlp"][fc]["bias"])
+    out["encoder.ln.weight"] = _t(params["ln_final"]["scale"])
+    out["encoder.ln.bias"] = _t(params["ln_final"]["bias"])
+    return out
+
+
+def vit_params_to_jax(state: Mapping, heads: int) -> dict:
+    """The port's ViT state dict → flax params of ``models/vit.py``
+    ``ViT`` (numpy; the inverse of ``vit_state_from_jax``)."""
+    d = int(state["class_token"].shape[-1])
+    dh = d // heads
+    out = {"cls_token": _np(state["class_token"]),
+           "pos_embed": _np(state["encoder.pos_embedding"]),
+           "patch_embed": {"kernel": _np(state["conv_proj.weight"])
+                           .transpose(2, 3, 1, 0)},
+           "ln_final": {"scale": _np(state["encoder.ln.weight"]),
+                        "bias": _np(state["encoder.ln.bias"])}}
+    if "conv_proj.bias" in state:
+        out["patch_embed"]["bias"] = _np(state["conv_proj.bias"])
+    if "ln_pre.weight" in state:
+        out["ln_pre"] = {"scale": _np(state["ln_pre.weight"]),
+                         "bias": _np(state["ln_pre.bias"])}
+    prefix = "encoder.layers.encoder_layer_"
+    blocks = sorted({int(k[len(prefix):].split(".")[0]) for k in state
+                     if k.startswith(prefix)})
+    for i in blocks:
+        src = f"{prefix}{i}"
+        w = _np(state[f"{src}.self_attention.in_proj_weight"])
+        b = _np(state[f"{src}.self_attention.in_proj_bias"])
+        attn = {n: {"kernel": np.ascontiguousarray(
+                        w[j * d:(j + 1) * d].T).reshape(d, heads, dh),
+                    "bias": b[j * d:(j + 1) * d].reshape(heads, dh)}
+                for j, n in enumerate(_QKV)}
+        attn["out"] = {
+            "kernel": np.ascontiguousarray(_np(
+                state[f"{src}.self_attention.out_proj.weight"]).T)
+            .reshape(heads, dh, d),
+            "bias": _np(state[f"{src}.self_attention.out_proj.bias"])}
+        out[f"block{i}"] = {
+            "ln1": {"scale": _np(state[f"{src}.ln_1.weight"]),
+                    "bias": _np(state[f"{src}.ln_1.bias"])},
+            "ln2": {"scale": _np(state[f"{src}.ln_2.weight"]),
+                    "bias": _np(state[f"{src}.ln_2.bias"])},
+            "attn": attn,
+            "mlp": {fc: {"kernel": _np(state[f"{src}.mlp.{idx}.weight"]).T,
+                         "bias": _np(state[f"{src}.mlp.{idx}.bias"])}
+                    for fc, idx in (("fc1", 0), ("fc2", 3))}}
     return out

@@ -11,11 +11,14 @@ returns
 
 with ``fn.gt(images_u8, verb_ids) → noun_logits`` (the reference's
 gt-verb path), ``fn.meta`` and ``fn.batch_size``.  The path on the device:
-resize-as-matmul + ImageNet normalise, the ResNet with eval-mode BN, the
-FCGGNN verb branch, argmax, the noun branch.  At bf16 on a CUDA device
-both GGNN propagates run through the folded kernel.  Like the JAX artifact
-the batch is baked at export and any batch size is served by padding and
-chunking (``_over_chunks``).
+resize-as-matmul + ImageNet normalise, the backbone, the FCGGNN verb
+branch, argmax, the noun branch.  The backbone is a ResNet
+(eval-mode BN) or a ViT (``models/vit.py``, at the artifact's
+``image_size``).  At bf16 on a CUDA device both GGNN propagates run
+through the folded kernel, and a ViT's encoder blocks through the ViT
+kernels (``block_impl``).  Like the JAX artifact the batch is baked at
+export and any batch size is served by padding and chunking
+(``_over_chunks``).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from situation_recognition_tpu_torch.data.transforms import CROP, eval_transform
 from situation_recognition_tpu_torch.device import resolve_device
 from situation_recognition_tpu_torch.models.fcggnn import (
     FCGGNNHead, resolve_ggnn_impl)
-from situation_recognition_tpu_torch.models.resnet import build_resnet
+from situation_recognition_tpu_torch.models.backbone import build_backbone
 
 FORMAT_VERSION = 7          # the JAX artifact's meta version this mirrors
 WEIGHTS_FILE = "weights.pt"
@@ -46,19 +49,21 @@ class SituationModel(nn.Module):
 
     ``dtype`` is the compute type; ``ggnn_impl`` as in
     ``models.fcggnn.resolve_ggnn_impl`` (resolved by ``load_inference``
-    for the device it serves on)."""
+    for the device it serves on); ``block_impl`` a ViT's, as in
+    ``models.vit.resolve_block_impl`` (resolved at each call)."""
 
     def __init__(self, encoder: ImsituEncoder, backbone: str = "resnet152",
                  hidden: int = 2048, image_size: int = CROP,
                  num_steps: int = 4, dtype: torch.dtype = torch.float32,
-                 ggnn_impl: str = "masked"):
+                 ggnn_impl: str = "masked", block_impl: str = "auto"):
         super().__init__()
         self.encoder = encoder
         self.backbone_name = backbone
         self.hidden = hidden
         self.image_size = image_size
         self.dtype = dtype
-        self.backbone = build_resnet(backbone, hidden)
+        self.backbone, self.backbone_has_bn = build_backbone(
+            backbone, hidden, image_size, dtype, block_impl)
         self.head = FCGGNNHead(
             encoder.get_num_verbs(), encoder.get_num_roles(),
             encoder.get_num_labels(), encoder.max_role_count, hidden=hidden,
@@ -126,12 +131,12 @@ def export_inference(model: SituationModel, path: str,
         }, f)
 
 
-def load_inference(path: str, device=None,
-                   ggnn_impl: str = "auto") -> Callable:
+def load_inference(path: str, device=None, ggnn_impl: str = "auto",
+                   block_impl: str = "auto") -> Callable:
     """Load an artifact → ``fn(images_u8)`` on ``device`` (default cuda;
-    raises without a card unless ``device="cpu"``).  ``ggnn_impl``
-    overrides the GGNN implementation (``masked`` serves the same weights
-    through the plain path)."""
+    raises without a card unless ``device="cpu"``).  ``ggnn_impl`` and a
+    ViT's ``block_impl`` override the implementations (``masked`` and
+    ``plain`` serve the same weights through the plain paths)."""
     dev = resolve_device(device)
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
@@ -145,14 +150,19 @@ def load_inference(path: str, device=None,
         enc, backbone=meta["backbone"], hidden=meta["hidden"],
         image_size=meta.get("image_size", CROP),
         num_steps=meta.get("num_steps", 4), dtype=dtype,
-        ggnn_impl=resolve_ggnn_impl(ggnn_impl, dtype, dev))
+        ggnn_impl=resolve_ggnn_impl(ggnn_impl, dtype, dev),
+        block_impl=block_impl)
     state = torch.load(os.path.join(path, meta["weights_file"]),
                        map_location="cpu", weights_only=True)
     model.backbone.load_state_dict(state["backbone"], strict=True)
     model.head.load_state_dict(state["head"], strict=True)
     model.eval().to(dev)
-    # the backbone runs in the compute type, channels-last (cuDNN's layout)
-    model.backbone.to(dtype=dtype, memory_format=torch.channels_last)
+    if model.backbone_has_bn:
+        # a ResNet runs in the compute type, channels-last (cuDNN's layout)
+        model.backbone.to(dtype=dtype, memory_format=torch.channels_last)
+    else:
+        # a ViT block_impl that cannot run raises here, not at a request
+        model.backbone.resolved_impl(dev)
     baked = int(meta["batch_size"])
 
     def fn(images_u8):

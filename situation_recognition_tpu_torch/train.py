@@ -1,4 +1,4 @@
-"""Training and evaluation of ResNet + FCGGNN on one device.
+"""Training and evaluation of ResNet or ViT + FCGGNN on one device.
 
 Port of ``situation_recognition_tpu/train.py``: ``TrainerConfig`` (the
 fields this package uses), ``make_lr_fn``, and ``Trainer`` with its train
@@ -9,7 +9,8 @@ A train step does what the JAX step does:
 
 1. features from the frozen backbone outside autograd, with train-mode
    BatchNorm (flax's, ``models/resnet.BatchNorm``) updating the running
-   statistics once per step;
+   statistics once per step (a ViT has no statistics; at bf16 on the card
+   its encoder blocks run through the ViT kernels);
 2. under autograd: the verb branch, its argmax, the predicted-verb noun
    branch, and the masked verb CE plus the masked nouns CE;
 3. backward;
@@ -53,7 +54,7 @@ from situation_recognition_tpu_torch.metrics.scorer import (
     ImsituScorer, mean_of_eight)
 from situation_recognition_tpu_torch.models.fcggnn import (
     FCGGNNHead, nouns_loss_masked, resolve_ggnn_impl, verb_loss_masked)
-from situation_recognition_tpu_torch.models.resnet import build_resnet
+from situation_recognition_tpu_torch.models.backbone import build_backbone
 
 
 @dataclasses.dataclass
@@ -63,7 +64,11 @@ class TrainerConfig:
     batch_size: int = 6144
     num_ggnn_steps: int = 4
     dropout_rate: float = 0.5
-    backbone: str = "resnet152"          # resnet152 | mini
+    # resnet152 | mini | vit_l14 | vit_l14_clip | vit_b16 | vit_tiny
+    backbone: str = "resnet152"
+    # the device transform's output side; a ViT needs a multiple of its
+    # patch, and its position embedding is sized for it
+    image_size: int = 224
     compute_dtype: torch.dtype = torch.bfloat16
     seed: int = 0
     ggnn_impl: str = "auto"              # auto | kernel | masked
@@ -157,7 +162,11 @@ class Trainer:
         self.device = resolve_device(device)
         dt = config.compute_dtype
         gen = torch.Generator().manual_seed(config.seed)
-        self.backbone = build_resnet(config.backbone, config.hidden)
+        if config.image_size < 32:
+            raise ValueError(f"image_size must be >= 32, got "
+                             f"{config.image_size}")
+        self.backbone, has_bn = build_backbone(
+            config.backbone, config.hidden, config.image_size, dt)
         if backbone_state is None:
             self.backbone.reset_parameters(gen)
         else:
@@ -172,14 +181,16 @@ class Trainer:
             self.head.reset_parameters(gen)
         else:
             self.head.load_state_dict(head_state, strict=True)
-        # the frozen backbone: convolutions in the compute type (flax casts
-        # its f32 kernels at each use; frozen, that is the same thing),
-        # BatchNorm parameters and statistics in f32, channels-last
         self.backbone.to(self.device)
-        for m in self.backbone.modules():
-            if isinstance(m, nn.Conv2d):
-                m.to(dtype=dt)
-        self.backbone.to(memory_format=torch.channels_last)
+        if has_bn:
+            # the frozen ResNet: convolutions in the compute type (flax
+            # casts its f32 kernels at each use; frozen, that is the same
+            # thing), BatchNorm parameters and statistics in f32,
+            # channels-last
+            for m in self.backbone.modules():
+                if isinstance(m, nn.Conv2d):
+                    m.to(dtype=dt)
+            self.backbone.to(memory_format=torch.channels_last)
         self.backbone.requires_grad_(False)
         self.head.to(self.device)
         self.role_ids = torch.as_tensor(encoder.role_ids, dtype=torch.long,
@@ -207,7 +218,8 @@ class Trainer:
         no gradient; in train mode BN uses batch statistics and updates
         its running ones."""
         x = device_transform(images, flip if train else None,
-                             dtype=self.config.compute_dtype)
+                             dtype=self.config.compute_dtype,
+                             crop=self.config.image_size)
         self.backbone.train(train)
         with torch.no_grad():
             return self.backbone(x).float()

@@ -1,8 +1,8 @@
-"""Card-only tests: the CUDA GGNN kernel against its plain twin, and the
-serving path on the card.  Marked ``cuda``; each test asks for the card
-in the ``cuda_device`` fixture and skips with a reason where there is
-none (run them on the card with ``python -m pytest tests/test_torch_cuda.py
--m cuda``)."""
+"""Card-only tests: the CUDA GGNN and ViT kernels against their plain
+twins, and the serving and training paths on the card.  Marked ``cuda``;
+each test asks for the card in the ``cuda_device`` fixture and skips with
+a reason where there is none (run them on the card with ``python -m
+pytest tests/test_torch_cuda.py -m cuda``)."""
 
 import numpy as np
 import pytest
@@ -168,3 +168,182 @@ def test_train_step_on_the_card_launches_the_kernels(cuda_device,
         _, _, val, _ = tr.evaluate([batch])
         assert tk.folded_rows.launches - before == 3
         assert all(np.isfinite(v) for v in val.values())
+
+
+# ---------------------------------------------------------------- the ViT
+
+
+def _vit_weights(d, hid, seed):
+    from situation_recognition_tpu_torch.ops.vit import BlockWeights
+
+    rng = np.random.default_rng(seed)
+
+    def w(*shape, scale=0.05, base=0.0):
+        return torch.from_numpy(
+            (base + rng.standard_normal(shape) * scale).astype(np.float32))
+
+    return BlockWeights(1.0 + w(d), w(d), w(3 * d, d), w(3 * d), w(d, d),
+                        w(d), 1.0 + w(d), w(d), w(hid, d), w(hid),
+                        w(d, hid), w(d))
+
+
+# kernel vs twin on the same bf16 operands: f32 sums in other orders flip
+# the last bit of a bf16 output now and then (2^-7 of its size at most);
+# a wrong tile moves elements by the order of the largest one
+VIT_MAX_REL = 2 ** -6
+VIT_MEAN_REL = 2 ** -10
+
+
+def _assert_close_rel(got, want):
+    scale = want.float().abs().max().item()
+    diff = (got.float() - want.float()).abs()
+    assert diff.max().item() <= VIT_MAX_REL * scale, (diff.max(), scale)
+    assert diff.mean().item() <= VIT_MEAN_REL * scale, (diff.mean(), scale)
+
+
+@pytest.mark.parametrize("m,d", [(1000, 128), (300, 192), (4 * 264, 1024)])
+def test_vit_qkv_kernel_matches_twin(cuda_device, m, d):
+    from situation_recognition_tpu_torch.ops import vit as tv
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+
+    w = [t.to(cuda_device) for t in vk.kernel_weights(_vit_weights(d, 4 * d,
+                                                                   m))]
+    w = tv.BlockWeights(*w)
+    x = torch.randn(m, d, generator=torch.Generator().manual_seed(m)).to(
+        torch.bfloat16).to(cuda_device)
+    before = vk.vit_qkv_forward.launches
+    got = vk.vit_qkv_forward(x, w, 1e-6)
+    want = tv.qkv_reference(x, w, 1e-6)
+    torch.cuda.synchronize()
+    assert vk.vit_qkv_forward.launches == before + 1
+    for g, t in zip(got, want):
+        _assert_close_rel(g, t)
+
+
+@pytest.mark.parametrize("b,n,stride,heads,folded", [
+    (3, 257, 264, 2, True), (3, 257, 257, 2, False), (2, 50, 56, 1, True),
+    (2, 17, 17, 3, False), (2, 129, 136, 16, False),
+    # ViT-L/14 at 336² and a longer sequence: many key tiles
+    (2, 577, 577, 2, True), (2, 577, 584, 1, False), (1, 1025, 1025, 1, True)])
+def test_vit_attention_kernel_matches_twin(cuda_device, b, n, stride, heads,
+                                           folded):
+    from situation_recognition_tpu_torch.ops import vit as tv
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+
+    g = torch.Generator().manual_seed(b * n + heads)
+    d = 64 * heads
+    q, k, v = (torch.randn(b * stride, d, generator=g).to(torch.bfloat16)
+               .to(cuda_device) for _ in range(3))
+    want = tv.attn_core_reference(q, k, v, heads, 0.125, folded, stride, n)
+    if stride == n:
+        before = vk.vit_attention_forward.launches
+        got = vk.vit_attention_forward(
+            q.reshape(b, n, d), k.reshape(b, n, d), v.reshape(b, n, d),
+            heads, folded).reshape(b * n, d)
+        count = vk.vit_attention_forward.launches - before
+    else:
+        before = vk.vit_attention_stream_forward.launches
+        got = vk.vit_attention_stream_forward(q, k, v, heads, folded,
+                                              stride, n)
+        count = vk.vit_attention_stream_forward.launches - before
+    torch.cuda.synchronize()
+    assert count == 1
+    _assert_close_rel(got, want)
+    pad = got.reshape(b, stride, d)[:, n:]
+    assert (pad == 0).all()
+
+
+@pytest.mark.parametrize("m,d,quick", [(1000, 128, False), (300, 192, True),
+                                       (4 * 264, 1024, False)])
+def test_vit_out_mlp_kernel_matches_twin(cuda_device, m, d, quick):
+    from situation_recognition_tpu_torch.ops import vit as tv
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+
+    w = tv.BlockWeights(*(t.to(cuda_device) for t in vk.kernel_weights(
+        _vit_weights(d, 4 * d, m + 1))))
+    g = torch.Generator().manual_seed(m + d)
+    x, ctx = (torch.randn(m, d, generator=g).to(torch.bfloat16)
+              .to(cuda_device) for _ in range(2))
+    before = vk.vit_out_mlp_forward.launches
+    got = vk.vit_out_mlp_forward(x, ctx, w, 1e-5, quick)
+    want = tv.out_mlp_reference(x, ctx, w, 1e-5, quick)
+    torch.cuda.synchronize()
+    assert vk.vit_out_mlp_forward.launches == before + 1
+    _assert_close_rel(got, want)
+
+
+def test_vit_kernels_reject_unsupported_shapes(cuda_device):
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+
+    q = torch.zeros(2 * 50, 96, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        vk.vit_attention_stream_forward(q, q, q, 3, True, 50, 50)
+    q = torch.zeros(2 * 64, 128, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="heads of width 64"):
+        vk.vit_attention_stream_forward(q, q, q, 4, True, 64, 64)
+    q = torch.zeros(577, 64, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="whole examples"):
+        vk.vit_attention_stream_forward(q, q, q, 1, True, 100, 50)
+    x = torch.zeros(4, 128, dtype=torch.float32, device=cuda_device)
+    w = vk.kernel_weights(_vit_weights(128, 512, 0))
+    w = type(w)(*(t.to(cuda_device) for t in w))
+    with pytest.raises(ValueError, match="bfloat16"):
+        vk.vit_qkv_forward(x, w, 1e-6)
+
+
+def test_vit_module_kernel_paths_on_the_card(cuda_device, monkeypatch):
+    """Both kernel paths of a ViT (stream: K4, K7, K6; per block: K4, K5,
+    K6) launch their kernels and agree with the plain path at bf16."""
+    from situation_recognition_tpu_torch.models.vit import ViT
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+
+    m = ViT(16, 128, 2, 2, image_size=64, dtype=torch.bfloat16)
+    m.reset_parameters(torch.Generator().manual_seed(0))
+    m.to(cuda_device)
+    x = torch.rand(3, 64, 64, 3, generator=torch.Generator().manual_seed(1)
+                   ).to(cuda_device)
+    counts = lambda: (vk.vit_qkv_forward.launches,  # noqa: E731
+                      vk.vit_attention_forward.launches,
+                      vk.vit_attention_stream_forward.launches,
+                      vk.vit_out_mlp_forward.launches)
+    with torch.inference_mode():
+        m.block_impl = "plain"
+        want = m(x).float()
+        m.block_impl = "kernel"
+        for stream, delta in (("1", (2, 0, 2, 2)), ("0", (2, 2, 0, 2))):
+            monkeypatch.setenv("SRTPU_VIT_STREAM", stream)
+            before = counts()
+            got = m(x).float()
+            torch.cuda.synchronize()
+            assert tuple(a - b for a, b in zip(counts(), before)) == delta
+            # bf16 through two blocks by other roundings (plain: bf16
+            # products and softmax input; kernels: f32 sums and residual)
+            assert (got - want).abs().max().item() < 0.1
+
+
+def test_vit_serving_on_the_card_uses_the_kernels(cuda_device, tmp_path):
+    from situation_recognition_tpu_torch.data.encoder import ImsituEncoder
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+    from situation_recognition_tpu_torch.serving import (
+        SituationModel, export_inference, load_inference)
+
+    enc = ImsituEncoder.synthetic_full(0)
+    model = SituationModel(enc, backbone="vit_b16", hidden=768,
+                           image_size=64, dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(0)
+    model.backbone.reset_parameters(g)
+    model.head.reset_parameters(g)
+    export_inference(model, str(tmp_path / "art"), batch_size=4)
+    fn = load_inference(str(tmp_path / "art"))
+    plain = load_inference(str(tmp_path / "art"), ggnn_impl="masked",
+                           block_impl="plain")
+    assert fn.model.backbone.resolved_impl(cuda_device) == "kernel"
+    images = np.random.default_rng(0).integers(0, 256, (4, 256, 256, 3),
+                                               dtype=np.uint8)
+    before = vk.vit_qkv_forward.launches
+    verb_logits, _, nouns = fn(images)
+    torch.cuda.synchronize()
+    assert vk.vit_qkv_forward.launches == before + 12
+    assert torch.isfinite(verb_logits).all() and torch.isfinite(nouns).all()
+    pv, _, _ = plain(images)
+    assert (verb_logits - pv).abs().max().item() < 0.25

@@ -46,7 +46,8 @@ def test_importing_the_port_loads_no_jax():
     modules = ["situation_recognition_tpu_torch." + m for m in (
         "device", "convert", "serving", "server", "train", "data.encoder",
         "data.transforms", "metrics.scorer", "ops.ggnn", "ops.ggnn_kernel",
-        "ops.ggnn_train", "ops._build", "models.resnet", "models.fcggnn")]
+        "ops.ggnn_train", "ops._build", "ops.vit", "ops.vit_kernel",
+        "models.resnet", "models.vit", "models.backbone", "models.fcggnn")]
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -92,3 +93,19 @@ def test_kernel_wrapper_has_no_fallback_off_cpu():
     h = torch.zeros(6, 64, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="no GGNN kernel"):
         tk.folded_rows(h, torch.zeros(6, device="meta"), (None,) * 4, 6, 1)
+
+
+def test_vit_kernel_wrappers_have_no_fallback_off_cpu():
+    """A tensor that is not on the CPU never reaches a ViT twin."""
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+
+    x = torch.zeros(2 * 8, 64, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="no ViT kernel"):
+        vk.vit_qkv_forward(x, None, 1e-6)
+    with pytest.raises(ValueError, match="no ViT kernel"):
+        vk.vit_out_mlp_forward(x, x, None, 1e-6, False)
+    with pytest.raises(ValueError, match="no ViT kernel"):
+        vk.vit_attention_stream_forward(x, x, x, 1, True, 8, 7)
+    with pytest.raises(ValueError, match="no ViT kernel"):
+        vk.vit_attention_forward(x.reshape(2, 8, 64), x.reshape(2, 8, 64),
+                                 x.reshape(2, 8, 64), 1, True)
