@@ -56,7 +56,21 @@ Phases, each printing its seconds:
              batch timing, a profile, and the batcher's bursts; then a
              frozen-backbone ``Trainer``: train steps and an eval batch.
              Fails unless K1, K4, K5, K6 and K7 launched there, as many
-             times as the paths call them.
+             times as the paths call them.  The kernel part also holds K8
+             (the attention backward) against its twin at the stream's
+             shape (257-row stride) and at the 264-row stride with pad
+             rows, timed beside its bound and the backward of SDPA on the
+             same (B, h, N, 64) tensors.
+7. vit ft  — fine-tuning.  First the ft stack on the card: 2 blocks at
+             ViT-L/14 width, batch 16, its gradients (K7 forward, K8
+             backward, torch products) against autograd over the plain
+             blocks, per tensor.  Then a ``Trainer`` with
+             ``train_backbone`` and ``remat_backbone`` (ViT-L/14 +
+             FCGGNN(1024), bf16, batch 256, weights from ``--seed``): a
+             warm step, 2 timed steps with their launches (K7 48, K8 24, K1
+             1, K4/K6 0 per step), a profile of one step, the backbone
+             parameters that moved, peak memory, then an eval batch
+             through the forward kernels.
 
 Then a ``kernels`` JSON line, the card's ``nvidia-smi`` line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -124,7 +138,7 @@ BURSTS = 3
 BATCH = 256
 # every kernel source of the serving and training paths, ResNet and ViT
 SOURCES = ("ggnn_folded.cu", "ggnn_folded_bwd.cu", "vit_block.cu",
-           "vit_attention.cu")
+           "vit_attention.cu", "vit_attention_bwd.cu")
 
 
 def _log(msg: str) -> None:
@@ -727,8 +741,7 @@ def phase_train(enc, seed: int, batch: int) -> dict:
             os.environ["SRTPU_GGNN_BWD"] = route
             trainer.head.load_state_dict(start["head"])
             trainer.backbone.load_state_dict(start["backbone"])
-            trainer.optimizer = torch.optim.Adamax(
-                trainer.head.parameters(), lr=trainer.config.lr)
+            trainer.optimizer.state.clear()
             trainer.step_count = trainer.opt_steps = 0
             losses, per_step = [], []
             for i in range(TRAIN_STEPS):
@@ -837,6 +850,20 @@ VIT_MAX_REL = 2 ** -6
 VIT_MEAN_REL = 2 ** -10
 # train steps (the first warms the trainer) and eval batches of the ViT
 VIT_TRAIN_STEPS, VIT_EVAL_BATCHES = 2, 1
+# K8 vs its twin, relative to each gradient's largest |element|: the same
+# bf16 casts (e, ds, do·inv) of f32 values summed in other orders; a
+# last-bit flip of one feeds the sums (K3's class, the other backward)
+K8_MAX_REL = 2 ** -5
+K8_MEAN_REL = 2 ** -10
+# the ft stack vs autograd over the plain blocks, both bf16, relative to
+# each gradient's largest element: the bounds of the JAX package's test of
+# its ft stream (tests/test_vit_pallas.py) — x 0.03, the weights 0.08 over
+# two blocks and a squared loss, and the key bias (true gradient zero)
+# absolutely within 1e-2 of the largest weight gradient
+FT_X_REL, FT_W_REL, FT_BK_ABS = 0.03, 0.08, 1e-2
+FT_STACK_BATCH, FT_STACK_DEPTH = 16, 2
+# fine-tuning steps timed after a warm one
+VIT_FT_STEPS = 2
 
 
 def _vit_counts() -> dict:
@@ -847,7 +874,8 @@ def _vit_counts() -> dict:
             "K4": vk.vit_qkv_forward.launches,
             "K5": vk.vit_attention_forward.launches,
             "K6": vk.vit_out_mlp_forward.launches,
-            "K7": vk.vit_attention_stream_forward.launches}
+            "K7": vk.vit_attention_stream_forward.launches,
+            "K8": vk.vit_attention_backward.launches}
 
 
 def _zero_vit_counts() -> None:
@@ -856,7 +884,8 @@ def _zero_vit_counts() -> None:
 
     tk.folded_rows.launches = 0
     for w in (vk.vit_qkv_forward, vk.vit_attention_forward,
-              vk.vit_out_mlp_forward, vk.vit_attention_stream_forward):
+              vk.vit_out_mlp_forward, vk.vit_attention_stream_forward,
+              vk.vit_attention_backward):
         w.launches = 0
 
 
@@ -870,17 +899,17 @@ def _rel_errors(got, want) -> dict:
 
 
 def _vit_row(name, shape, errs, ms, plain_ms, bound, library_ms=None,
-             **extra) -> dict:
+             tol=(VIT_MAX_REL, VIT_MEAN_REL), **extra) -> dict:
     bound_ms, bound_by, flops, nbytes = bound
     row = {"shape": shape, "errors": errs,
            "max_abs_err": max(e["max"] for e in errs.values()),
-           "tol_max_rel": VIT_MAX_REL, "tol_mean_rel": VIT_MEAN_REL,
+           "tol_max_rel": tol[0], "tol_mean_rel": tol[1],
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "flop": flops,
            "bytes": nbytes, "tflops": flops / ms / 1e9, **extra}
     _log(f"[vit] {name} " + json.dumps(row))
     bad = [k for k, e in errs.items()
-           if e["max_rel"] > VIT_MAX_REL or e["mean_rel"] > VIT_MEAN_REL]
+           if e["max_rel"] > tol[0] or e["mean_rel"] > tol[1]]
     if bad:
         raise SystemExit(f"{name} disagrees with its twin at {shape}: {bad}")
     return row
@@ -978,6 +1007,51 @@ def _attention_row(kname: str, q, k, v, batch: int, n: int, stride: int,
         pad_rows_zero=all(r["pad_rows_zero"] for r in rows.values()))
 
 
+def _attention_bwd_row(q, k, v, o, do, batch: int, n: int, stride: int,
+                       heads: int) -> dict:
+    """K8 against its twin (pad rows exactly zero), timed with CUDA events
+    beside its bound and the backward alone of SDPA on the same real rows
+    as (B, h, N, 64) tensors.  The bound counts the five real-row inputs
+    read once and the three gradients written once (pad rows included),
+    and five products of 2·N²·64 per head and example."""
+    import torch
+    import torch.nn.functional as F
+
+    from situation_recognition_tpu_torch.ops import vit as tv
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+
+    d = q.shape[1]
+    want = tv.attn_bwd_reference(q, k, v, o, do, heads, 1.0 / 8.0, stride, n)
+    got = vk.vit_attention_backward(q, k, v, o, do, heads, stride, n)
+    torch.cuda.synchronize()
+    errs = {name: _rel_errors(g, w)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want)}
+    pad_zero = all(bool((g.reshape(batch, stride, d)[:, n:] == 0).all())
+                   for g in got)
+    del got, want
+    if not pad_zero:
+        raise SystemExit("K8 wrote nonzero pad rows")
+    ms = _time_ms(lambda: vk.vit_attention_backward(q, k, v, o, do, heads,
+                                                    stride, n), 10)
+    plain_ms = _time_ms(lambda: tv.attn_bwd_reference(
+        q, k, v, o, do, heads, 1.0 / 8.0, stride, n), 3, 1)
+    flops = 5 * 2 * batch * heads * n * n * (d // heads)
+    nbytes = 5 * batch * n * d * 2 + 3 * batch * stride * d * 2
+    q4, k4, v4, do4 = (t.reshape(batch, stride, heads, d // heads)[:, :n]
+                       .transpose(1, 2).contiguous() for t in (q, k, v, do))
+    for t in (q4, k4, v4):
+        t.requires_grad_()
+    out4 = F.scaled_dot_product_attention(q4, k4, v4)
+    sdpa_ms = _time_ms(lambda: torch.autograd.grad(
+        out4, (q4, k4, v4), do4, retain_graph=True), 10)
+    del q4, k4, v4, do4, out4
+    return _vit_row(
+        "K8 attention backward", f"B={batch} heads={heads} N={n} "
+        f"row_stride={stride} dh={d // heads}", errs, ms, plain_ms,
+        _bound(flops, nbytes), library_ms=sdpa_ms,
+        tol=(K8_MAX_REL, K8_MEAN_REL), pad_rows_zero=pad_zero)
+
+
 def phase_vit_kernel(enc, seed: int, batch: int) -> dict:
     """K4, K5/K7 and K6 against their twins on the card at the shapes the
     ViT-L/14 paths give them (batch 256, 257 tokens: a stream of
@@ -1038,7 +1112,15 @@ def phase_vit_kernel(enc, seed: int, batch: int) -> dict:
     out["K7"].append(_attention_row("K7", *(padded(t) for t in (q, k, v)),
                                     batch, n, n8, h))
     ctx = vk.vit_attention_stream_forward(q, k, v, h, True, n, n)
-    del q, k, v
+    # K8 on the same q, k, v, the exp2 context as the ft stream saves it,
+    # and a cotangent of the context's spread; then in the TPU stream's
+    # layout with pad rows
+    do = rnd(m, d, scale=float(ctx.float().std())).to(torch.bfloat16).to(
+        DEVICE)
+    out["K8"] = [_attention_bwd_row(q, k, v, ctx, do, batch, n, n, h)]
+    out["K8"].append(_attention_bwd_row(
+        *(padded(t) for t in (q, k, v, ctx, do)), batch, n, n8, h))
+    del q, k, v, do
     # ViT-L/14 at 336²: 577 tokens, ten key tiles per query tile
     xl = rnd(VIT_LONG_BATCH * VIT_LONG_N, d).to(torch.bfloat16).to(DEVICE)
     out["K5"].append(_attention_row(
@@ -1170,7 +1252,7 @@ def phase_vit_path(enc, seed: int, batch: int, card: str) -> dict:
             os.environ.pop("SRTPU_VIT_STREAM", None)
         else:
             os.environ["SRTPU_VIT_STREAM"] = old_env
-    per_call = {"K1": 2, "K4": VIT_DEPTH, "K6": VIT_DEPTH}
+    per_call = {"K1": 2, "K4": VIT_DEPTH, "K6": VIT_DEPTH, "K8": 0}
     want_counts = {"stream": {**per_call, "K5": 0, "K7": VIT_DEPTH},
                    "block": {**per_call, "K5": VIT_DEPTH, "K7": 0}}
     if result["launches"] != want_counts:
@@ -1189,6 +1271,7 @@ def phase_vit_path(enc, seed: int, batch: int, card: str) -> dict:
     # per burst, the rest argmax (two each)
     dispatches = bursts["stats"]["dispatches"]
     want_batcher = {"K1": 2 * (dispatches - BURSTS) + BURSTS, "K5": 0,
+                    "K8": 0,
                     **{k: VIT_DEPTH * dispatches for k in ("K4", "K6",
                                                            "K7")}}
     if result["launches"]["batcher"] != want_batcher:
@@ -1256,16 +1339,184 @@ def phase_vit_train(enc, seed: int, batch: int) -> dict:
     if len(scores) != 8 or not all(0 <= v <= 100 for v in scores):
         raise SystemExit(f"bad ViT trainer scores: {scores}")
     per_step = {"K1": 1, "K4": VIT_DEPTH, "K5": 0, "K6": VIT_DEPTH,
-                "K7": VIT_DEPTH}
+                "K7": VIT_DEPTH, "K8": 0}
     if any(s["launches"] != per_step for s in steps):
         raise SystemExit(f"ViT train-step launches "
                          f"{[s['launches'] for s in steps]}, want {per_step}")
     per_eval = {"K1": 3 * VIT_EVAL_BATCHES, "K4": VIT_DEPTH * VIT_EVAL_BATCHES,
                 "K5": 0, "K6": VIT_DEPTH * VIT_EVAL_BATCHES,
-                "K7": VIT_DEPTH * VIT_EVAL_BATCHES}
+                "K7": VIT_DEPTH * VIT_EVAL_BATCHES, "K8": 0}
     if eval_launches != per_eval:
         raise SystemExit(f"ViT eval launches {eval_launches}, want "
                          f"{per_eval}")
+    return result
+
+
+def phase_vit_ft_stack(seed: int) -> dict:
+    """The ft stack on the card: ``FT_STACK_DEPTH`` blocks at ViT-L/14
+    width (1024, 16 heads of 64, MLP 4096), batch ``FT_STACK_BATCH``, 257
+    tokens, bf16.  Its gradients with respect to x and each block's
+    parameters (K7 forward, K8 backward) against autograd over the plain
+    ``reference_block``s, under a squared loss of the CLS rows."""
+    import torch
+
+    from situation_recognition_tpu_torch.ops import vit as tv
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+    from situation_recognition_tpu_torch.ops.vit_train import ft_cls_stack
+
+    gen = torch.Generator().manual_seed(seed + 13)
+    d, hid, h, n = VIT_D, 4 * VIT_D, VIT_HEADS, VIT_N
+    bound = d ** -0.5
+
+    def rnd(*shape, scale, base=0.0):
+        return (base + torch.randn(shape, generator=gen) * scale).to(DEVICE)
+
+    def weights():
+        return [tv.BlockWeights(
+            rnd(d, base=1.0, scale=0.05), rnd(d, scale=0.05),
+            rnd(3 * d, d, scale=bound), rnd(3 * d, scale=bound),
+            rnd(d, d, scale=bound), rnd(d, scale=bound),
+            rnd(d, base=1.0, scale=0.05), rnd(d, scale=0.05),
+            rnd(hid, d, scale=bound), rnd(hid, scale=bound),
+            rnd(d, hid, scale=hid ** -0.5), rnd(d, scale=bound))
+            for _ in range(FT_STACK_DEPTH)]
+
+    base = weights()
+    x0 = rnd(FT_STACK_BATCH, n, d, scale=1.0).to(torch.bfloat16)
+
+    def grads(stack):
+        blocks = [tv.BlockWeights(*(t.clone().requires_grad_() for t in w))
+                  for w in base]
+        x = x0.clone().requires_grad_()
+        (stack(x, blocks).float() ** 2).sum().backward()
+        return x.grad, blocks
+
+    before = (vk.vit_attention_stream_forward.launches,
+              vk.vit_attention_backward.launches)
+    gx_k, w_k = grads(lambda x, b: ft_cls_stack(x, b, h, 1e-6, False, True,
+                                                False))
+    torch.cuda.synchronize()
+    launched = (vk.vit_attention_stream_forward.launches - before[0],
+                vk.vit_attention_backward.launches - before[1])
+    gx_p, w_p = grads(lambda x, b: tv.reference_cls_stack(x, b, h, 1e-6,
+                                                          False))
+    torch.cuda.synchronize()
+
+    def rel(a, w):
+        return ((a.float() - w.float()).abs().max()
+                / w.float().abs().max()).item()
+
+    gscale = max(t.grad.abs().max().item() for w in w_p for t in w)
+    errs = {"x": rel(gx_k, gx_p)}
+    bk = {}
+    for i, (wk, wp) in enumerate(zip(w_k, w_p)):
+        for name in tv.BlockWeights._fields:
+            a, b = getattr(wk, name).grad, getattr(wp, name).grad
+            if name == "in_b":
+                for j, part in enumerate(("bq", "bk", "bv")):
+                    sl = slice(j * d, (j + 1) * d)
+                    if part == "bk":
+                        bk[i] = [a[sl].abs().max().item() / gscale,
+                                 b[sl].abs().max().item() / gscale]
+                    else:
+                        errs[f"{i}.{part}"] = rel(a[sl], b[sl])
+            else:
+                errs[f"{i}.{name}"] = rel(a, b)
+    result = {"shape": f"{FT_STACK_DEPTH} blocks B={FT_STACK_BATCH} N={n} "
+                       f"D={d} heads={h} bf16",
+              "launches": {"K7": launched[0], "K8": launched[1]},
+              "x_rel": errs["x"], "weight_rel_max": max(
+                  v for k, v in errs.items() if k != "x"),
+              "bk_abs_over_scale": bk, "rel": errs,
+              "tol": {"x": FT_X_REL, "weights": FT_W_REL, "bk": FT_BK_ABS}}
+    _log("[vit ft] stack " + json.dumps(result))
+    if launched != (FT_STACK_DEPTH, FT_STACK_DEPTH):
+        raise SystemExit(f"the ft stack launched K7/K8 {launched} times, "
+                         f"want {FT_STACK_DEPTH} each")
+    bad = [k for k, v in errs.items()
+           if v > (FT_X_REL if k == "x" else FT_W_REL)]
+    bad += [f"{i}.bk" for i, v in bk.items() if max(v) > FT_BK_ABS]
+    if bad:
+        raise SystemExit(f"the ft stack's gradients disagree with autograd "
+                         f"over the plain blocks: {bad}")
+    return result
+
+
+def phase_vit_ft(enc, seed: int, batch: int) -> dict:
+    """Fine-tuning ViT-L/14 + FCGGNN at batch 256 with ``remat_backbone``:
+    a warm step, timed steps with their launches, a profiled step, the
+    backbone parameters that moved, peak memory, and an eval batch."""
+    import numpy as np
+    import torch
+
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+
+    t = time.perf_counter()
+    trainer = Trainer(enc, TrainerConfig(
+        hidden=VIT_D, batch_size=batch, backbone=VIT,
+        image_size=VIT_IMAGE, compute_dtype=torch.bfloat16, seed=seed,
+        train_backbone=True, remat_backbone=True), device=DEVICE)
+    vit = trainer.backbone
+    if vit.resolved_impl(DEVICE) != "kernel" or not vit.remat or \
+            trainer.head.ggsnn.impl != "kernel":
+        raise SystemExit("the fine-tuning trainer did not resolve to the "
+                         "kernels with remat")
+    start = {k: p.detach().to("cpu", copy=True)
+             for k, p in vit.named_parameters()}
+    batches = _train_batches(enc, seed + 5, batch, VIT_FT_STEPS + 3)
+    _phase("vit ft: trainer", t)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps, losses = [], []
+    for i in range(1 + VIT_FT_STEPS):
+        torch.cuda.synchronize()
+        _zero_vit_counts()
+        t0 = time.perf_counter()
+        _, _, step_losses = trainer.train_epoch([batches[i]], i)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "launches": _vit_counts()})
+        losses.append(list(step_losses))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    moved = {k: (p.detach().cpu() - start[k]).abs().max().item()
+             for k, p in vit.named_parameters()}
+    del start
+    profile = _profile("one fine-tuning step", lambda: trainer.train_epoch(
+        [batches[1 + VIT_FT_STEPS]], 1 + VIT_FT_STEPS), tag="vit ft")
+    _zero_vit_counts()
+    t0 = time.perf_counter()
+    _, _, val_losses, _ = trainer.evaluate(batches[2 + VIT_FT_STEPS:])
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    eval_launches = _vit_counts()
+    timed = [s["ms"] for s in steps[1:]]
+    step_ms = sum(timed) / len(timed)
+    result = {"batch": batch, "remat": True, "steps": steps,
+              "losses": losses, "val_losses": val_losses,
+              "train_step_ms": step_ms, "train_img_per_s": batch / step_ms
+              * 1e3, "peak_mem_gb": peak,
+              "backbone_tensors_moved": sum(v > 0 for v in moved.values()),
+              "backbone_tensors": len(moved),
+              "max_move": max(moved.values()),
+              "eval_batch_ms": eval_ms, "eval_img_per_s": batch / eval_ms
+              * 1e3, "eval_launches": eval_launches, "profile": profile}
+    _log("[vit ft] train " + json.dumps(result))
+    if not np.isfinite(np.asarray(losses)).all() or not all(
+            np.isfinite(v) for v in val_losses.values()):
+        raise SystemExit("non-finite fine-tuning losses")
+    if result["backbone_tensors_moved"] != len(moved):
+        raise SystemExit(f"backbone parameters that did not move: "
+                         f"{[k for k, v in moved.items() if v == 0]}")
+    per_step = {"K1": 1, "K4": 0, "K5": 0, "K6": 0, "K7": 2 * VIT_DEPTH,
+                "K8": VIT_DEPTH}
+    if any(s["launches"] != per_step for s in steps):
+        raise SystemExit(f"fine-tuning launches per step "
+                         f"{[s['launches'] for s in steps]}, want {per_step}")
+    per_eval = {"K1": 3, "K4": VIT_DEPTH, "K5": 0, "K6": VIT_DEPTH,
+                "K7": VIT_DEPTH, "K8": 0}
+    if eval_launches != per_eval:
+        raise SystemExit(f"eval launches after fine-tuning {eval_launches},"
+                         f" want {per_eval}")
     return result
 
 
@@ -1342,12 +1593,22 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     vit_train = phase_vit_train(enc, args.seed, BATCH)
     _phase("vit train", t)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    vit_ft_stack = phase_vit_ft_stack(args.seed)
+    _phase("vit ft stack", t)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    vit_ft = phase_vit_ft(enc, args.seed, BATCH)
+    _phase("vit ft", t)
     vit_launches = {k: {path: c[k] for path, c in (
         ("serve_stream", vit_path["launches"]["stream"]),
         ("serve_block", vit_path["launches"]["block"]),
         ("batcher", vit_path["launches"]["batcher"]),
-        ("train", vit_train["steps"][-1]["launches"]))}
-        for k in ("K1", "K4", "K5", "K6", "K7")}
+        ("train", vit_train["steps"][-1]["launches"]),
+        ("ft_train", vit_ft["steps"][-1]["launches"]),
+        ("ft_eval", vit_ft["eval_launches"]))}
+        for k in ("K1", "K4", "K5", "K6", "K7", "K8")}
     for k, by_path in vit_launches.items():
         if not sum(by_path.values()):
             raise SystemExit(f"{k} never launched on the ViT path")
@@ -1375,6 +1636,9 @@ def main(argv=None) -> int:
         _kernel_line("vit_attention_stream", "vit_attention.cu", 308,
                      vit_kernel["K7"], vit_launches["K7"],
                      replaces=vit_pallas),
+        _kernel_line("vit_attention_bwd", "vit_attention_bwd.cu", 467,
+                     vit_kernel["K8"], vit_launches["K8"],
+                     replaces=vit_pallas, ft_stack=vit_ft_stack),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

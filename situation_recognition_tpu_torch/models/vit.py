@@ -26,15 +26,26 @@ state dict is the one ``utils/torch_convert.convert_vit`` reads, and
 * ``plain`` — ``ops.vit.reference_block`` per block in the compute type,
   the module math and the oracle of the tests.
 
-The default ``auto`` takes the kernels on a CUDA device at bf16.  The
-kernels are forward-only (the backward kernel K8 is not ported), so a
-differentiated call on the kernel path raises rather than run other math.
+The default ``auto`` takes the kernels on a CUDA device at bf16.
+
+A differentiated call (fine-tuning: gradients enabled and the tokens or a
+parameter requiring them) on the kernel path is routed as the JAX
+package's custom VJPs route it: the stream stack runs the ft stream of
+``ops/vit_train.py`` (torch LayerNorms, projections and MLP under autograd
+around the attention core, whose forward is K7 and whose backward is K8);
+the per-block path (``SRTPU_VIT_STREAM=0``) runs the plain
+``reference_block`` under autograd, because that is what JAX's per-block
+VJP differentiates (``_make_fused_block``), not as a fallback.  ``remat``
+checkpoints each block of a differentiated call, on either path.  K4 and
+K6 run only in undifferentiated calls.
 
 The patch convolution, the CLS concatenation, the position embedding,
-``ln_pre`` and the final LayerNorm are torch operations in both, as they
-are XLA operations outside Pallas in JAX.  Parameters stay f32 and are cast
-to the compute type at use; the kernel path keeps a bf16 copy of each
-block's weights until a parameter is replaced or written in place.
+``ln_pre`` and the final LayerNorm are torch operations on every path, as
+they are XLA operations outside Pallas in JAX.  Parameters stay f32 and are
+cast to the compute type at use; the undifferentiated kernel path keeps a
+bf16 copy of each block's weights (``kernel_weights``, made without a
+gradient) until a parameter is replaced or written in place, and the ft
+stream never reads it.
 
 One difference from the JAX module: the CLIP variant's ``ln_pre`` output
 is cast to the compute type, so that the stream is bf16 at bf16 (flax's f32
@@ -48,10 +59,12 @@ from collections import OrderedDict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from situation_recognition_tpu_torch.ops import vit_kernel
 from situation_recognition_tpu_torch.ops.vit import (
     BlockWeights, attn_core_variant, ln_f32, reference_block)
+from situation_recognition_tpu_torch.ops.vit_train import ft_cls_stack
 
 #: feature width by backbone name (the head's hidden size must equal it)
 VIT_WIDTHS = {"vit_l14": 1024, "vit_l14_clip": 1024, "vit_b16": 768,
@@ -182,12 +195,14 @@ class ViT(nn.Module):
 
     ``forward`` takes NHWC images of ``image_size`` in the compute type
     ``dtype`` (the position embedding is sized for them) and returns the
-    features in that type."""
+    features in that type.  ``remat`` checkpoints each encoder block of a
+    differentiated call (``--remat_backbone``); the parameters are the
+    same either way."""
 
     def __init__(self, patch: int, width: int, depth: int, heads: int,
                  image_size: int = 224, clip_variant: bool = False,
                  mlp_ratio: int = 4, dtype: torch.dtype = torch.float32,
-                 block_impl: str = "auto"):
+                 block_impl: str = "auto", remat: bool = False):
         super().__init__()
         if width % heads:
             raise ValueError(f"width {width} is not divisible by {heads} "
@@ -202,6 +217,7 @@ class ViT(nn.Module):
         self.eps = 1e-5 if clip_variant else 1e-6
         self.dtype = dtype
         self.block_impl = block_impl
+        self.remat = remat
         self.n_tokens = (image_size // patch) ** 2 + 1
         self.class_token = nn.Parameter(torch.zeros(1, 1, width))
         self.conv_proj = nn.Conv2d(3, width, patch, stride=patch,
@@ -222,22 +238,20 @@ class ViT(nn.Module):
                                   self.width, self.heads)
 
     def path(self, x: torch.Tensor) -> str:
-        """'stream', 'block' (the kernel paths) or 'plain' for tokens x.
-        The kernels are forward-only: where the choice resolves to them
+        """The encoder path for tokens x: 'stream' or 'block' (the
+        forward kernels), 'ft' (the differentiable stream: K7 forward, K8
+        backward) or 'plain'.  Where the choice resolves to the kernels
         ('kernel', or 'auto' on the card at bf16), a differentiated call
-        raises; run it under ``torch.no_grad()`` or with
-        ``block_impl='plain'``."""
+        takes 'ft' on the stream stack and 'plain' under
+        ``SRTPU_VIT_STREAM=0``, as JAX's two custom VJPs do."""
         impl = self.resolved_impl(x.device)
         if impl == "plain":
             return "plain"
-        if self._differentiated(x):
-            raise RuntimeError("the ViT kernels are forward-only; run them "
-                               "under torch.no_grad() or "
-                               "torch.inference_mode(), or differentiate "
-                               "with block_impl='plain'")
         if x.dtype != torch.bfloat16:
             raise ValueError(f"the ViT kernels take a bf16 stream, got "
                              f"{x.dtype}")
+        if self._differentiated(x):
+            return "ft" if vit_stream() else "plain"
         return "stream" if vit_stream() else "block"
 
     def tokens(self, images: torch.Tensor) -> torch.Tensor:
@@ -270,16 +284,24 @@ class ViT(nn.Module):
         quick, eps = self.clip_variant, self.eps
         folded = attn_core_variant() == "exp2"
         layers = list(self.encoder.layers)
+        remat = self.remat and self._differentiated(x)
         if path == "stream":
             cls = vit_kernel.encoder_cls_stack(
                 x, [blk.kernel_weights() for blk in layers], self.heads, eps,
                 quick, folded)
+        elif path == "ft":
+            cls = ft_cls_stack(x, [blk.weights() for blk in layers],
+                               self.heads, eps, quick, folded, remat)
         else:
             for blk in layers:
                 if path == "block":
                     x = vit_kernel.encoder_block(
                         x, blk.kernel_weights(), self.heads, eps, quick,
                         folded)
+                elif remat:
+                    x = checkpoint(reference_block, x, blk.weights(),
+                                   self.heads, eps, quick,
+                                   use_reentrant=False)
                 else:
                     x = reference_block(x, blk.weights(), self.heads, eps,
                                         quick)
@@ -320,13 +342,15 @@ class ViT(nn.Module):
 
 def build_vit(name: str, image_size: int = 224,
               dtype: torch.dtype = torch.float32,
-              block_impl: str = "auto") -> ViT:
+              block_impl: str = "auto", remat: bool = False) -> ViT:
     """Backbone by name (``VIT_CONFIGS``: ``vit_l14``, its CLIP visual
     tower ``vit_l14_clip``, ``vit_b16``, and the test-sized ``vit_tiny``)
-    computing in ``dtype``."""
+    computing in ``dtype``, with its blocks checkpointed under autograd
+    when ``remat``."""
     if name not in VIT_CONFIGS:
         raise ValueError(f"unknown ViT {name!r}; one of "
                          f"{sorted(VIT_CONFIGS)}")
     patch, width, depth, heads, clip = VIT_CONFIGS[name]
     return ViT(patch, width, depth, heads, image_size=image_size,
-               clip_variant=clip, dtype=dtype, block_impl=block_impl)
+               clip_variant=clip, dtype=dtype, block_impl=block_impl,
+               remat=remat)

@@ -9,6 +9,8 @@ Port of the arithmetic of ``situation_recognition_tpu/ops/vit_pallas.py``:
 * ``attn_core_reference`` — twin of K5 ``_attn_core_kernel`` and K7
   ``_attn_core_stream_kernel`` (``row_stride``/``n_valid`` select which);
 * ``out_mlp_reference``   — twin of K6 ``_out_mlp_kernel``;
+* ``attn_bwd_reference``  — twin of K8 ``_attn_bwd_stream_kernel``, the
+  attention core's backward on the fine-tuning path;
 * ``reference_block``, ``reference_cls_stack`` — the encoder block and the
   stack in the module's compute type (``_reference_block``,
   ``_reference_cls_stack``): the plain path of ``models/vit.py`` and the
@@ -99,6 +101,29 @@ def qkv_reference(x: torch.Tensor, w: BlockWeights, eps: float):
     return tuple(t.to(x.dtype) for t in o.chunk(3, dim=1))
 
 
+def _heads(t: torch.Tensor, heads: int, row_stride: int,
+           n_valid: int) -> torch.Tensor:
+    """The real rows of a (B·row_stride, D) stream by head: (B, h,
+    n_valid, D/h)."""
+    m, d = t.shape
+    if m % row_stride or not 1 <= n_valid <= row_stride or d % heads:
+        raise ValueError(f"bad attention shape: rows {m}, row_stride "
+                         f"{row_stride}, n_valid {n_valid}, d {d}, heads "
+                         f"{heads}")
+    return t.reshape(m // row_stride, row_stride, heads, d // heads)[
+        :, :n_valid].permute(0, 2, 1, 3)
+
+
+def _from_heads(t: torch.Tensor, like: torch.Tensor,
+            row_stride: int) -> torch.Tensor:
+    """(B, h, n, dh) by head → (B·row_stride, h·dh) rows in ``like``'s
+    type, the pad rows zero."""
+    b, h, n, dh = t.shape
+    out = like.new_zeros((b, row_stride, h * dh))
+    out[:, :n] = t.permute(0, 2, 1, 3).reshape(b, n, h * dh).to(like.dtype)
+    return out.reshape(b * row_stride, h * dh)
+
+
 def attn_core_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         heads: int, scale: float, folded: bool,
                         row_stride: int, n_valid: int) -> torch.Tensor:
@@ -111,18 +136,7 @@ def attn_core_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     exponent ``exp2(s − max)`` cast to bf16, its denominator summed in f32
     from the bf16 values and divided into the context after e·V.  Else the
     f32 softmax of ``s·scale``, cast to bf16 before P·V."""
-    m, d = q.shape
-    if m % row_stride or not 1 <= n_valid <= row_stride or d % heads:
-        raise ValueError(f"bad attention shape: rows {m}, row_stride "
-                         f"{row_stride}, n_valid {n_valid}, d {d}, heads "
-                         f"{heads}")
-    b, dh = m // row_stride, d // heads
-
-    def per_head(t):
-        t = t.reshape(b, row_stride, heads, dh)[:, :n_valid]
-        return t.permute(0, 2, 1, 3)            # (B, h, n, dh)
-
-    qh, kh, vh = per_head(q), per_head(k), per_head(v)
+    qh, kh, vh = (_heads(t, heads, row_stride, n_valid) for t in (q, k, v))
     if folded:
         qh = (qh.float() * (scale * LOG2E)).to(torch.bfloat16)
     s = qh.float() @ kh.float().transpose(-1, -2)
@@ -133,10 +147,35 @@ def attn_core_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         p = torch.softmax(s * scale, dim=-1).to(torch.bfloat16)
         ctx = p.float() @ vh.float()
-    out = q.new_zeros((b, row_stride, d))
-    out[:, :n_valid] = ctx.permute(0, 2, 1, 3).reshape(b, n_valid, d).to(
-        q.dtype)
-    return out.reshape(m, d)
+    return _from_heads(ctx, q, row_stride)
+
+
+def attn_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       o: torch.Tensor, do: torch.Tensor, heads: int,
+                       scale: float, row_stride: int, n_valid: int):
+    """Twin of K8 ``_attn_bwd_stream_kernel``: the attention core's
+    gradients.  q, k, v, the forward's context o and its cotangent do, all
+    (B·row_stride, D) bf16 with ``n_valid`` real rows per example → (dq,
+    dk, dv) in q's type, the pad rows never read and written as zeros.
+
+    Per example and head, whatever the forward's flavour: the f32 softmax
+    recomputed unfolded (s = QKᵀ·scale, e = exp(s − max s), inv = 1/Σe);
+    δ = Σ do·o over the head's columns in f32; dv = bf16(e)ᵀ·bf16(do·inv);
+    dp = do·vᵀ; ds = bf16(e·(dp − δ)·(inv·scale)); dq = ds·k, dk = dsᵀ·q;
+    bf16 operands, f32 sums."""
+    bf = torch.bfloat16
+    qh, kh, vh, oh, doh = (_heads(t, heads, row_stride, n_valid).float()
+                           for t in (q, k, v, o, do))
+    s = (qh @ kh.transpose(-1, -2)) * scale
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    inv = 1.0 / e.sum(dim=-1, keepdim=True)
+    delta = (doh * oh).sum(dim=-1, keepdim=True)
+    dv = e.to(bf).float().transpose(-1, -2) @ (doh * inv).to(bf).float()
+    dp = doh @ vh.transpose(-1, -2)
+    ds = (e * (dp - delta) * (inv * scale)).to(bf).float()
+    dq = ds @ kh
+    dk = ds.transpose(-1, -2) @ qh
+    return tuple(_from_heads(t, q, row_stride) for t in (dq, dk, dv))
 
 
 def out_mlp_reference(x: torch.Tensor, ctx: torch.Tensor,

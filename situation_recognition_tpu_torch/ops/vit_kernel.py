@@ -12,7 +12,12 @@ Replaces the four forward kernels of
   (both ``csrc/vit_attention.cu``: one kernel with a row stride and a count
   of real rows; the source says why one serves both);
 * K6 ``_out_mlp_kernel``          → ``vit_out_mlp_forward``
-  (``csrc/vit_block.cu``: three GEMMs with epilogues and a LayerNorm).
+  (``csrc/vit_block.cu``: three GEMMs with epilogues and a LayerNorm);
+
+and the backward kernel of the fine-tuning path:
+
+* K8 ``_attn_bwd_stream_kernel``  → ``vit_attention_backward``
+  (``csrc/vit_attention_bwd.cu``: dq, then dk and dv, in two launches).
 
 A CPU tensor runs the twin of ``ops/vit.py``; a CUDA tensor launches the
 kernel, built by ``nvcc`` at first use and bound with ``ctypes``, or
@@ -42,8 +47,8 @@ import torch
 
 from situation_recognition_tpu_torch.ops.ggnn_kernel import _check_tensors
 from situation_recognition_tpu_torch.ops.vit import (
-    BlockWeights, LOG2E, attn_core_reference, out_mlp_reference,
-    qkv_reference)
+    BlockWeights, LOG2E, attn_bwd_reference, attn_core_reference,
+    out_mlp_reference, qkv_reference)
 
 #: the attention kernel's head width
 HEAD_DIM = 64
@@ -55,6 +60,7 @@ _SIGNATURES = {
     "vit_qkv_forward": [_P] * 9 + [_I, _I, _F, _P],
     "vit_out_mlp_forward": [_P] * 14 + [_I, _I, _I, _F, _I, _P],
     "vit_attention_forward": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P],
+    "vit_attention_backward": [_P] * 9 + [_I] * 5 + [_F, _P],
 }
 
 
@@ -156,14 +162,11 @@ vit_qkv_forward.launches = 0
 # ---------------------------------------------------------------- K5/K7
 
 
-def _attention(q, k, v, heads: int, folded: bool, row_stride: int,
-               n_valid: int):
-    """The attention core over (B·row_stride, D) q, k, v → (context,
-    whether the kernel was launched)."""
-    scale = 1.0 / math.sqrt(q.shape[1] // heads)
-    if q.device.type == "cpu":
-        return attn_core_reference(q, k, v, heads, scale, folded, row_stride,
-                                   n_valid), False
+def _attention_rows(q, heads: int, row_stride: int, n_valid: int,
+                    tensors: dict) -> tuple:
+    """Checks of the attention kernels' arguments → (rows, width,
+    examples): (B·row_stride, D) bf16 CUDA tensors in heads of 64, whole
+    examples, ``1 <= n_valid <= row_stride``."""
     if q.device.type != "cuda":
         raise ValueError(f"no ViT kernel for device {q.device}")
     m, d = _rows(q)
@@ -177,9 +180,21 @@ def _attention(q, k, v, heads: int, folded: bool, row_stride: int,
     if b > 65535 or heads > 65535:
         raise ValueError(f"at most 65535 examples and heads, got {b}, "
                          f"{heads}")
-    bf = torch.bfloat16
-    _check_tensors(q.device, {"q": (q, (m, d), bf), "k": (k, (m, d), bf),
-                              "v": (v, (m, d), bf)})
+    _check_tensors(q.device, {name: (t, (m, d), torch.bfloat16)
+                              for name, t in tensors.items()})
+    return m, d, b
+
+
+def _attention(q, k, v, heads: int, folded: bool, row_stride: int,
+               n_valid: int):
+    """The attention core over (B·row_stride, D) q, k, v → (context,
+    whether the kernel was launched)."""
+    scale = 1.0 / math.sqrt(q.shape[1] // heads)
+    if q.device.type == "cpu":
+        return attn_core_reference(q, k, v, heads, scale, folded, row_stride,
+                                   n_valid), False
+    _, d, b = _attention_rows(q, heads, row_stride, n_valid,
+                              {"q": q, "k": k, "v": v})
     out = torch.empty_like(q)
     lib = _lib("vit_attention.cu", "vit_attention_forward")
     with torch.cuda.device(q.device):
@@ -222,6 +237,42 @@ def vit_attention_stream_forward(q: torch.Tensor, k: torch.Tensor,
 
 
 vit_attention_stream_forward.launches = 0
+
+
+# ------------------------------------------------------------------ K8
+
+
+def vit_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           o: torch.Tensor, do: torch.Tensor, heads: int,
+                           row_stride: int, n_valid: int):
+    """K8, the stream's attention backward: q, k, v, the forward's context
+    o and its cotangent do, (B·row_stride, D) bf16 with ``n_valid`` real
+    rows per example → (dq, dk, dv), the pad rows zero.  The softmax is
+    recomputed in f32 whatever the forward's flavour.  CPU tensors run the
+    twin; CUDA tensors launch ``csrc/vit_attention_bwd.cu`` (two kernels,
+    counted as one call) or raise."""
+    scale = 1.0 / math.sqrt(q.shape[1] // heads)
+    if q.device.type == "cpu":
+        return attn_bwd_reference(q, k, v, o, do, heads, scale, row_stride,
+                                  n_valid)
+    _, d, b = _attention_rows(q, heads, row_stride, n_valid,
+                              {"q": q, "k": k, "v": v, "o": o, "do": do})
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stats = torch.empty((3, b, heads, row_stride), dtype=torch.float32,
+                        device=q.device)
+    lib = _lib("vit_attention_bwd.cu", "vit_attention_backward")
+    with torch.cuda.device(q.device):
+        rc = lib.vit_attention_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats.data_ptr(), b, row_stride, n_valid, d, heads, float(scale),
+            _stream(q))
+    _raise_on(rc, "vit_attention_backward")
+    vit_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+vit_attention_backward.launches = 0
 
 
 # ------------------------------------------------------------------ K6

@@ -7,18 +7,27 @@ run synchronously: one step per batch, scored on the host.
 
 A train step does what the JAX step does:
 
-1. features from the frozen backbone outside autograd, with train-mode
-   BatchNorm (flax's, ``models/resnet.BatchNorm``) updating the running
-   statistics once per step (a ViT has no statistics; at bf16 on the card
-   its encoder blocks run through the ViT kernels);
+1. features from the backbone, with train-mode BatchNorm (flax's,
+   ``models/resnet.BatchNorm``) updating the running statistics once per
+   step (a ViT has no statistics; at bf16 on the card its encoder blocks
+   run through the ViT kernels).  A frozen backbone runs outside autograd;
+   with ``train_backbone`` (JAX ``train_step_ft``) it runs under autograd,
+   so that the gradients reach every backbone parameter (BN scales and
+   shifts too), and a ViT's blocks take the ft stream (K7 forward, K8
+   backward; ``models/vit.py``);
 2. under autograd: the verb branch, its argmax, the predicted-verb noun
    branch, and the masked verb CE plus the masked nouns CE;
 3. backward;
 4. the gt-verb noun branch, forward-only on the parameters before the
-   update (its loss is logged, never backpropagated) — on the card its
-   GGNN propagate is the folded kernel K1;
-5. a global-norm-1 clip and Adamax(lr), the rate from ``make_lr_fn`` at
-   the optimizer-step count;
+   update and on the features detached (its loss is logged, never
+   backpropagated) — on the card its GGNN propagate is the folded kernel
+   K1;
+5. one global-norm-1 clip over every trainable parameter (the head, and
+   the backbone under ``train_backbone``) and Adamax(lr), the rate from
+   ``make_lr_fn`` at the optimizer-step count; the backbone's parameter
+   group runs at that rate times ``backbone_lr / lr``, which is Adamax at
+   ``backbone_lr`` exactly as JAX's post-scaled updates are
+   (``_scale_subtree``);
 6. top-5 indices by iterative argmax (ties to the lower index).
 
 Differentiated GGNN propagates take autograd over the masked-sum math, or
@@ -78,6 +87,12 @@ class TrainerConfig:
     warmup_steps: int = 0
     total_steps: Optional[int] = None
     min_lr: float = 0.0
+    # fine-tune the backbone with the head (JAX ``train_backbone``); its
+    # own rate (default ``lr``), and per-block checkpointing of its
+    # backward (only with train_backbone)
+    train_backbone: bool = False
+    backbone_lr: Optional[float] = None
+    remat_backbone: bool = False
 
 
 def make_lr_fn(config: TrainerConfig):
@@ -165,8 +180,10 @@ class Trainer:
         if config.image_size < 32:
             raise ValueError(f"image_size must be >= 32, got "
                              f"{config.image_size}")
+        self._ft = bool(config.train_backbone)
         self.backbone, has_bn = build_backbone(
-            config.backbone, config.hidden, config.image_size, dt)
+            config.backbone, config.hidden, config.image_size, dt,
+            remat=config.remat_backbone and self._ft)
         if backbone_state is None:
             self.backbone.reset_parameters(gen)
         else:
@@ -183,26 +200,58 @@ class Trainer:
             self.head.load_state_dict(head_state, strict=True)
         self.backbone.to(self.device)
         if has_bn:
-            # the frozen ResNet: convolutions in the compute type (flax
-            # casts its f32 kernels at each use; frozen, that is the same
-            # thing), BatchNorm parameters and statistics in f32,
-            # channels-last
-            for m in self.backbone.modules():
-                if isinstance(m, nn.Conv2d):
-                    m.to(dtype=dt)
-            self.backbone.to(memory_format=torch.channels_last)
-        self.backbone.requires_grad_(False)
+            # the ResNet's BatchNorm parameters and statistics in f32;
+            # frozen, its convolutions are cast to the compute type once
+            # (flax casts its f32 kernels at each use, which for a frozen
+            # backbone is the same thing), fine-tuned they keep f32 master
+            # weights and are cast at each use.  Channels-last on the card
+            # (cuDNN's layout); the CPU keeps NCHW (models/resnet.py)
+            if not self._ft:
+                for m in self.backbone.modules():
+                    if isinstance(m, nn.Conv2d):
+                        m.to(dtype=dt)
+            if self.device.type == "cuda":
+                self.backbone.to(memory_format=torch.channels_last)
+        self.backbone.requires_grad_(self._ft)
         self.head.to(self.device)
         self.role_ids = torch.as_tensor(encoder.role_ids, dtype=torch.long,
                                         device=self.device)
         self.role_mask = torch.as_tensor(encoder.role_mask,
                                          device=self.device)
-        # the reference's optimizer: clip_grad_norm_(1.0), then Adamax
+        # the reference's optimizer: clip_grad_norm_(1.0), then Adamax;
+        # fine-tuning adds the backbone as a group at backbone_lr/lr times
+        # the rate
         self._lr_fn = make_lr_fn(config)
-        self.optimizer = torch.optim.Adamax(self.head.parameters(),
-                                            lr=config.lr)
+        groups = [{"params": list(self.head.parameters()), "lr_ratio": 1.0}]
+        if self._ft:
+            ratio = 1.0
+            if config.backbone_lr is not None \
+                    and config.backbone_lr != config.lr:
+                if config.lr == 0:
+                    raise ValueError(
+                        "backbone_lr needs lr != 0 (the backbone rate is "
+                        "backbone_lr/lr times the schedule's)")
+                ratio = config.backbone_lr / config.lr
+            groups.append({"params": list(self.backbone.parameters()),
+                           "lr_ratio": ratio})
+        self._trainable = [p for g in groups for p in g["params"]]
+        self.optimizer = torch.optim.Adamax(groups, lr=config.lr)
         self.opt_steps = 0
+        self._set_lr()
         self.step_count = 0
+
+    def current_lr(self) -> float:
+        """The rate the next optimizer step takes: ``lr``, or the schedule
+        at the optimizer-step count (the backbone's group takes it times
+        ``backbone_lr / lr``)."""
+        if self._lr_fn is None:
+            return float(self.config.lr)
+        return float(self._lr_fn(self.opt_steps))
+
+    def _set_lr(self) -> None:
+        lr = self.current_lr()
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr * group["lr_ratio"]
 
     # ------------------------------------------------------------- stepping
 
@@ -213,15 +262,17 @@ class Trainer:
                       + stream)
         return g
 
-    def _features(self, images: torch.Tensor, flip, train: bool):
-        """Device transform + frozen backbone → features (B, D) f32, with
-        no gradient; in train mode BN uses batch statistics and updates
-        its running ones."""
+    def _features(self, images: torch.Tensor, flip, train: bool,
+                  grad: bool = False):
+        """Device transform + backbone → features (B, D) f32, under
+        autograd with ``grad`` (fine-tuning) and without a gradient
+        otherwise; in train mode BN uses batch statistics and updates its
+        running ones."""
         x = device_transform(images, flip if train else None,
                              dtype=self.config.compute_dtype,
                              crop=self.config.image_size)
         self.backbone.train(train)
-        with torch.no_grad():
+        with torch.set_grad_enabled(grad):
             return self.backbone(x).float()
 
     def _losses(self, outs, verbs, labels, valid):
@@ -241,8 +292,9 @@ class Trainer:
     def train_step(self, images, flip, verbs, labels, valid):
         """One optimizer step on a device batch → (losses (3,) f32:
         verb, nouns, gt nouns; top-k (pred_verb top-5, pred_nouns top-5,
-        gt_nouns top-1))."""
-        feats = self._features(images, flip, True)
+        gt_nouns top-1)).  With ``train_backbone`` the backbone is in the
+        backward, the clip and the update."""
+        feats = self._features(images, flip, True, grad=self._ft)
         head = self.head
         n_labels = self.encoder.get_num_labels()
         self.optimizer.zero_grad(set_to_none=True)
@@ -254,13 +306,11 @@ class Trainer:
         (vloss + nloss).backward()
         with torch.no_grad():
             gt_pred_nouns = head.predict_nouns(
-                feats, verbs, self.role_ids, self.role_mask, train=True,
-                generator=self._generator(1))
+                feats.detach(), verbs, self.role_ids, self.role_mask,
+                train=True, generator=self._generator(1))
             gloss = nouns_loss_masked(gt_pred_nouns, labels, n_labels, valid)
-        torch.nn.utils.clip_grad_norm_(head.parameters(), 1.0)
-        if self._lr_fn is not None:
-            for group in self.optimizer.param_groups:
-                group["lr"] = self._lr_fn(self.opt_steps)
+        torch.nn.utils.clip_grad_norm_(self._trainable, 1.0)
+        self._set_lr()
         self.optimizer.step()
         self.opt_steps += 1
         losses = torch.stack([vloss.detach(), nloss.detach(), gloss])

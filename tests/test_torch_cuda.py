@@ -1,5 +1,6 @@
 """Card-only tests: the CUDA GGNN and ViT kernels against their plain
-twins, and the serving and training paths on the card.  Marked ``cuda``;
+twins, the ViT's differentiable attention (K7 forward, K8 backward), and
+the serving and training paths on the card.  Marked ``cuda``;
 each test asks for the card in the ``cuda_device`` fixture and skips with
 a reason where there is none (run them on the card with ``python -m
 pytest tests/test_torch_cuda.py -m cuda``)."""
@@ -289,6 +290,77 @@ def test_vit_kernels_reject_unsupported_shapes(cuda_device):
     w = type(w)(*(t.to(cuda_device) for t in w))
     with pytest.raises(ValueError, match="bfloat16"):
         vk.vit_qkv_forward(x, w, 1e-6)
+
+
+# K8 vs its twin: the same bf16 casts of f32 values summed in other
+# orders; a last-bit flip of a bf16 e or ds element feeds the sums (the
+# bound of K3, the other backward kernel)
+BWD_MAX_REL = 2 ** -5
+BWD_MEAN_REL = 2 ** -10
+
+
+@pytest.mark.parametrize("b,n,stride,heads", [
+    (2, 257, 257, 16), (2, 257, 264, 16), (3, 50, 56, 2), (2, 13, 16, 1),
+    (1, 577, 577, 2)])
+def test_vit_attention_backward_kernel_matches_twin(cuda_device, b, n,
+                                                    stride, heads):
+    """K8 at the ViT-L/14 head shape (16 heads, 257 tokens), with pad rows
+    (stride 264), small and ragged tiles, and many key tiles."""
+    from situation_recognition_tpu_torch.ops import vit as tv
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+
+    g = torch.Generator().manual_seed(b * n + stride)
+    d = 64 * heads
+    q, k, v, do = (torch.randn(b * stride, d, generator=g).to(torch.bfloat16)
+                   .to(cuda_device) for _ in range(4))
+    o = vk.vit_attention_stream_forward(q, k, v, heads, True, stride, n)
+    want = tv.attn_bwd_reference(q, k, v, o, do, heads, 0.125, stride, n)
+    before = vk.vit_attention_backward.launches
+    got = vk.vit_attention_backward(q, k, v, o, do, heads, stride, n)
+    torch.cuda.synchronize()
+    assert vk.vit_attention_backward.launches == before + 1
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        scale = w.float().abs().max().item()
+        diff = (a.float() - w.float()).abs()
+        assert diff.max().item() <= BWD_MAX_REL * scale, (name, diff.max())
+        assert diff.mean().item() <= BWD_MEAN_REL * scale, (name, diff.mean())
+        assert (a.reshape(b, stride, d)[:, n:] == 0).all(), name
+
+
+@pytest.mark.parametrize("folded", [True, False])
+def test_diff_attention_on_the_card_matches_autograd(cuda_device, folded):
+    """``DiffAttention`` (K7 forward, K8 backward) against autograd over the
+    plain softmax attention at bf16, at ``tests/test_vit_pallas.py``'s
+    bounds for the JAX pair against XLA's AD: the context within 0.03 and
+    the gradients within 0.05 of their largest elements."""
+    from situation_recognition_tpu_torch.ops import vit as tv
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+    from situation_recognition_tpu_torch.ops.vit_train import DiffAttention
+
+    b, n, heads = 3, 257, 4
+    d = 64 * heads
+    g = torch.Generator().manual_seed(11)
+    base = [torch.randn(b * n, d, generator=g).to(torch.bfloat16)
+            .to(cuda_device) for _ in range(3)]
+    kernel = [t.clone().requires_grad_() for t in base]
+    plain = [t.clone().requires_grad_() for t in base]
+    counts = (vk.vit_attention_stream_forward.launches,
+              vk.vit_attention_backward.launches)
+    o_k = DiffAttention.apply(*kernel, heads, folded, n, n)
+    (o_k.float() ** 2).sum().backward()
+    o_p = tv.attn_core_reference(*plain, heads, 0.125, False, n, n)
+    (o_p.float() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert (vk.vit_attention_stream_forward.launches - counts[0],
+            vk.vit_attention_backward.launches - counts[1]) == (1, 1)
+
+    def rel(a, w):
+        return ((a.float() - w.float()).abs().max()
+                / w.float().abs().max()).item()
+
+    assert rel(o_k, o_p) <= 0.03
+    for name, a, w in zip("qkv", kernel, plain):
+        assert rel(a.grad, w.grad) <= 0.05, name
 
 
 def test_vit_module_kernel_paths_on_the_card(cuda_device, monkeypatch):

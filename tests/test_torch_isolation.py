@@ -47,6 +47,7 @@ def test_importing_the_port_loads_no_jax():
         "device", "convert", "serving", "server", "train", "data.encoder",
         "data.transforms", "metrics.scorer", "ops.ggnn", "ops.ggnn_kernel",
         "ops.ggnn_train", "ops._build", "ops.vit", "ops.vit_kernel",
+        "ops.vit_train",
         "models.resnet", "models.vit", "models.backbone", "models.fcggnn")]
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in modules)

@@ -153,8 +153,10 @@ def test_resolve_block_impl():
 
 def test_path_selection(monkeypatch):
     """'kernel' takes the stream stack unless SRTPU_VIT_STREAM=0; a
-    differentiated call or an f32 stream on the kernel path raises; the
-    vit_tiny width never reaches the kernels."""
+    differentiated call takes the ft stream on the stream stack and the
+    plain blocks on the per-block path (JAX's two custom VJPs); an f32
+    stream on the kernel path raises, differentiated or not; the vit_tiny
+    width never reaches the kernels."""
     m = ViT(16, 128, 1, 2, image_size=32, dtype=torch.bfloat16,
             block_impl="kernel")
     x = torch.zeros(2, 5, 128, dtype=torch.bfloat16)
@@ -165,8 +167,14 @@ def test_path_selection(monkeypatch):
         assert m.path(x) == "block"
         with pytest.raises(ValueError, match="bf16"):
             m.path(x.float())
-    with pytest.raises(RuntimeError, match="forward-only"):
-        m.path(x)
+    assert m.path(x) == "plain"                    # SRTPU_VIT_STREAM=0
+    with pytest.raises(ValueError, match="bf16"):
+        m.path(x.float())
+    monkeypatch.delenv("SRTPU_VIT_STREAM")
+    assert m.path(x) == "ft"
+    m.requires_grad_(False)
+    assert m.path(x) == "stream"                   # nothing to differentiate
+    assert m.path(x.requires_grad_()) == "ft"
     m.block_impl = "auto"
     with torch.no_grad():
         assert m.path(x) == "plain"                # the CPU
@@ -180,18 +188,20 @@ def test_path_selection(monkeypatch):
 
 def test_auto_on_the_card_raises_under_autograd(monkeypatch):
     """Where 'auto' resolves to the kernels (the card at bf16), a
-    differentiated call raises, as a forced 'kernel' does: the kernels are
-    forward-only and the call does not move to the plain path unseen.
-    Without gradients the same call takes the kernel path, and on the CPU
-    'auto' differentiates through the plain path."""
+    differentiated call takes the ft stream (K7 forward, K8 backward), as
+    a forced 'kernel' does, and an f32 stream there still raises rather
+    than move to the plain path unseen.  Without gradients the same call
+    takes the forward kernels, and on the CPU 'auto' differentiates
+    through the plain path."""
     m = ViT(16, 128, 1, 2, image_size=32, dtype=torch.bfloat16)
     x = torch.zeros(2, 5, 128, dtype=torch.bfloat16)
     assert m.block_impl == "auto" and m.path(x) == "plain"
     monkeypatch.setattr(m, "resolved_impl", lambda device: resolve_block_impl(
         m.block_impl, m.dtype, "cuda", m.width, m.heads))
     monkeypatch.delenv("SRTPU_VIT_STREAM", raising=False)
-    with pytest.raises(RuntimeError, match="block_impl='plain'"):
-        m.path(x)
+    assert m.path(x) == "ft"
+    with pytest.raises(ValueError, match="bf16"):
+        m.path(x.float())
     with torch.no_grad():
         assert m.path(x) == "stream"
     m.block_impl = "plain"
