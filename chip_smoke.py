@@ -54,7 +54,8 @@ Phases, each printing its seconds:
              through the stream stack and through the per-block path
              (``SRTPU_VIT_STREAM=0``) against the plain path on the card,
              batch timing, a profile, and the batcher's bursts; then a
-             frozen-backbone ``Trainer``: train steps and an eval batch.
+             frozen-backbone ``Trainer``: train steps, a profile of one,
+             and an eval batch.
              Fails unless K1, K4, K5, K6 and K7 launched there, as many
              times as the paths call them.  The kernel part also holds K8
              (the attention backward) against its twin at the stream's
@@ -72,8 +73,10 @@ Phases, each printing its seconds:
              parameters that moved, peak memory, then an eval batch
              through the forward kernels.
 
-Then a ``kernels`` JSON line, the card's ``nvidia-smi`` line, and as the
-last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
+Then a ``kernels`` JSON line (the attention kernels' entries with the
+registers, spills and shared memory that ``-Xptxas -v`` reported), the
+card's ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
+{...}}``.  Any failure exits non-zero
 before that line is printed.
 """
 
@@ -889,6 +892,36 @@ def _zero_vit_counts() -> None:
         w.launches = 0
 
 
+def _attention_resources() -> dict:
+    """Registers, spills and stack frame per thread and static shared
+    memory of the attention kernels as ``nvcc -Xptxas -v`` reported them,
+    with the dynamic shared memory a block takes: by source, by kernel."""
+    from situation_recognition_tpu_torch.ops import _build
+
+    fwd = _build.load("vit_attention.cu")
+    bwd = _build.load("vit_attention_bwd.cu")
+    out = {"vit_attention.cu": {}, "vit_attention_bwd.cu": {}}
+    for src, kern in (("vit_attention.cu", "attn_kernel"),
+                      ("vit_attention_bwd.cu", "dq_kernel"),
+                      ("vit_attention_bwd.cu", "dkv_kernel")):
+        found = _build.kernel_resources(_build.build_log(src), kern)
+        if not found:
+            raise SystemExit(f"no -Xptxas -v report of {kern} in the build "
+                             f"log of {src}")
+        for mangled, res in found.items():
+            if kern == "attn_kernel":   # attn_kernel<FOLDED>
+                name = ("attn_kernel<exp2>" if "ILb1E" in mangled
+                        else "attn_kernel<softmax>")
+                dynamic = fwd.vit_attention_forward_smem()
+            else:
+                name = kern
+                dynamic = bwd.vit_attention_backward_smem(
+                    int(kern == "dkv_kernel"))
+            out[src][name] = {**res, "dynamic_smem": dynamic}
+    _log("[vit] attention kernel resources " + json.dumps(out))
+    return out
+
+
 def _rel_errors(got, want) -> dict:
     diff = (got.float() - want.float()).abs()
     scale = want.float().abs().max().item()
@@ -1303,7 +1336,7 @@ def phase_vit_train(enc, seed: int, batch: int) -> dict:
             trainer.head.ggsnn.impl != "kernel":
         raise SystemExit("the ViT trainer did not resolve to the kernels")
     batches = _train_batches(enc, seed + 3, batch,
-                             VIT_TRAIN_STEPS + VIT_EVAL_BATCHES)
+                             VIT_TRAIN_STEPS + VIT_EVAL_BATCHES + 1)
     steps, losses = [], []
     for i in range(VIT_TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -1314,10 +1347,14 @@ def phase_vit_train(enc, seed: int, batch: int) -> dict:
         steps.append({"ms": (time.perf_counter() - t0) * 1e3,
                       "launches": _vit_counts()})
         losses.append(list(step_losses))
+    profile = _profile("one frozen-backbone train step",
+                       lambda: trainer.train_epoch([batches[-1]],
+                                                   VIT_TRAIN_STEPS),
+                       tag="vit train")
     _zero_vit_counts()
     t0 = time.perf_counter()
     top1, top5, val_losses, avg = trainer.evaluate(
-        batches[VIT_TRAIN_STEPS:], logging=True)
+        batches[VIT_TRAIN_STEPS:-1], logging=True)
     torch.cuda.synchronize()
     eval_s = (time.perf_counter() - t0) / VIT_EVAL_BATCHES
     eval_launches = _vit_counts()
@@ -1331,7 +1368,8 @@ def phase_vit_train(enc, seed: int, batch: int) -> dict:
               "eval_batch_ms": eval_s * 1e3,
               "eval_img_per_s": batch / eval_s,
               "eval_launches": eval_launches,
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "profile": profile}
     _log("[vit] train " + json.dumps(result))
     if not np.isfinite(np.asarray(losses)).all() or not all(
             np.isfinite(v) for v in val_losses.values()):
@@ -1557,7 +1595,7 @@ def main(argv=None) -> int:
     for src in SOURCES:
         _build.load(src)
         _log(f"[build] {src}:\n" + "\n".join(
-            line for line in _build.build_logs.get(src, "").splitlines()
+            line for line in _build.build_log(src).splitlines()
             if line.strip()))
     _phase("build", t)
 
@@ -1614,6 +1652,7 @@ def main(argv=None) -> int:
             raise SystemExit(f"{k} never launched on the ViT path")
 
     vit_pallas = "vit_pallas.py"
+    res = _attention_resources()
     print(json.dumps({"kernels": [
         _kernel_line("ggnn_folded", "ggnn_folded.cu", 217,
                      kernel["shapes"] + vit_kernel["K1"],
@@ -1630,15 +1669,18 @@ def main(argv=None) -> int:
                      vit_launches["K4"], replaces=vit_pallas),
         _kernel_line("vit_attention_block", "vit_attention.cu", 174,
                      vit_kernel["K5"], vit_launches["K5"],
-                     replaces=vit_pallas),
+                     replaces=vit_pallas,
+                     resources=res["vit_attention.cu"]),
         _kernel_line("vit_out_mlp", "vit_block.cu", 218, [vit_kernel["K6"]],
                      vit_launches["K6"], replaces=vit_pallas),
         _kernel_line("vit_attention_stream", "vit_attention.cu", 308,
                      vit_kernel["K7"], vit_launches["K7"],
-                     replaces=vit_pallas),
+                     replaces=vit_pallas,
+                     resources=res["vit_attention.cu"]),
         _kernel_line("vit_attention_bwd", "vit_attention_bwd.cu", 467,
                      vit_kernel["K8"], vit_launches["K8"],
-                     replaces=vit_pallas, ft_stack=vit_ft_stack),
+                     replaces=vit_pallas, ft_stack=vit_ft_stack,
+                     resources=res["vit_attention_bwd.cu"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

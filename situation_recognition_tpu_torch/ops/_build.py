@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,9 +27,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict = {}
-#: ``nvcc`` output (``-Xptxas -v``: registers, shared memory, spills) of
-#: each library built by this process, by source name
-build_logs: dict = {}
 
 
 def _nvcc() -> str:
@@ -55,7 +53,9 @@ def _target(source: str) -> tuple:
 
 def build(sources) -> None:
     """Compile the libraries of ``sources`` that are not built yet, one
-    ``nvcc`` process each, all started together."""
+    ``nvcc`` process each, all started together; each library's ``nvcc``
+    output (``-Xptxas -v``: registers, shared memory, spills) is kept
+    beside it (``build_log``)."""
     with _lock:
         os.makedirs(BUILD_DIR, exist_ok=True)
         jobs = []
@@ -70,14 +70,26 @@ def build(sources) -> None:
                 text=True)))
         failed = []
         for source, out, tmp, proc in jobs:
-            build_logs[source] = proc.communicate()[0]
+            log = proc.communicate()[0]
             if proc.returncode != 0:
-                failed.append(source)
-            else:
-                os.replace(tmp, out)
+                failed.append(f"{source}:\n{log}")
+                continue
+            with open(f"{tmp}.log", "w") as f:
+                f.write(log)
+            os.replace(f"{tmp}.log", f"{out}.log")
+            os.replace(tmp, out)
         if failed:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(
-                f"{s}:\n{build_logs[s]}" for s in failed))
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
+def build_log(source: str) -> str:
+    """The ``nvcc`` output of the built library of ``source`` ("" when it
+    has not been built)."""
+    path = f"{_target(source)[1]}.log"
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
 
 
 def load(source: str) -> ctypes.CDLL:
@@ -89,3 +101,46 @@ def load(source: str) -> ctypes.CDLL:
         if source not in _libs:
             _libs[source] = ctypes.CDLL(_target(source)[1])
         return _libs[source]
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PROPS = re.compile(r"Function properties for (\S+)")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def kernel_resources(log: str, kernel: str) -> dict:
+    """What ``-Xptxas -v`` reported in ``log`` for the entry functions
+    whose (mangled) names contain ``kernel``: by name, the registers per
+    thread, spill stores and loads and stack frame in bytes, and static
+    shared memory in bytes.  Empty when no entry matches."""
+    out, name, props = {}, None, None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            if name:
+                out[name] = {"registers": None, "spill_stores": None,
+                             "spill_loads": None, "stack_frame": None,
+                             "static_smem": 0}
+            continue
+        m = _PROPS.search(line)
+        if m:
+            props = m.group(1)
+            continue
+        if name is None:
+            continue
+        m = _FRAME.search(line)
+        if m and props == name:
+            out[name].update(stack_frame=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = _USED.search(line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            smem = _SMEM.search(line)
+            if smem:
+                out[name]["static_smem"] = int(smem.group(1))
+    return out

@@ -1,0 +1,51 @@
+"""The kernel build's bookkeeping, which runs without nvcc: what
+``-Xptxas -v`` reported for each kernel (registers, spills, shared memory),
+read back from the build log kept beside a library."""
+
+import pytest
+
+from situation_recognition_tpu_torch.ops import _build
+
+# nvcc -Xptxas -v output in the form CUDA 12 prints it for sm_90a: a device
+# function's properties between two entry functions, a kernel with spills
+# and one with static shared memory
+_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_19dq_kernelEPK13__nv_bfloat16' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_19dq_kernelEPK13__nv_bfloat16
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Function properties for __internal_helper
+    64 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_110dkv_kernelEPK13__nv_bfloat16' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_110dkv_kernelEPK13__nv_bfloat16
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 16 bytes smem, 424 bytes cmem[0]
+"""
+
+
+@pytest.mark.parametrize("kernel,want", [
+    ("dq_kernel", {"registers": 168, "spill_stores": 4, "spill_loads": 12,
+                   "stack_frame": 8, "static_smem": 0}),
+    ("dkv_kernel", {"registers": 128, "spill_stores": 0, "spill_loads": 0,
+                    "stack_frame": 0, "static_smem": 16}),
+])
+def test_kernel_resources_reads_ptxas_report(kernel, want):
+    got = _build.kernel_resources(_LOG, kernel)
+    assert list(got.values()) == [want]
+    assert kernel in next(iter(got))
+
+
+def test_kernel_resources_of_an_absent_kernel_is_empty():
+    assert _build.kernel_resources(_LOG, "attn_kernel") == {}
+    assert _build.kernel_resources("", "dq_kernel") == {}
+
+
+def test_build_log_reads_the_copy_beside_a_built_library(tmp_path,
+                                                         monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    source = "vit_attention_bwd.cu"
+    assert _build.build_log(source) == ""
+    with open(f"{_build._target(source)[1]}.log", "w") as f:
+        f.write(_LOG)
+    assert _build.build_log(source) == _LOG

@@ -225,7 +225,11 @@ def test_vit_qkv_kernel_matches_twin(cuda_device, m, d):
     (3, 257, 264, 2, True), (3, 257, 257, 2, False), (2, 50, 56, 1, True),
     (2, 17, 17, 3, False), (2, 129, 136, 16, False),
     # ViT-L/14 at 336² and a longer sequence: many key tiles
-    (2, 577, 577, 2, True), (2, 577, 584, 1, False), (1, 1025, 1025, 1, True)])
+    (2, 577, 577, 2, True), (2, 577, 584, 1, False), (1, 1025, 1025, 1, True),
+    # the tile boundaries of the 64-query tiles, 64-key tiles and 16-row
+    # warps, through K5 (stride N) and K7 with pad rows, both flavours
+    *[(2, n, n + pad, 2, folded) for n in (1, 63, 64, 65, 128)
+      for folded, pad in ((True, 0), (False, 7))]])
 def test_vit_attention_kernel_matches_twin(cuda_device, b, n, stride, heads,
                                            folded):
     from situation_recognition_tpu_torch.ops import vit as tv
@@ -325,6 +329,56 @@ def test_vit_attention_backward_kernel_matches_twin(cuda_device, b, n,
         assert diff.max().item() <= BWD_MAX_REL * scale, (name, diff.max())
         assert diff.mean().item() <= BWD_MEAN_REL * scale, (name, diff.mean())
         assert (a.reshape(b, stride, d)[:, n:] == 0).all(), name
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 128])
+@pytest.mark.parametrize("folded", [True, False])
+def test_vit_attention_backward_tile_boundaries(cuda_device, n, folded):
+    """K8 at the tile boundaries (64-row tiles, 16-row warps), with pad
+    rows, on the context of either forward flavour.  Errors are measured
+    against the largest element of the three gradients: at N = 1 the one
+    key's softmax is 1, so dq and dk are zero in exact arithmetic and both
+    sides hold only rounding noise (dv is do there)."""
+    from situation_recognition_tpu_torch.ops import vit as tv
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+
+    b, heads, stride = 2, 2, n + 5
+    g = torch.Generator().manual_seed(31 * n + folded)
+    d = 64 * heads
+    q, k, v, do = (torch.randn(b * stride, d, generator=g).to(torch.bfloat16)
+                   .to(cuda_device) for _ in range(4))
+    o = vk.vit_attention_stream_forward(q, k, v, heads, folded, stride, n)
+    want = tv.attn_bwd_reference(q, k, v, o, do, heads, 0.125, stride, n)
+    got = vk.vit_attention_backward(q, k, v, o, do, heads, stride, n)
+    torch.cuda.synchronize()
+    scale = max(w.float().abs().max().item() for w in want)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        diff = (a.float() - w.float()).abs()
+        assert diff.max().item() <= BWD_MAX_REL * scale, (name, diff.max())
+        assert diff.mean().item() <= BWD_MEAN_REL * scale, (name, diff.mean())
+        assert (a.reshape(b, stride, d)[:, n:] == 0).all(), name
+
+
+def test_vit_attention_kernels_are_deterministic(cuda_device):
+    """Two launches on the same inputs give bit-equal outputs, forward (both
+    flavours) and backward, at the ViT-L/14 head shape (16 heads, 257
+    tokens): no atomics, a fixed order of sums."""
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+
+    b, n, heads = 2, 257, 16
+    d = 64 * heads
+    g = torch.Generator().manual_seed(5)
+    q, k, v, do = (torch.randn(b * n, d, generator=g).to(torch.bfloat16)
+                   .to(cuda_device) for _ in range(4))
+    for folded in (True, False):
+        first = vk.vit_attention_stream_forward(q, k, v, heads, folded, n, n)
+        second = vk.vit_attention_stream_forward(q, k, v, heads, folded, n, n)
+        assert torch.equal(first, second), folded
+    o = first
+    first = vk.vit_attention_backward(q, k, v, o, do, heads, n, n)
+    second = vk.vit_attention_backward(q, k, v, o, do, heads, n, n)
+    for name, a, w in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, w), name
 
 
 @pytest.mark.parametrize("folded", [True, False])
