@@ -43,7 +43,10 @@ Phases, each printing its seconds:
              finite scores in [0, 100]; training and eval img/s.
 6. vit     — ViT-L/14 + FCGGNN(1024) at full width (224², 257 tokens, 24
              blocks, 16 heads, bf16, batch 256, random weights from
-             ``--seed``).  Kernels: K4 (qkv), K6 (out-MLP, both GELUs) and
+             ``--seed``).  Kernels: K4 (qkv), K6 (out-MLP, both GELUs),
+             each of their four GEMMs alone (qkv, out-projection, fc1,
+             fc2) with its TFLOP/s beside ``torch.nn.functional.linear``
+             (cuBLAS) on the same operands, and
              the attention kernel as K7 and K5 (257-row stride, as the
              paths call them; K7 also at the TPU stream's 264-row stride,
              pad rows exactly zero; K5 also at 577 tokens, ViT-L/14 at
@@ -73,8 +76,10 @@ Phases, each printing its seconds:
              parameters that moved, peak memory, then an eval batch
              through the forward kernels.
 
-Then a ``kernels`` JSON line (the attention kernels' entries with the
-registers, spills and shared memory that ``-Xptxas -v`` reported), the
+Then a ``kernels`` JSON line (the ViT kernels' entries with the
+registers, spills and shared memory that ``-Xptxas -v`` reported, and for
+the GEMMs of K4/K6 the ``setmaxnreg`` split and the dynamic shared memory
+that the library states), the
 card's ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero
 before that line is printed.
@@ -85,6 +90,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -922,6 +928,125 @@ def _attention_resources() -> dict:
     return out
 
 
+# the epilogues of vit_block.cu's GEMM by template argument (its Epi enum)
+GEMM_EPILOGUES = ("qkv", "out_proj", "fc1_gelu", "fc1_quick_gelu", "fc2")
+
+
+def _sass_hgmma(library: str):
+    """HGMMA (wgmma) instructions per kernel, by mangled name, in the SASS
+    of a built library (``cuobjdump -sass``); None where the toolkit has no
+    cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            fn = found.group(1)
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def _block_resources() -> dict:
+    """Registers, spills and stack frame per thread and static shared
+    memory of ``vit_block.cu``'s kernels as ``nvcc -Xptxas -v`` reported
+    them, by kernel: each GEMM instantiation ``gemm_kernel<epilogue, BN>``
+    and the two LayerNorms.  ptxas reports a GEMM's registers at its
+    launch bound; the split that ``setmaxnreg`` makes (producer,
+    consumers) and the dynamic shared memory of a block come from the
+    library's own constants.  Fails if the SASS of a GEMM instantiation
+    holds no HGMMA (``sass_hgmma``: their count, null without
+    cuobjdump)."""
+    from situation_recognition_tpu_torch.ops import _build
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+
+    src = "vit_block.cu"
+    lib = vk._lib(src, "vit_block_gemm_smem")
+    vk._lib(src, "vit_block_gemm_maxnreg")
+    split = {"producer": lib.vit_block_gemm_maxnreg(0),
+             "consumers": lib.vit_block_gemm_maxnreg(1)}
+    hgmma = _sass_hgmma(_build._target(src)[1])
+    out = {}
+    for kern in ("gemm_kernel", "layernorm_kernel"):
+        found = _build.kernel_resources(_build.build_log(src), kern)
+        if not found:
+            raise SystemExit(f"no -Xptxas -v report of {kern} in the build "
+                             f"log of {src}")
+        for mangled, res in found.items():
+            inst = re.search(r"gemm_kernelILi(\d+)ELi(\d+)E", mangled)
+            if inst:
+                name = (f"gemm_kernel<{GEMM_EPILOGUES[int(inst.group(1))]},"
+                        f"{inst.group(2)}>")
+                count = None if hgmma is None else hgmma.get(mangled, 0)
+                if count == 0:
+                    raise SystemExit(f"no HGMMA in the SASS of {name}")
+                out[name] = {**res, "setmaxnreg": split,
+                             "dynamic_smem": lib.vit_block_gemm_smem(
+                                 int(inst.group(1)), int(inst.group(2))),
+                             "sass_hgmma": count}
+            else:
+                name = ("layernorm_kernel<float>"
+                        if "layernorm_kernelIf" in mangled
+                        else "layernorm_kernel<bf16>")
+                out[name] = {**res, "dynamic_smem": 0}
+    _log("[vit] vit_block.cu kernel resources " + json.dumps(out))
+    return out
+
+
+def _gemm_products(x, ctx, w) -> dict:
+    """Each GEMM of K4 and K6 alone, through ``vit_block_gemm`` (the kernel
+    with that product's epilogue), timed with CUDA events at the stream's
+    shape with its achieved TFLOP/s, beside ``torch.nn.functional.linear``
+    (cuBLAS) on the same operands: no PyTorch call computes K4 or K6, so
+    that yardstick times the products alone.  qkv and fc1 read the stream
+    in place of the LayerNorm output; fc2 reads the hidden that fc1 wrote
+    and the f32 residual that the out-projection wrote."""
+    import torch
+    import torch.nn.functional as F
+
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+
+    lib = vk._lib("vit_block.cu", "vit_block_gemm")
+    m, d = x.shape
+    hid = w.fc1_w.shape[0]
+    r = torch.empty((m, d), dtype=torch.float32, device=x.device)
+    h = torch.empty((m, hid), dtype=torch.bfloat16, device=x.device)
+    qkv = torch.empty((m, 3 * d), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty_like(x)
+    rows = {}
+    for name, code, a, wt, bias, res, dst in (
+            ("qkv", 0, x, w.in_w, w.in_b, None, qkv),
+            ("out_proj", 1, ctx, w.out_w, w.out_b, x, r),
+            ("fc1", 2, x, w.fc1_w, w.fc1_b, None, h),
+            ("fc2", 4, h, w.fc2_w, w.fc2_b, r, out)):
+        n, k = wt.shape
+        args = (code, a.data_ptr(), wt.data_ptr(), bias.data_ptr(),
+                None if res is None else res.data_ptr(), dst.data_ptr(), m,
+                n, k)
+
+        def call():
+            rc = lib.vit_block_gemm(*args,
+                                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise SystemExit(f"vit_block_gemm {name} failed: {rc}")
+
+        flops = 2 * m * n * k
+        ms = _time_ms(call, 10)
+        cublas_ms = _time_ms(lambda: F.linear(a, wt), 10)
+        rows[name] = {"shape": f"({m}, {k}) x ({n}, {k})^T", "ms": ms,
+                      "tflops": flops / ms / 1e9, "cublas_ms": cublas_ms,
+                      "cublas_tflops": flops / cublas_ms / 1e9}
+    del r, h, qkv, out
+    _log("[vit] K4/K6 products " + json.dumps(rows))
+    return rows
+
+
 def _rel_errors(got, want) -> dict:
     diff = (got.float() - want.float()).abs()
     scale = want.float().abs().max().item()
@@ -1176,10 +1301,13 @@ def phase_vit_kernel(enc, seed: int, batch: int) -> dict:
                      10),
             _time_ms(lambda: tv.out_mlp_reference(x, ctx, w, 1e-6, quick),
                      3, 1))
+    products = _gemm_products(x, ctx, w)
     out["K6"] = _vit_row(
         "K6 out-MLP", f"M={m} (B={batch} x {n}) D={d} H={hid} erf", errs,
         times["erf"][0], times["erf"][1], _bound(flops, nbytes),
-        quick_ms=times["quick"][0], quick_plain_ms=times["quick"][1])
+        quick_ms=times["quick"][0], quick_plain_ms=times["quick"][1],
+        products={k: products[k] for k in ("out_proj", "fc1", "fc2")})
+    out["K4"]["products"] = {"qkv": products["qkv"]}
     del x, ctx
     out["K1"] = _k1_rows_at(enc, gen, batch, d)
     return out
@@ -1653,6 +1781,7 @@ def main(argv=None) -> int:
 
     vit_pallas = "vit_pallas.py"
     res = _attention_resources()
+    res["vit_block.cu"] = _block_resources()
     print(json.dumps({"kernels": [
         _kernel_line("ggnn_folded", "ggnn_folded.cu", 217,
                      kernel["shapes"] + vit_kernel["K1"],
@@ -1666,13 +1795,15 @@ def main(argv=None) -> int:
                      kernel["bwd_shapes"], {"train": train_launches["K3"]},
                      routes=kernel["routes"]),
         _kernel_line("vit_qkv", "vit_block.cu", 159, [vit_kernel["K4"]],
-                     vit_launches["K4"], replaces=vit_pallas),
+                     vit_launches["K4"], replaces=vit_pallas,
+                     resources=res["vit_block.cu"]),
         _kernel_line("vit_attention_block", "vit_attention.cu", 174,
                      vit_kernel["K5"], vit_launches["K5"],
                      replaces=vit_pallas,
                      resources=res["vit_attention.cu"]),
         _kernel_line("vit_out_mlp", "vit_block.cu", 218, [vit_kernel["K6"]],
-                     vit_launches["K6"], replaces=vit_pallas),
+                     vit_launches["K6"], replaces=vit_pallas,
+                     resources=res["vit_block.cu"]),
         _kernel_line("vit_attention_stream", "vit_attention.cu", 308,
                      vit_kernel["K7"], vit_launches["K7"],
                      replaces=vit_pallas,

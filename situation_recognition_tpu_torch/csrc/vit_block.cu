@@ -23,44 +23,101 @@
 // LayerNorm statistics and residual, exact GELU through erff (the TPU
 // kernel's 1.5e-7 erf approximation is below bf16 resolution) or QuickGELU.
 // The f32 residual r and the bf16 hidden h live in device memory between
-// launches (277 MB and 553 MB at ViT-L/14, batch 256), where the TPU kernel
+// launches (269 MB and 539 MB at ViT-L/14, batch 256), where the TPU kernel
 // kept them in VMEM.
 //
-// What bounds it on this card.  At ViT-L/14, batch 256 (M = 67,584 rows,
-// D = 1024, H = 4096) K4 does 6 M D^2 and K6 18 M D^2 FLOP against well
-// under a GB of traffic: both are bound by the tensor cores (0.43 ms and
-// 1.29 ms at 989 TFLOP/s).  The GEMM is the simple first design: 128 x 128
-// output tiles, 8 warps of 64 x 32 on WMMA bf16 16x16x16 (mma.sync), a
-// depth-32 stage double-buffered with cp.async so that the next stage's
-// loads overlap this one's products, and the epilogue staged through a
-// 1 KB shared-memory fragment per warp so that each lane stores 8 adjacent
-// outputs (16 bytes).  Not TMA and wgmma; PERF.md keeps its time beside the
-// bound.
+// What bounds it on this card.  At ViT-L/14, batch 256 the stream is
+// M = 65,792 rows (256 x 257 tokens, not padded), D = 1024, H = 4096.  K4
+// does 6 M D^2 FLOP and K6 18 M D^2 against well under a GB of traffic
+// each: both are bound by the tensor cores (0.42 ms and 1.26 ms at
+// 989 TFLOP/s bf16), which Hopper runs at full rate only through wgmma.
+//
+// The GEMM, gemm_kernel<EPI, BN>: 128 x BN output tiles (BN = 256 where
+// N % 256 == 0, else 128), one persistent block of three warpgroups per SM
+// walking tiles b, b + gridDim.x, ... in row-major tile order.
+// * Warpgroup 0 is the producer: one thread issues TMA loads
+//   (cp.async.bulk.tensor.2d) of the 128 x 64 A tile and the BN x 64 W tile
+//   of each depth step into a ring of stages, in the 128-byte swizzle, each
+//   stage 1024-byte aligned (`Layout`: 4 stages at BN = 256, 6 at 128; 3
+//   and 5 beside the output slabs below).  A stage has a `full` mbarrier
+//   (the producer's expect_tx of the stage's bytes) and an `empty` one that
+//   the 8 consumer warps arrive on.  The ring runs on from one tile to the
+//   next, so the next tile's first stages load during this tile's
+//   epilogue.  TMA zero-fills rows past M and N, so the ragged edge needs
+//   no predicated loads (expect_tx still counts the whole box).
+// * Warpgroups 1 and 2 are the consumers, 64 rows each: wgmma.mma_async
+//   m64nBNk16 with both operands from shared-memory descriptors (K-major,
+//   128-byte swizzle: 8-row groups 1024 bytes apart, +32 bytes per k16
+//   step), four per stage, committed as one group; wait_group 1 keeps one
+//   stage's products in flight while the stage before goes back to the
+//   producer.  setmaxnreg gives the producer 40 registers a thread and the
+//   consumers 232 (the 64 x 256 f32 accumulator is 128 of them).
+// * The epilogue works on the accumulator in registers: lane l of warp w
+//   holds rows 16w + l/4 (+8), columns 8j + 2(l%4) + {0, 1}.
+//   - Without a residual (EPI_QKV, EPI_GELU*), `store_staged` adds the bias
+//     and GELU, writes bf16 pairs into 64 x 64 slabs of shared memory in
+//     the 128-byte swizzle, and one thread stores the slabs with TMA
+//     (cp.async.bulk.tensor, bulk groups); the stores drain while the
+//     warpgroup runs the next tile's products.
+//   - With a residual (EPI_RES_*), `store_tile` transposes column pairs
+//     within each lane quad (two shfl_xor stages) so that every lane holds
+//     8 adjacent columns, loads the next chunk group's bias and residual
+//     before this group's stores, and stores 16 (bf16) or 32 (f32) bytes.
+//   Either keeps the order of `epilogue` (bias, residual, GELU) and masks
+//   the ragged edge (TMA stores drop rows and columns past the map).
+// While the consumers run the epilogue's arithmetic the tensor cores wait;
+// PERF.md keeps the time beside the bound and says what was tried.
+//
+// The tensor maps are built on the host per call (cuTensorMapEncodeTiled,
+// reached through the runtime's driver entry point, so the library links
+// no libcuda) and passed as __grid_constant__ parameters.
 //
 // Interface: plain C, loaded with ctypes.  Launches go on the caller's
 // stream, nothing is synchronised or allocated here, and each function
 // returns cudaGetLastError() of the first launch that failed (0 on
-// success), or cudaErrorInvalidValue for shapes it does not take.
+// success), or cudaErrorInvalidValue for shapes it does not take.  Every
+// matrix must be contiguous and 16-byte aligned (the wrapper checks).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int BM = 128;        // rows of an output tile
-constexpr int BN = 128;        // columns of an output tile
-constexpr int BK = 32;         // depth of one shared-memory stage
-constexpr int THREADS = 256;   // 8 warps: 2 (rows) x 4 (columns), 64 x 32 each
-constexpr int LDS = BK + 8;    // bf16 leading dimension of a staged tile
-constexpr int TILE = BM * LDS; // elements of one A (or B) stage; BN == BM
-constexpr int LN_WARPS = 8;    // rows per LayerNorm block, one warp each
+constexpr int BM = 128;           // rows of an output tile, 64 per consumer
+constexpr int BK = 64;            // depth of a stage: one 128-byte row
+constexpr int THREADS = 384;      // producer warpgroup + 2 consumer ones
+constexpr int A_BYTES = BM * BK * 2;
+// an output slab: 64 rows x 128 bytes (64 bf16 columns), 128-byte swizzled,
+// one TMA store box; each consumer warpgroup stages up to four
+constexpr int SLAB = 64 * 128;
+// registers a thread after setmaxnreg: the producer warpgroup gives up what
+// the consumers take (128 x 40 + 256 x 232 = 384 x 168, the launch bound)
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int LN_WARPS = 8;       // rows per LayerNorm block, one warp each
 
 enum Epi { EPI_QKV, EPI_RES_F32, EPI_GELU, EPI_GELU_QUICK, EPI_RES_OUT };
+
+// Shared memory of gemm_kernel<EPI, BN>: 1024 bytes to align the ring, the
+// ring, the output slabs of the epilogues without a residual (their
+// results leave through TMA stores), and the ring's mbarriers.
+template <int EPI, int BN>
+struct Layout {
+    static constexpr bool STAGED =
+        EPI == EPI_QKV || EPI == EPI_GELU || EPI == EPI_GELU_QUICK;
+    static constexpr int STAGE = A_BYTES + BN * BK * 2;
+    static constexpr int SLABS = STAGED ? 2 * 4 * SLAB : 0;
+    // a block takes at most 232,448 bytes; 128 of them for the barriers
+    static constexpr int FIT = (232448 - 1024 - 128 - SLABS) / STAGE;
+    // 4 (BN 256) or 6 (128) stages, 3 or 5 beside the slabs
+    static constexpr int STAGES = FIT < 6 ? FIT : 6;
+    static constexpr int SMEM = 1024 + STAGES * STAGE + SLABS + 128;
+    static_assert(STAGE % 1024 == 0 && STAGES >= 3, "ring");
+};
 
 struct EpiArgs {
     const float* bias;     // (N,)
@@ -74,28 +131,180 @@ struct EpiArgs {
     int split;
 };
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+// ------------------------------------------------ mbarrier, TMA, wgmma
 
-// 16-byte asynchronous copy global -> shared; with pred false the 16
-// destination bytes are zero-filled and nothing is read.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    const int n = pred ? 16 : 0;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(s), "l"(gmem), "r"(n));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(bar) : "memory");
+}
+
+// wait until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    } while (!done);
+}
+
+// the box at (x = column, y = row) of the map into shared memory at dst,
+// completing on the barrier
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int x, int y, uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+           "r"(bar)
+        : "memory");
+}
+
+// the box at shared memory src into the map at (x = column, y = row);
+// rows and columns past the map's edge are not written
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int x, int y) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group "
+        "[%0, {%2, %3}], [%1];\n"
+        :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(x), "r"(y)
+        : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// ... and have written device memory
+__device__ __forceinline__ void bulk_wait() {
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// shared-memory writes of this thread visible to the TMA (async proxy)
+__device__ __forceinline__ void fence_async_shared() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier of the 128 threads of one warpgroup (ids 1, 2; 0 is the block's)
+__device__ __forceinline__ void warpgroup_sync(int id) {
+    asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+    asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(v));
+}
+
+// shared-memory matrix descriptor of a K-major tile in the 128-byte swizzle:
+// start address >> 4, leading byte offset 16 (unused by this layout),
+// stride byte offset 1024 (from one 8-row group to the next), layout 1
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+           | (static_cast<uint64_t>(1) << 16)
+           | (static_cast<uint64_t>(1024 >> 4) << 32)
+           | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
+
+// keeps the compiler from moving accumulator registers across the
+// asynchronous products
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define D8(i)                                                             \
+    "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+        "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x BN f32, the warpgroup's fragment) += A (64 x 16) @ B (BN x 16)^T,
+// both bf16 from shared memory through the descriptors a and b
+template <int BN>
+__device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t a,
+                                      uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma<256>(float (&d)[128], uint64_t a,
+                                          uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71,"
+        "%72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87,"
+        "%88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103,"
+        "%104, %105, %106, %107, %108, %109, %110, %111,"
+        "%112, %113, %114, %115, %116, %117, %118, %119,"
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56),
+          D8(64), D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), D8(120)
+        : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<128>(float (&d)[64], uint64_t a,
+                                          uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+        : "l"(a), "l"(b), "r"(1));
+}
+#undef D8
+
+// ------------------------------------------------------------ epilogue
 
 __device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
     const uint4 raw = *reinterpret_cast<const uint4*>(p);
@@ -127,130 +336,260 @@ __device__ __forceinline__ float warp_sum(float s) {
     return s;
 }
 
-// 8 adjacent outputs (row gm, columns gn .. gn+7) of accumulator values v.
+// A residual epilogue of 8 adjacent outputs (row gm, columns gn .. gn+7) of
+// accumulator values v, their bias and residual r already loaded:
+// (r + v) + bias in f32, stored as f32 (EPI_RES_F32) or bf16 (EPI_RES_OUT).
 template <int EPI>
 __device__ __forceinline__ void epilogue(const EpiArgs& ep, float (&v)[8],
-                                         int gm, int gn, int N) {
-    float bias[8];
-    load8(ep.bias + gn, bias);
+                                         const float (&bias)[8],
+                                         const float (&r)[8], int gm, int gn,
+                                         int N) {
     const size_t o = (size_t)gm * N + gn;
-    if (EPI == EPI_QKV) {
-        const int which = gn / ep.split;
-        bf16* dst = which == 0 ? ep.q : (which == 1 ? ep.k : ep.v);
-        for (int i = 0; i < 8; ++i) v[i] += bias[i];
-        store8(dst + (size_t)gm * ep.split + (gn - which * ep.split), v);
-    } else if (EPI == EPI_RES_F32) {
-        float r[8];
-        load8(ep.res_bf16 + o, r);
-        for (int i = 0; i < 8; ++i) v[i] = (r[i] + v[i]) + bias[i];
+    for (int i = 0; i < 8; ++i) v[i] = (r[i] + v[i]) + bias[i];
+    if (EPI == EPI_RES_F32)
         store8(ep.out_f32 + o, v);
-    } else if (EPI == EPI_GELU) {
-        for (int i = 0; i < 8; ++i) {
-            const float t = v[i] + bias[i];
-            v[i] = 0.5f * t * (1.f + erff(t * 0.70710678118654752f));
-        }
+    else
         store8(ep.out_bf16 + o, v);
-    } else if (EPI == EPI_GELU_QUICK) {
-        for (int i = 0; i < 8; ++i) {
-            const float t = v[i] + bias[i];
-            v[i] = t * (1.f / (1.f + expf(-1.702f * t)));
-        }
-        store8(ep.out_bf16 + o, v);
-    } else {  // EPI_RES_OUT
-        float r[8];
-        load8(ep.res_f32 + o, r);
-        for (int i = 0; i < 8; ++i) v[i] = (r[i] + v[i]) + bias[i];
-        store8(ep.out_bf16 + o, v);
+}
+
+// What the residual epilogue of one group of 8-column chunks reads: the bias
+// of the lane's chunk and the residual (bf16 x for EPI_RES_F32, f32 r for
+// EPI_RES_OUT) of its two rows.  Rows and the column are clamped into the
+// matrix, so the loads need no branch (only the stores are masked).
+template <int EPI>
+__device__ __forceinline__ void epilogue_inputs(const EpiArgs& ep, int r0,
+                                                int r1, int gn, int N,
+                                                float (&in)[3][8]) {
+    load8(ep.bias + gn, in[0]);
+    if (EPI == EPI_RES_F32) {
+        load8(ep.res_bf16 + (size_t)r0 * N + gn, in[1]);
+        load8(ep.res_bf16 + (size_t)r1 * N + gn, in[2]);
+    } else {
+        load8(ep.res_f32 + (size_t)r0 * N + gn, in[1]);
+        load8(ep.res_f32 + (size_t)r1 * N + gn, in[2]);
     }
 }
 
-// C = A @ W^T with the epilogue EPI.  A (M, K), W (N, K), both bf16
-// row-major.  Takes any M >= 1, N % 8 == 0, K % 32 == 0.
-template <int EPI>
-__global__ void __launch_bounds__(THREADS)
-gemm_nt_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-               int M, int N, int K, EpiArgs ep) {
-    __shared__ __align__(128) bf16 smem[4 * TILE];
-    bf16* As = smem;             // [2][BM][LDS]
-    bf16* Bs = smem + 2 * TILE;  // [2][BN][LDS]
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int wr = warp >> 2, wc = warp & 3;
-    const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-    // each thread copies 2 x 16 bytes of the A stage and of the B stage
-    auto load_stage = [&](int stage, int k0) {
-        for (int i = 0; i < 2; ++i) {
-            const int c = tid + i * THREADS;
-            const int row = c >> 2, col = (c & 3) * 8;
-            const int gm = m0 + row, gn = n0 + row;
-            const bool ok_a = gm < M, ok_b = gn < N;
-            cp_async16(As + stage * TILE + row * LDS + col,
-                       ok_a ? A + (size_t)gm * K + k0 + col : A, ok_a);
-            cp_async16(Bs + stage * TILE + row * LDS + col,
-                       ok_b ? W + (size_t)gn * K + k0 + col : W, ok_b);
-        }
-    };
-
-    FragC acc[4][2];
+// The residual epilogues (EPI_RES_*), on the warpgroup's accumulator of a
+// 64 x BN tile whose row of lane 0 of this warp is row0 (and row0 + 8) and
+// whose first column is col0: a 4 x 4 transpose of column pairs within each
+// lane quad gives lane q of the quad all 8 columns of chunk 4g + q of each
+// group g of four 8-column chunks.  The next group's bias and residual are
+// loaded before this group's stores, which the compiler could not move
+// them past (the pointers may alias).
+template <int EPI, int BN>
+__device__ __forceinline__ void store_tile(const float (&d)[BN / 2],
+                                           const EpiArgs& ep, int row0,
+                                           int col0, int M, int N) {
+    const int q = threadIdx.x & 3;
+    const bool hi1 = q & 2, hi0 = q & 1;
+    const int r0 = min(row0, M - 1), r1 = min(row0 + 8, M - 1);
+    float in[2][3][8];
+    epilogue_inputs<EPI>(ep, r0, r1, min(col0 + 8 * q, N - 8), N, in[0]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int g = 0; g < BN / 32; ++g) {
+        if (g + 1 < BN / 32)
+            epilogue_inputs<EPI>(ep, r0, r1,
+                                 min(col0 + 8 * (4 * g + 4 + q), N - 8), N,
+                                 in[(g + 1) & 1]);
 #pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-    const int kt_n = K / BK;
-    load_stage(0, 0);
-    cp_async_commit();
-    for (int kt = 0; kt < kt_n; ++kt) {
-        if (kt + 1 < kt_n) {
-            load_stage((kt + 1) & 1, (kt + 1) * BK);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
-        const bf16* a = As + (kt & 1) * TILE;
-        const bf16* b = Bs + (kt & 1) * TILE;
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            FragA fa[4];
-            FragBt fb[2];
+        for (int h = 0; h < 2; ++h) {
+            float2 x[4];
 #pragma unroll
             for (int i = 0; i < 4; ++i)
-                wmma::load_matrix_sync(fa[i], a + (wr * 64 + i * 16) * LDS + kk, LDS);
+                x[i] = make_float2(d[16 * g + 4 * i + 2 * h],
+                                   d[16 * g + 4 * i + 2 * h + 1]);
+            // swap the off-diagonal 2 x 2 blocks (lanes q and q ^ 2), then
+            // the off-diagonal pairs within each block (q and q ^ 1)
 #pragma unroll
-            for (int j = 0; j < 2; ++j)
-                wmma::load_matrix_sync(fb[j], b + (wc * 32 + j * 16) * LDS + kk, LDS);
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 2; ++j)
-                    wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-        }
-        // every warp is done with this stage before the next iteration
-        // starts overwriting it
-        __syncthreads();
-    }
-
-    // epilogue: one 16 x 16 fragment at a time through this warp's 1 KB of
-    // the (now free) stage memory; lane l takes row l/2, 8 columns
-    float* scratch = reinterpret_cast<float*>(smem) + warp * 256;
-    const int r = lane >> 1, c8 = (lane & 1) * 8;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            wmma::store_matrix_sync(scratch, acc[i][j], 16, wmma::mem_row_major);
-            __syncwarp();
-            const int gm = m0 + wr * 64 + i * 16 + r;
-            const int gn = n0 + wc * 32 + j * 16 + c8;
-            if (gm < M && gn < N) {
-                float v[8];
-                for (int q = 0; q < 8; ++q) v[q] = scratch[r * 16 + c8 + q];
-                epilogue<EPI>(ep, v, gm, gn, N);
+            for (int t = 0; t < 2; ++t) {
+                const float2 s = hi1 ? x[t] : x[2 + t];
+                const float2 r = make_float2(
+                    __shfl_xor_sync(0xffffffffu, s.x, 2),
+                    __shfl_xor_sync(0xffffffffu, s.y, 2));
+                if (hi1) x[t] = r; else x[2 + t] = r;
             }
-            __syncwarp();
+#pragma unroll
+            for (int t = 0; t < 4; t += 2) {
+                const float2 s = hi0 ? x[t] : x[t + 1];
+                const float2 r = make_float2(
+                    __shfl_xor_sync(0xffffffffu, s.x, 1),
+                    __shfl_xor_sync(0xffffffffu, s.y, 1));
+                if (hi0) x[t] = r; else x[t + 1] = r;
+            }
+            float v[8] = {x[0].x, x[0].y, x[1].x, x[1].y,
+                          x[2].x, x[2].y, x[3].x, x[3].y};
+            const int gm = row0 + 8 * h, gn = col0 + 8 * (4 * g + q);
+            if (gm < M && gn < N)
+                epilogue<EPI>(ep, v, in[g & 1][0], in[g & 1][1 + h], gm, gn,
+                              N);
         }
+    }
+}
+
+// The epilogues without a residual (EPI_QKV, EPI_GELU*), through TMA
+// stores: the warpgroup's 64 x BN accumulator, bias and GELU added in the
+// order of `epilogue`, goes as bf16 into BN/64 slabs of shared memory at
+// `slabs` (each 64 rows x 64 columns in the 128-byte swizzle that the
+// store box reads: 16-byte chunk j of row r at chunk j ^ (r % 8)), and one
+// thread stores them to rows row0 .. row0 + 63, columns col0 .. (EPI_QKV:
+// each 64-column slab into q, k or v, split being a multiple of 64).  The
+// stores drain while the warpgroup goes on to the next tile; the slabs are
+// written again only once the stores before have read them.
+template <int EPI, int BN>
+__device__ __forceinline__ void store_staged(
+        const float (&d)[BN / 2], const EpiArgs& ep, const CUtensorMap* tq,
+        const CUtensorMap* tk, const CUtensorMap* tv, uint32_t slabs,
+        int row0, int col0, int N, int barrier) {
+    const int q = threadIdx.x & 3;
+    const int t = threadIdx.x & 127;
+    const int r = (t >> 5) * 16 + ((t & 31) >> 2);   // and r + 8
+    if (t == 0) bulk_wait_read();
+    warpgroup_sync(barrier);
+#pragma unroll
+    for (int s = 0; s < BN / 64; ++s) {
+        float2 bias[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+            bias[j] = *reinterpret_cast<const float2*>(
+                ep.bias + min(col0 + 64 * s + 8 * j + 2 * q, N - 2));
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                float v0 = d[4 * (8 * s + j) + 2 * h] + bias[j].x;
+                float v1 = d[4 * (8 * s + j) + 2 * h + 1] + bias[j].y;
+                if (EPI == EPI_GELU) {
+                    v0 = 0.5f * v0 * (1.f + erff(v0 * 0.70710678118654752f));
+                    v1 = 0.5f * v1 * (1.f + erff(v1 * 0.70710678118654752f));
+                } else if (EPI == EPI_GELU_QUICK) {
+                    v0 = v0 * __frcp_rn(1.f + expf(-1.702f * v0));
+                    v1 = v1 * __frcp_rn(1.f + expf(-1.702f * v1));
+                }
+                const __nv_bfloat162 pair = __floats2bfloat162_rn(v0, v1);
+                const int row = r + 8 * h;
+                st_shared(slabs + s * SLAB + row * 128
+                              + ((j ^ (row & 7)) << 4) + 4 * q,
+                          *reinterpret_cast<const uint32_t*>(&pair));
+            }
+        }
+    }
+    fence_async_shared();
+    warpgroup_sync(barrier);
+    if (t == 0) {
+#pragma unroll
+        for (int s = 0; s < BN / 64; ++s) {
+            const int n = col0 + 64 * s;
+            if (n >= N) break;
+            if (EPI == EPI_QKV) {
+                const int which = (n >= ep.split) + (n >= 2 * ep.split);
+                tma_store(which == 0 ? tq : (which == 1 ? tk : tv),
+                          slabs + s * SLAB, n - which * ep.split, row0);
+            } else {
+                tma_store(tq, slabs + s * SLAB, n, row0);
+            }
+        }
+        bulk_commit();
+    }
+}
+
+// ---------------------------------------------------------------- GEMM
+
+// C = A @ W^T with the epilogue EPI.  ta: A (M, K), tw: W (N, K), both bf16
+// row-major, boxes of 64 columns by BM (ta) and BN (tw) rows.  Takes any
+// M >= 1, N % 64 == 0, K % 64 == 0.  Persistent: block b takes output
+// tiles b, b + gridDim.x, ... in row-major tile order, and the ring runs on
+// across them, so the producer loads the next tile's first stages while
+// the consumers store this one.
+template <int EPI, int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_kernel(const __grid_constant__ CUtensorMap ta,
+            const __grid_constant__ CUtensorMap tw,
+            const __grid_constant__ CUtensorMap tq,
+            const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv, int M, int N, int K,
+            EpiArgs ep) {
+    using L = Layout<EPI, BN>;
+    constexpr int STAGE = L::STAGE, STAGES = L::STAGES;
+    extern __shared__ uint8_t smem_raw[];
+    // the 128-byte swizzle repeats every 1024 bytes of shared address
+    const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    const uint32_t slabs = ring + STAGES * STAGE;
+    const uint32_t full = slabs + L::SLABS, empty = full + 8 * STAGES;
+    const int wg = threadIdx.x >> 7;
+    const int kt_n = K / BK;
+    const int n_tiles = (N + BN - 1) / BN;
+    const int tiles = n_tiles * ((M + BM - 1) / BM);
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full + 8 * s, 1);
+            mbar_init(empty + 8 * s, 8);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (wg == 0) {
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                     :: "n"(PRODUCER_REGS));
+        if (threadIdx.x == 0) {
+            int it = 0;   // depth steps loaded so far, over all tiles
+            for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+                const int m0 = (t / n_tiles) * BM, n0 = (t % n_tiles) * BN;
+                for (int kt = 0; kt < kt_n; ++kt, ++it) {
+                    const int s = it % STAGES;
+                    if (it >= STAGES)
+                        mbar_wait(empty + 8 * s, ((it / STAGES) - 1) & 1);
+                    const uint32_t a = ring + s * STAGE;
+                    mbar_expect_tx(full + 8 * s, STAGE);
+                    tma_load(a, &ta, kt * BK, m0, full + 8 * s);
+                    tma_load(a + A_BYTES, &tw, kt * BK, n0, full + 8 * s);
+                }
+            }
+        }
+    } else {
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                     :: "n"(CONSUMER_REGS));
+        const int c = wg - 1;   // rows 64c .. 64c + 63 of each tile
+        const int w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+        int it = 0;
+        for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+            const int m0 = (t / n_tiles) * BM, n0 = (t % n_tiles) * BN;
+            float acc[BN / 2];
+#pragma unroll
+            for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+            fence_acc(acc);
+            for (int kt = 0; kt < kt_n; ++kt, ++it) {
+                const int s = it % STAGES;
+                mbar_wait(full + 8 * s, (it / STAGES) & 1);
+                const uint32_t a = ring + s * STAGE + c * (64 * BK * 2);
+                const uint32_t b = ring + s * STAGE + A_BYTES;
+                wgmma_fence();
+#pragma unroll
+                for (int k = 0; k < BK / 16; ++k)
+                    wgmma<BN>(acc, sw128_desc(a + 32 * k),
+                              sw128_desc(b + 32 * k));
+                wgmma_commit();
+                fence_acc(acc);
+                wgmma_wait<1>();
+                // the stage before is read: hand it back to the producer
+                if (kt > 0 && lane == 0)
+                    mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+            }
+            wgmma_wait<0>();
+            fence_acc(acc);
+            if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+            if constexpr (L::STAGED)
+                store_staged<EPI, BN>(acc, ep, &tq, &tk, &tv,
+                                      slabs + c * 4 * SLAB, m0 + 64 * c, n0,
+                                      N, 1 + c);
+            else
+                store_tile<EPI, BN>(acc, ep,
+                                    m0 + 64 * c + 16 * w + (lane >> 2), n0,
+                                    M, N);
+        }
+        if (L::STAGED && (threadIdx.x & 127) == 0) bulk_wait();
     }
 }
 
@@ -292,13 +631,103 @@ layernorm_kernel(const T* __restrict__ x, const float* __restrict__ g,
     }
 }
 
+// ----------------------------------------------------------------- host
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled through the runtime (null if absent)
+EncodeTiled encoder() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        const cudaError_t e = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+        const cudaError_t e = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiled>(p);
+    }
+    return fn;
+}
+
+// the tensor map of a (rows, K) bf16 row-major matrix read in boxes of 64
+// columns by box_rows rows, 128-byte swizzled, zero past the edges
+bool tensor_map(CUtensorMap* map, const void* base, int rows, int K,
+                int box_rows) {
+    const EncodeTiled enc = encoder();
+    if (enc == nullptr) return false;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
+                                static_cast<cuuint64_t>(rows)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * sizeof(bf16)};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(BK),
+                               static_cast<cuuint32_t>(box_rows)};
+    const cuuint32_t elem[2] = {1, 1};
+    return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+               const_cast<void*>(base), dims, strides, box, elem,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// streaming multiprocessors of the current device (0 if unknown)
+int sm_count() {
+    int dev = 0, n = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess
+        || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)
+               != cudaSuccess)
+        return 0;
+    return n;
+}
+
+template <int EPI, int BN>
+int launch_gemm(const bf16* A, const bf16* W, int M, int N, int K,
+                const EpiArgs& ep, cudaStream_t s) {
+    using L = Layout<EPI, BN>;
+    // one block per SM (the ring fills its shared memory), at most one
+    // per tile
+    const long long tiles = (long long)((N + BN - 1) / BN) * ((M + BM - 1) / BM);
+    const int sms = sm_count();
+    if (sms < 1 || tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    const int grid = (int)(tiles < sms ? tiles : sms);
+    // inputs in boxes of 64 columns by a tile's rows; the staged outputs in
+    // boxes of one 64 x 64 slab
+    CUtensorMap ta, tw, tq = {}, tk = {}, tv = {};
+    bool ok = tensor_map(&ta, A, M, K, BM) && tensor_map(&tw, W, N, K, BN);
+    if (EPI == EPI_QKV)
+        ok = ok && tensor_map(&tq, ep.q, M, ep.split, 64)
+             && tensor_map(&tk, ep.k, M, ep.split, 64)
+             && tensor_map(&tv, ep.v, M, ep.split, 64);
+    else if (L::STAGED)
+        ok = ok && tensor_map(&tq, ep.out_bf16, M, N, 64);
+    if (!ok) return (int)cudaErrorInvalidValue;
+    // once per instantiation: the ring is above the 48 KB default
+    static bool sized = false;
+    if (!sized) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            gemm_kernel<EPI, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            L::SMEM);
+        if (e != cudaSuccess) return (int)e;
+        sized = true;
+    }
+    gemm_kernel<EPI, BN><<<grid, THREADS, L::SMEM, s>>>(ta, tw, tq, tk, tv,
+                                                        M, N, K, ep);
+    return (int)cudaGetLastError();
+}
+
 template <int EPI>
 int gemm(const bf16* A, const bf16* W, int M, int N, int K,
          const EpiArgs& ep, cudaStream_t s) {
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
-    gemm_nt_kernel<EPI><<<grid, THREADS, 0, s>>>(A, W, M, N, K, ep);
-    return (int)cudaGetLastError();
+    return N % 256 == 0 ? launch_gemm<EPI, 256>(A, W, M, N, K, ep, s)
+                        : launch_gemm<EPI, 128>(A, W, M, N, K, ep, s);
 }
 
 template <typename T>
@@ -379,6 +808,64 @@ int vit_out_mlp_forward(const void* x, const void* ctx, const void* wo,
     ep.out_bf16 = static_cast<bf16*>(out);
     return gemm<EPI_RES_OUT>(static_cast<const bf16*>(h),
                              static_cast<const bf16*>(w2), M, D, H, ep, s);
+}
+
+// One product of the two entries above alone, for timing it: a (M, K) @
+// w (N, K)^T with the epilogue `product` (0 qkv into one (M, N) bf16 out;
+// 1 out-projection, res bf16, out f32; 2 fc1 + erf GELU, 3 fc1 +
+// QuickGELU, out bf16; 4 fc2, res f32, out bf16); bias (N,) f32.  Takes any
+// M >= 1, N % 64 == 0 and K % 64 == 0.
+int vit_block_gemm(int product, const void* a, const void* w,
+                   const void* bias, const void* res, void* out, int M, int N,
+                   int K, void* stream) {
+    if (bad_width(M, N) || bad_width(M, K) || product < EPI_QKV
+        || product > EPI_RES_OUT)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const bf16* A = static_cast<const bf16*>(a);
+    const bf16* W = static_cast<const bf16*>(w);
+    EpiArgs ep = {};
+    ep.bias = static_cast<const float*>(bias);
+    ep.res_bf16 = static_cast<const bf16*>(res);
+    ep.res_f32 = static_cast<const float*>(res);
+    ep.out_f32 = static_cast<float*>(out);
+    ep.out_bf16 = static_cast<bf16*>(out);
+    ep.q = ep.k = ep.v = static_cast<bf16*>(out);   // all of it in q
+    ep.split = N;
+    switch (product) {
+        case EPI_QKV: return gemm<EPI_QKV>(A, W, M, N, K, ep, s);
+        case EPI_RES_F32: return gemm<EPI_RES_F32>(A, W, M, N, K, ep, s);
+        case EPI_GELU: return gemm<EPI_GELU>(A, W, M, N, K, ep, s);
+        case EPI_GELU_QUICK: return gemm<EPI_GELU_QUICK>(A, W, M, N, K, ep, s);
+        default: return gemm<EPI_RES_OUT>(A, W, M, N, K, ep, s);
+    }
+}
+
+// bytes of dynamic shared memory a block of the GEMM takes with the
+// epilogue `product` (as vit_block_gemm) and BN = bn (256 or 128); 0 for
+// any other
+int vit_block_gemm_smem(int product, int bn) {
+    const bool wide = bn == 256;
+    if (bn != 256 && bn != 128) return 0;
+    switch (product) {
+        case EPI_QKV: return wide ? Layout<EPI_QKV, 256>::SMEM
+                                  : Layout<EPI_QKV, 128>::SMEM;
+        case EPI_RES_F32: return wide ? Layout<EPI_RES_F32, 256>::SMEM
+                                      : Layout<EPI_RES_F32, 128>::SMEM;
+        case EPI_GELU: return wide ? Layout<EPI_GELU, 256>::SMEM
+                                   : Layout<EPI_GELU, 128>::SMEM;
+        case EPI_GELU_QUICK: return wide ? Layout<EPI_GELU_QUICK, 256>::SMEM
+                                         : Layout<EPI_GELU_QUICK, 128>::SMEM;
+        case EPI_RES_OUT: return wide ? Layout<EPI_RES_OUT, 256>::SMEM
+                                      : Layout<EPI_RES_OUT, 128>::SMEM;
+        default: return 0;
+    }
+}
+
+// registers a thread of the GEMM's consumer (consumer != 0) or producer
+// warpgroup holds after setmaxnreg
+int vit_block_gemm_maxnreg(int consumer) {
+    return consumer ? CONSUMER_REGS : PRODUCER_REGS;
 }
 
 }  // extern "C"

@@ -6,7 +6,8 @@ Replaces the four forward kernels of
 ``situation_recognition_tpu/ops/vit_pallas.py``:
 
 * K4 ``_qkv_kernel``              → ``vit_qkv_forward``
-  (``csrc/vit_block.cu``: a LayerNorm kernel, then one GEMM into q, k, v);
+  (``csrc/vit_block.cu``: a LayerNorm kernel, then one GEMM into q, k, v;
+  the GEMM is a TMA-fed ``wgmma`` ring, the source says how);
 * K5 ``_attn_core_kernel``        → ``vit_attention_forward`` and
   K7 ``_attn_core_stream_kernel`` → ``vit_attention_stream_forward``
   (both ``csrc/vit_attention.cu``: one kernel with a row stride and a count
@@ -21,8 +22,10 @@ and the backward kernel of the fine-tuning path:
 
 A CPU tensor runs the twin of ``ops/vit.py``; a CUDA tensor launches the
 kernel, built by ``nvcc`` at first use and bound with ``ctypes``, or
-raises.  There is no fallback.  Each wrapper's ``launches`` counts its
-calls that launched.
+raises.  There is no fallback.  Before a launch every operand is checked
+to be contiguous and 16-byte aligned (``_check_tensors``): the GEMMs read
+through TMA tensor maps, which need both.  Each wrapper's ``launches``
+counts its calls that launched.
 
 The encoder paths mirror the JAX package's two kernel paths:
 
@@ -61,6 +64,10 @@ _SIGNATURES = {
     "vit_out_mlp_forward": [_P] * 14 + [_I, _I, _I, _F, _I, _P],
     "vit_attention_forward": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P],
     "vit_attention_backward": [_P] * 9 + [_I] * 5 + [_F, _P],
+    # one GEMM of K4/K6 alone (``chip_smoke.py`` times each product)
+    "vit_block_gemm": [_I] + [_P] * 5 + [_I] * 3 + [_P],
+    "vit_block_gemm_smem": [_I, _I],
+    "vit_block_gemm_maxnreg": [_I],
 }
 
 

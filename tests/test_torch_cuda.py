@@ -202,16 +202,14 @@ def _assert_close_rel(got, want):
     assert diff.mean().item() <= VIT_MEAN_REL * scale, (diff.mean(), scale)
 
 
-@pytest.mark.parametrize("m,d", [(1000, 128), (300, 192), (4 * 264, 1024)])
-def test_vit_qkv_kernel_matches_twin(cuda_device, m, d):
+def _check_qkv(device, m, d):
     from situation_recognition_tpu_torch.ops import vit as tv
     from situation_recognition_tpu_torch.ops import vit_kernel as vk
 
-    w = [t.to(cuda_device) for t in vk.kernel_weights(_vit_weights(d, 4 * d,
-                                                                   m))]
+    w = [t.to(device) for t in vk.kernel_weights(_vit_weights(d, 4 * d, m))]
     w = tv.BlockWeights(*w)
     x = torch.randn(m, d, generator=torch.Generator().manual_seed(m)).to(
-        torch.bfloat16).to(cuda_device)
+        torch.bfloat16).to(device)
     before = vk.vit_qkv_forward.launches
     got = vk.vit_qkv_forward(x, w, 1e-6)
     want = tv.qkv_reference(x, w, 1e-6)
@@ -219,6 +217,26 @@ def test_vit_qkv_kernel_matches_twin(cuda_device, m, d):
     assert vk.vit_qkv_forward.launches == before + 1
     for g, t in zip(got, want):
         _assert_close_rel(g, t)
+
+
+@pytest.mark.parametrize("m,d", [(1000, 128), (300, 192), (4 * 264, 1024)])
+def test_vit_qkv_kernel_matches_twin(cuda_device, m, d):
+    _check_qkv(cuda_device, m, d)
+
+
+# the GEMM's tile edges: rows around its 128-row tiles (64 per consumer
+# warpgroup, 16 per warp in two 8-row halves), and widths whose products
+# (N = 3D for qkv, H = 4D for fc1, D for the out-projection and fc2) take
+# 128-column tiles with a partial last one (N % 256 != 0) or 256-column
+# tiles
+GEMM_EDGE_ROWS = (1, 63, 64, 65, 127, 129, 4 * 257)
+GEMM_EDGE_WIDTHS = (64, 192, 1024)
+
+
+@pytest.mark.parametrize("d", GEMM_EDGE_WIDTHS)
+@pytest.mark.parametrize("m", GEMM_EDGE_ROWS)
+def test_vit_qkv_kernel_tile_edges(cuda_device, m, d):
+    _check_qkv(cuda_device, m, d)
 
 
 @pytest.mark.parametrize("b,n,stride,heads,folded", [
@@ -258,23 +276,86 @@ def test_vit_attention_kernel_matches_twin(cuda_device, b, n, stride, heads,
     assert (pad == 0).all()
 
 
-@pytest.mark.parametrize("m,d,quick", [(1000, 128, False), (300, 192, True),
-                                       (4 * 264, 1024, False)])
-def test_vit_out_mlp_kernel_matches_twin(cuda_device, m, d, quick):
+def _check_out_mlp(device, m, d, quick):
     from situation_recognition_tpu_torch.ops import vit as tv
     from situation_recognition_tpu_torch.ops import vit_kernel as vk
 
-    w = tv.BlockWeights(*(t.to(cuda_device) for t in vk.kernel_weights(
+    w = tv.BlockWeights(*(t.to(device) for t in vk.kernel_weights(
         _vit_weights(d, 4 * d, m + 1))))
     g = torch.Generator().manual_seed(m + d)
     x, ctx = (torch.randn(m, d, generator=g).to(torch.bfloat16)
-              .to(cuda_device) for _ in range(2))
+              .to(device) for _ in range(2))
     before = vk.vit_out_mlp_forward.launches
     got = vk.vit_out_mlp_forward(x, ctx, w, 1e-5, quick)
     want = tv.out_mlp_reference(x, ctx, w, 1e-5, quick)
     torch.cuda.synchronize()
     assert vk.vit_out_mlp_forward.launches == before + 1
     _assert_close_rel(got, want)
+
+
+@pytest.mark.parametrize("m,d,quick", [(1000, 128, False), (300, 192, True),
+                                       (4 * 264, 1024, False)])
+def test_vit_out_mlp_kernel_matches_twin(cuda_device, m, d, quick):
+    _check_out_mlp(cuda_device, m, d, quick)
+
+
+@pytest.mark.parametrize("quick", [False, True])
+@pytest.mark.parametrize("d", GEMM_EDGE_WIDTHS)
+@pytest.mark.parametrize("m", GEMM_EDGE_ROWS)
+def test_vit_out_mlp_kernel_tile_edges(cuda_device, m, d, quick):
+    _check_out_mlp(cuda_device, m, d, quick)
+
+
+def test_vit_block_kernels_are_deterministic(cuda_device):
+    """Two launches of K4 and of K6 (both GELUs) on the same inputs give
+    bit-equal outputs, at ViT-L/14 width with a partial last row tile: each
+    output element is summed by one warpgroup in a fixed order."""
+    from situation_recognition_tpu_torch.ops import vit as tv
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+
+    m, d = 2 * 257, 1024
+    w = tv.BlockWeights(*(t.to(cuda_device) for t in vk.kernel_weights(
+        _vit_weights(d, 4 * d, 3))))
+    g = torch.Generator().manual_seed(3)
+    x, ctx = (torch.randn(m, d, generator=g).to(torch.bfloat16)
+              .to(cuda_device) for _ in range(2))
+    first = vk.vit_qkv_forward(x, w, 1e-6)
+    second = vk.vit_qkv_forward(x, w, 1e-6)
+    for name, a, b in zip("qkv", first, second):
+        assert torch.equal(a, b), name
+    for quick in (False, True):
+        first = vk.vit_out_mlp_forward(x, ctx, w, 1e-6, quick)
+        second = vk.vit_out_mlp_forward(x, ctx, w, 1e-6, quick)
+        assert torch.equal(first, second), quick
+
+
+def test_vit_block_kernels_refuse_misaligned_operands(cuda_device):
+    """An operand that TMA cannot read (a view one element into a buffer,
+    so not 16-byte aligned; a transposed, non-contiguous one) is refused
+    with ValueError before any launch."""
+    from situation_recognition_tpu_torch.ops import vit as tv
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+
+    m, d = 64, 128
+    w = tv.BlockWeights(*(t.to(cuda_device) for t in vk.kernel_weights(
+        _vit_weights(d, 4 * d, 4))))
+    buf = torch.zeros(m * d + 8, dtype=torch.bfloat16, device=cuda_device)
+    ok = buf[:m * d].view(m, d)
+    shifted = buf[1:1 + m * d].view(m, d)
+    strided = torch.zeros(d, m, dtype=torch.bfloat16, device=cuda_device).t()
+    counts = (vk.vit_qkv_forward.launches, vk.vit_out_mlp_forward.launches)
+    for bad in (shifted, strided):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            vk.vit_qkv_forward(bad, w, 1e-6)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            vk.vit_out_mlp_forward(ok, bad, w, 1e-6, False)
+    wbuf = torch.zeros(3 * d * d + 8, dtype=torch.bfloat16, device=cuda_device)
+    bad_w = w._replace(in_w=wbuf[1:1 + 3 * d * d].view(3 * d, d))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        vk.vit_qkv_forward(ok, bad_w, 1e-6)
+    torch.cuda.synchronize()
+    assert (vk.vit_qkv_forward.launches,
+            vk.vit_out_mlp_forward.launches) == counts
 
 
 def test_vit_kernels_reject_unsupported_shapes(cuda_device):

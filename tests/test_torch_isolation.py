@@ -110,3 +110,27 @@ def test_vit_kernel_wrappers_have_no_fallback_off_cpu():
     with pytest.raises(ValueError, match="no ViT kernel"):
         vk.vit_attention_forward(x.reshape(2, 8, 64), x.reshape(2, 8, 64),
                                  x.reshape(2, 8, 64), 1, True)
+
+
+@pytest.mark.parametrize("shift,transpose,ok", [
+    (0, False, True), (1, False, False), (8, False, True), (0, True, False)])
+def test_kernel_operand_check_refuses_what_tma_cannot_read(shift, transpose,
+                                                          ok):
+    """The check each kernel wrapper runs on every operand before a launch
+    (the ViT GEMMs read them through TMA tensor maps): a view ``shift``
+    elements into a buffer passes only when 16-byte aligned, a transposed
+    view never."""
+    from situation_recognition_tpu_torch.ops.ggnn_kernel import (
+        _check_tensors)
+
+    m, d = 64, 128
+    buf = torch.zeros(m * d + 8, dtype=torch.bfloat16)
+    x = buf[shift:shift + m * d].view(m, d)
+    if transpose:
+        x = buf[:m * d].view(d, m).t()
+    want = {"x": (x, (m, d), torch.bfloat16)}
+    if ok:
+        _check_tensors(x.device, want)
+    else:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            _check_tensors(x.device, want)
