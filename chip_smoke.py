@@ -16,10 +16,13 @@ Phases, each printing its seconds:
              forward), K2 (forward with residuals: output and the four
              residual stacks) and K3 (backward: dh and da); max and mean
              abs error against the stated tolerances, kernel and twin times
-             from CUDA events, and the bound of the work.  Then the whole
-             differentiated propagate (forward + backward, the parameter
-             products included) through each route: the K2/K3 autograd
-             Function and autograd over the masked-sum math.
+             from CUDA events, and the bound of the work; for K1 and K2
+             also their tiles and, as a yardstick the port never calls,
+             cuBLAS (``torch.matmul``) on the same steps' products
+             alone.  Then the whole differentiated propagate (forward +
+             backward, the parameter products included) through each
+             route: the K2/K3 autograd Function and autograd over the
+             masked-sum math.
 4. path    — a full-width ResNet-152 + FCGGNN at bf16 with random weights
              from ``--seed`` and the ``synthetic_full`` vocabulary:
              ``export_inference`` into a temporary directory outside the
@@ -76,10 +79,12 @@ Phases, each printing its seconds:
              parameters that moved, peak memory, then an eval batch
              through the forward kernels.
 
-Then a ``kernels`` JSON line (the ViT kernels' entries with the
-registers, spills and shared memory that ``-Xptxas -v`` reported, and for
-the GEMMs of K4/K6 the ``setmaxnreg`` split and the dynamic shared memory
-that the library states), the
+Then a ``kernels`` JSON line (the entries of K1/K2 and of the ViT kernels
+with the registers, spills and shared memory that ``-Xptxas -v``
+reported, and for the GEMMs of K1/K2 and K4/K6 the ``setmaxnreg`` split,
+the dynamic shared memory that the library states and the HGMMA count of
+each instantiation's SASS; a GEMM without HGMMA, or a K1/K2 kernel that
+spills, fails the run), the
 card's ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero
 before that line is printed.
@@ -182,6 +187,12 @@ def _time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _sms() -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def _ggnn_params(d: int, gen):
     import torch
 
@@ -212,6 +223,25 @@ def _folded_bound(m: int, d: int, r: int, steps: int, mask,
     if residuals:
         nbytes += 4 * steps * m * d * 2
     return _bound(flops, nbytes)
+
+
+def _folded_library_ms(h, weights) -> float:
+    """cuBLAS (``torch.matmul``) time of the products of ``STEPS`` folded
+    steps on the same shapes and folded weights: per step h @ wa, h @ uzr
+    and h @ uh (h standing in for agg and r*h), 12·M·d² FLOP as K1's.  No
+    PyTorch call computes a folded propagate: this times its products
+    alone, a yardstick the port never calls."""
+    import torch
+
+    wa, uzr, uh, _ = weights
+
+    def products():
+        for _ in range(STEPS):
+            torch.matmul(h, wa)
+            torch.matmul(h, uzr)
+            torch.matmul(h, uh)
+
+    return _time_ms(products, 10)
 
 
 def _bwd_bound(m: int, d: int, r: int, steps: int, mask) -> tuple:
@@ -283,11 +313,14 @@ def phase_kernel(enc, seed: int, batch: int) -> dict:
             lambda: tk.folded_reference(h, mask, weights, r, STEPS), 5, 1)
         bound_ms, bound_by, flops, nbytes = _folded_bound(m, D, r, STEPS,
                                                           mask)
+        library_ms = _folded_library_ms(h, weights)
         row = {"shape": tag, "max_abs_err": err, "mean_abs_err": mean_err,
                "equal_share": same, "tol_max": KERNEL_MAX_TOL,
                "tol_mean": KERNEL_MEAN_TOL, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by, "flop": flops,
-               "bytes": nbytes, "tflops": flops / ms / 1e9}
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms, "flop": flops, "bytes": nbytes,
+               "tflops": flops / ms / 1e9,
+               "tiles": tk.tile_plan(m, D, _sms())._asdict()}
         _log("[kernel] K1 " + json.dumps(row))
         if not ok:
             raise SystemExit(f"GGNN kernel disagrees with its twin at "
@@ -314,8 +347,8 @@ def phase_kernel(enc, seed: int, batch: int) -> dict:
                           for k, e in errs.items()},
                "tol_max": KERNEL_MAX_TOL, "tol_mean": KERNEL_MEAN_TOL,
                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "flop": flops, "bytes": nbytes,
-               "tflops": flops / ms / 1e9}
+               "bound_by": bound_by, "library_ms": library_ms,
+               "flop": flops, "bytes": nbytes, "tflops": flops / ms / 1e9}
         _log("[kernel] K2 " + json.dumps(row))
         bad = [k for k, e in errs.items()
                if e[0] > KERNEL_MAX_TOL or e[1] > KERNEL_MEAN_TOL]
@@ -999,6 +1032,50 @@ def _block_resources() -> dict:
     return out
 
 
+def _folded_resources() -> dict:
+    """Registers, spills and stack frame per thread and static shared
+    memory of ``ggnn_folded.cu``'s kernels as ``nvcc -Xptxas -v`` reported
+    them, by kernel: each GEMM instantiation ``ggnn_gemm_kernel<gate|cand,
+    rows x columns>`` and the agg kernel; for each GEMM the ``setmaxnreg``
+    split and the dynamic shared memory of a block, from the library's own
+    constants.  Fails if the SASS of a GEMM instantiation holds no HGMMA
+    (``sass_hgmma``: their count, null without cuobjdump) or ptxas reports
+    spills."""
+    from situation_recognition_tpu_torch.ops import _build
+    from situation_recognition_tpu_torch.ops import ggnn_kernel as tk
+
+    src = "ggnn_folded.cu"
+    lib = tk._lib(src, "ggnn_folded_smem")
+    tk._lib(src, "ggnn_folded_maxnreg")
+    split = {"producer": lib.ggnn_folded_maxnreg(0),
+             "consumers": lib.ggnn_folded_maxnreg(1)}
+    hgmma = _sass_hgmma(_build._target(src)[1])
+    out = {}
+    for kern in ("ggnn_gemm_kernel", "ggnn_agg_kernel"):
+        found = _build.kernel_resources(_build.build_log(src), kern)
+        if not found:
+            raise SystemExit(f"no -Xptxas -v report of {kern} in the build "
+                             f"log of {src}")
+        for mangled, res in found.items():
+            if res["spill_stores"] or res["spill_loads"]:
+                raise SystemExit(f"{mangled} spills: {res}")
+            inst = re.search(r"ggnn_gemm_kernelILi(\d+)ELi(\d+)ELi(\d+)EE",
+                             mangled)
+            if inst is None:
+                out["ggnn_agg_kernel"] = {**res, "dynamic_smem": 0}
+                continue
+            kind, bm, bn = (int(inst.group(i)) for i in (1, 2, 3))
+            name = f"ggnn_gemm_kernel<{('gate', 'cand')[kind]},{bm}x{bn}>"
+            count = None if hgmma is None else hgmma.get(mangled, 0)
+            if count == 0:
+                raise SystemExit(f"no HGMMA in the SASS of {name}")
+            out[name] = {**res, "setmaxnreg": split,
+                         "dynamic_smem": lib.ggnn_folded_smem(bm, bn),
+                         "sass_hgmma": count}
+    _log("[kernel] ggnn_folded.cu kernel resources " + json.dumps(out))
+    return out
+
+
 def _gemm_products(x, ctx, w) -> dict:
     """Each GEMM of K4 and K6 alone, through ``vit_block_gemm`` (the kernel
     with that product's epilogue), timed with CUDA events at the stream's
@@ -1098,8 +1175,10 @@ def _k1_rows_at(enc, gen, batch: int, d: int) -> list:
                "max_abs_err": err, "mean_abs_err": mean_err,
                "equal_share": same, "tol_max": KERNEL_MAX_TOL,
                "tol_mean": KERNEL_MEAN_TOL, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by, "flop": flops,
-               "bytes": nbytes, "tflops": flops / ms / 1e9}
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": _folded_library_ms(h, weights), "flop": flops,
+               "bytes": nbytes, "tflops": flops / ms / 1e9,
+               "tiles": tk.tile_plan(m, d, _sms())._asdict()}
         _log("[vit] K1 " + json.dumps(row))
         if err > KERNEL_MAX_TOL or mean_err > KERNEL_MEAN_TOL:
             raise SystemExit(f"GGNN kernel disagrees with its twin at "
@@ -1782,15 +1861,18 @@ def main(argv=None) -> int:
     vit_pallas = "vit_pallas.py"
     res = _attention_resources()
     res["vit_block.cu"] = _block_resources()
+    res["ggnn_folded.cu"] = _folded_resources()
     print(json.dumps({"kernels": [
         _kernel_line("ggnn_folded", "ggnn_folded.cu", 217,
                      kernel["shapes"] + vit_kernel["K1"],
                      {"serve": path["launches"],
                       "train": train_launches["K1"],
                       **{f"vit_{p}": c
-                         for p, c in vit_launches["K1"].items()}}),
+                         for p, c in vit_launches["K1"].items()}},
+                     resources=res["ggnn_folded.cu"]),
         _kernel_line("ggnn_folded_res", "ggnn_folded.cu", 492,
-                     kernel["res_shapes"], {"train": train_launches["K2"]}),
+                     kernel["res_shapes"], {"train": train_launches["K2"]},
+                     resources=res["ggnn_folded.cu"]),
         _kernel_line("ggnn_folded_bwd", "ggnn_folded_bwd.cu", 521,
                      kernel["bwd_shapes"], {"train": train_launches["K3"]},
                      routes=kernel["routes"]),

@@ -6,10 +6,10 @@
 //   K2 `_folded_kernel_res` (driven by `_propagate_fwd_res_impl`), the same
 //      forward that also writes each step's residuals for the backward
 //      kernel (csrc/ggnn_folded_bwd.cu)  -> entry `ggnn_folded_forward_res`.
-// The two entries launch the same kernels; K2's instantiation (RES = true)
-// adds the residual stores to the epilogues and nothing else.  For rows of whole
-// examples (r rows each) it runs `steps` GGNN steps with W_p folded into
-// the gate weights (see `fold_gate_weights` in ops/ggnn_kernel.py):
+// Both entries launch the same kernels; K2 passes the residual planes of
+// each step, which the epilogues store beside their outputs.  For rows of
+// whole examples (r rows each) it runs `steps` GGNN steps with W_p folded
+// into the gate weights (`fold_gate_weights` in ops/ggnn_kernel.py):
 //
 //   E    = same_example * m m^T + diag(1 - 2m)       (block adjacency)
 //   agg  = bf16(E @ h)
@@ -18,323 +18,500 @@
 //   c    = tanh   (agg @ WpWh + bf16(r * h) @ Uh + bc)
 //   h'   = bf16((1 - z) h + z c)
 //
-// bf16 operands, f32 accumulation, gates in f32, h kept in bf16 between
-// steps: the numerics of the TPU kernel.
+// bf16 operands, f32 accumulation, gates in f32, agg, r*h and h rounded to
+// bf16 where the TPU kernel rounds them (the twin `_folded_steps`).
 //
-// What bounds it on this card.  Per step the work is 12 M d^2 FLOP of bf16
-// products against 6 d^2 bf16 weights (50 MB at d=2048), so at serving
-// batches (M = B*R in the hundreds to thousands) it is bound by the tensor
-// cores, not by memory.  The TPU design keeps all folded weights resident
-// on chip and runs every step inside one grid block; a Hopper block has at
-// most 227 KB of shared memory, so the weights cannot stay resident, and
-// the candidate gate needs (r*h) across all d columns of a row before
-// `@ Uh`, so one step cannot be split over column tiles without a
-// synchronisation.  The design therefore spends two launches per step over
-// a (column tile) x (row tile) grid, with the launch boundary as the
-// synchronisation:
+// What bounds it on this card.  A step is 12 M d^2 FLOP of bf16 products
+// against 6 d^2 bf16 weights (50 MB at d=2048): at M = 1536 the tensor
+// cores would take 0.078 ms a step at 989 TFLOP/s, and reading the weights
+// once 0.015 ms at 3.35 TB/s.  The TPU kernel keeps the weights resident on
+// chip and runs every step inside one grid block; a Hopper block has at
+// most 227 KB of shared memory, and the candidate needs r*h across all d
+// columns of a row before `@ Uh`, so a step is three launches, the launch
+// boundary being the synchronisation (the candidate writes h in place; the
+// next step's agg kernel reads it):
 //
-//   ggnn_gate_kernel  forms agg on the fly while loading each row tile
-//                     (E is at most r x r within an example), accumulates
-//                     [agg | h] @ [[WpWz WpWr WpWh], [Uz Ur 0]] for its
-//                     columns in f32 on the tensor cores (WMMA bf16
-//                     16x16x16), and writes z (f32), r*h (bf16) and the
-//                     candidate pre-activation (f32) to scratch;
-//   ggnn_cand_kernel  computes tanh(pre + (r*h) @ Uh) and updates h in
-//                     place (each element of h is read and written only by
-//                     the block that owns its tile).
+//   ggnn_agg_kernel          agg = bf16(E @ h) into an (M, d) bf16 scratch
+//                            (E is r x r within an example; memory-bound,
+//                            6 MB at the noun shape).  K2: also the step's
+//                            input h.
+//   ggnn_gemm_kernel<GATE>   [agg | h] @ [W_zr ; U_zr], K = 2d, 8 M d^2:
+//                            each 128 output columns are z and r of the
+//                            same 64 columns of h.  Epilogue: z = sigmoid(.
+//                            + bz) f32 and rh = bf16(sigmoid(. + br) * h).
+//                            K2: bf16 z and r.
+//   ggnn_gemm_kernel<CAND>   [agg | rh] @ [W_h ; U_h], K = 2d, 4 M d^2.
+//                            Epilogue: c = tanh(. + bc), h = bf16((1 - z) h
+//                            + z c) in place.  K2: bf16 c.
 //
-// K2's residuals, each a (steps, M, d) bf16 stack: rh[t] is the step's
-// input h (copied by the gate kernel, which reads h and never writes it),
-// z[t] and r[t] are bf16 copies of the gates (r*h is still formed from
-// the f32 r), and c[t] is the bf16 candidate, stored by the candidate
-// kernel.  They add 8 M d bytes of writes per step (101 MB over 4 steps at
-// M = 1536, d = 2048: 0.03 ms at 3.35 TB/s against 0.31 ms of products).
+// The candidate's agg @ WpWh is summed with rh @ Uh in one accumulator,
+// not in the gate GEMM: the gate's tiles then hold z and r only (up to 128
+// x 256 instead of 128 x 192 of z, r and c), and no f32 pre-activation
+// makes a round trip through device memory.  Both GEMMs run their K loop
+// over two pairs of tensor maps (the agg half, then the h or rh half),
+// with the same boxes, so every stage expects the same bytes; TMA counts
+// the whole box where it zero-fills rows past M.  Measured (PERF.md §6):
+// at the noun shape the gate's main loop runs at ~76% of the tensor cores'
+// rate and the epilogues, during which they wait, take ~20% of a launch;
+// at the verb shape each block streams its weight tiles.
 //
-// The weights stream from L2 (they fit in its 50 MB at d=2048).  This is
-// the simple first design: single-buffered shared-memory tiles and WMMA,
-// not TMA and wgmma; PERF.md keeps its time beside the bound.
+// The GEMM is vit_block.cu's design: one persistent block per SM walking
+// output tiles b, b + gridDim.x, ... with the row tiles of a column tile
+// consecutive (the blocks of a wave share the weight tiles in L2); a
+// producer warpgroup whose one thread issues TMA loads of 64-deep stages
+// into a ring of 128-byte-swizzled stages with full and empty mbarriers;
+// two consumer warpgroups on wgmma from shared-memory descriptors, one
+// commit group in flight, each taking 64 rows of a 128-row tile or half
+// the columns of a 64-row tile (so that two streams of products feed the
+// tensor cores either way); setmaxnreg moves registers from the producer
+// to them.  Epilogues work on the accumulator in registers, their inputs
+// loaded before their first store (the pointers may alias, so the
+// compiler would not move a load past a store).
+//
+// Weights (prepared once per weight change by `folded_operands` in
+// ops/ggnn_kernel.py), K-major as wgmma's B wants: W_zr (2d, d) =
+// WpW[z|r]^T and U_zr (2d, d) = U[z|r]^T, each with its rows in 64-row
+// groups [z_j | r_j] for column group j; W_h (d, d) = WpWh^T; U_h (d, d) =
+// Uh^T.
+//
+// Tiles, chosen on the host (`tile_plan` in ops/ggnn_kernel.py, from M, d
+// and the SM count) and passed in: rows in {64, 128}; columns gate_bn in
+// {128, 256} (one or two groups of z and r) and cand_bn in {64, 128, 256},
+// each dividing its GEMM's output width.  The rule: the fewest clocks of
+// the busiest SM, rounds of tiles over the SMs times each tile's clocks
+// per 64-deep stage (its products at 4096 FLOP/clk plus its operand bytes
+// at 64 B/clk), ties to the larger tile.
 //
 // Interface: plain C, loaded with ctypes.  Launches go on the caller's
-// stream, nothing is synchronised or allocated here, and the function
-// returns cudaGetLastError() of the first launch that failed (0 on success).
+// stream, nothing is synchronised or allocated here, and each function
+// returns cudaGetLastError() of the first launch that failed (0 on
+// success), or cudaErrorInvalidValue for shapes or tiles it does not take.
+// Every matrix must be contiguous and 16-byte aligned (the wrapper checks).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 64;        // rows of a tile
-constexpr int BN = 64;        // columns of a tile (of d)
-constexpr int BK = 32;        // depth of one shared-memory stage
-constexpr int THREADS = 256;  // 8 warps: 2 (rows) x 4 (columns), 32 x 16 each
-constexpr int A_LD = BK + 8;  // bf16 leading dimensions (multiples of 8)
-constexpr int B_LD = BN + 8;
-constexpr int C_LD = BN + 4;  // f32 staging leading dimension (multiple of 4)
+constexpr int GATE = 0, CAND = 1;
+constexpr int GROUP = 64;   // columns of h in a [z | r] group of the gate
+constexpr int AGG_THREADS = 256;
+constexpr int THREADS = 384;   // producer warpgroup + 2 consumer ones
+// registers a thread after setmaxnreg: the producer warpgroup gives up what
+// the consumers take (128 x 40 + 256 x 232 = 384 x 168, the launch bound)
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
 
-constexpr int A_TILE = BM * A_LD;   // elements
-constexpr int B_TILE = BK * B_LD;
+// Shared memory of ggnn_gemm_kernel<KIND, BM, BN>: 1024 bytes to align the
+// ring, the ring, and its mbarriers.  A stage holds BM rows of A and BN
+// rows of B, each 64 deep.  WN: the output columns of one consumer
+// warpgroup.
+template <int BM, int BN>
+struct Layout {
+    static constexpr int WN = BM == 128 ? BN : BN / 2;
+    static constexpr int A_BYTES = BM * BK * 2;
+    static constexpr int STAGE = A_BYTES + BN * BK * 2;
+    // a block takes at most 232,448 bytes; 16 a stage for its barriers.
+    // Up to 8 stages: at the verb shape, where each block streams its
+    // weight tiles, 8 ran 6-20% faster than 6 (PERF.md §6)
+    static constexpr int FIT = (232448 - 1024) / (STAGE + 16);
+    static constexpr int STAGES = FIT < 8 ? FIT : 8;
+    static constexpr int SMEM = 1024 + STAGES * (STAGE + 16);
+    static_assert(STAGE % 1024 == 0 && STAGES >= 4, "ring");
+};
 
-constexpr int GATE_SMEM = (2 * A_TILE + 5 * B_TILE) * 2;
-constexpr int CAND_SMEM = (A_TILE + B_TILE) * 2;
-constexpr int STAGE_SMEM = BM * C_LD * 4;
-// shared memory of each kernel: its operand tiles, reused as the f32
-// staging tile of the epilogue
-constexpr int GATE_BYTES = GATE_SMEM > STAGE_SMEM ? GATE_SMEM : STAGE_SMEM;
-constexpr int CAND_BYTES = CAND_SMEM > STAGE_SMEM ? CAND_SMEM : STAGE_SMEM;
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+// What a step's GEMMs read and write beside their tensor maps.
+struct StepArgs {
+    bf16* h;           // (M, d): read by the gate, updated by the candidate
+    const float* ba;   // (3d,) [bz | br | bc]
+    float* z;          // (M, d) f32
+    bf16* rh;          // (M, d)
+    bf16* res_z;       // K2: this step's (M, d) planes; null for K1
+    bf16* res_r;
+    bf16* res_c;
+    int M, d;
+};
 
 __device__ __forceinline__ float sigmoidf_(float x) {
     return 1.f / (1.f + expf(-x));
 }
 
-// Copy 8 bf16 (16 bytes) of row `k` of a row-major (rows, ld) matrix,
-// columns [col, col + 8), into shared memory.
-__device__ __forceinline__ void copy8(bf16* dst, const bf16* src) {
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+__device__ __forceinline__ float2 ld_f2(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
 }
 
-__device__ __forceinline__ void zero8(bf16* dst) {
-    *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+__device__ __forceinline__ uint32_t ld_b2(const bf16* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Stage one 16x16 accumulator pair (rows wr*32 + {0,16}, columns wc*16) of
-// every warp into the f32 staging tile.
-__device__ __forceinline__ void stage(float* cs, const FragC (&acc)[2],
-                                      int wr, int wc) {
-    for (int i = 0; i < 2; ++i)
-        wmma::store_matrix_sync(cs + (wr * 32 + i * 16) * C_LD + wc * 16,
-                                acc[i], C_LD, wmma::mem_row_major);
+__device__ __forceinline__ float2 unpack(uint32_t v) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
-// RES: also store the step's residuals res_h (input h), res_z, res_r
-template <bool RES>
-__global__ void __launch_bounds__(THREADS)
-ggnn_gate_kernel(const bf16* __restrict__ h, const float* __restrict__ mask,
-                 const bf16* __restrict__ wa, const bf16* __restrict__ uzr,
-                 const float* __restrict__ ba, float* __restrict__ z_out,
-                 bf16* __restrict__ rh_out, float* __restrict__ gc_out,
-                 bf16* __restrict__ res_h, bf16* __restrict__ res_z,
-                 bf16* __restrict__ res_r, int M, int d, int r) {
-    __shared__ __align__(128) unsigned char smem[GATE_BYTES];
-    bf16* a_agg = reinterpret_cast<bf16*>(smem);
-    bf16* a_h = a_agg + A_TILE;
-    bf16* b_t = a_h + A_TILE;   // 5 tiles: WpWz, WpWr, WpWh, Uz, Ur
-    float* cs = reinterpret_cast<float*>(smem);
+__device__ __forceinline__ void st_b2(bf16* p, float x, float y) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
 
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5;
-    const int wr = warp >> 2, wc = warp & 3;
-    const int n0 = blockIdx.x * BN;
-    const int m0 = blockIdx.y * BM;
-    const size_t d3 = 3 * (size_t)d, d2 = 2 * (size_t)d;
+__device__ __forceinline__ void st_f2(float* p, float x, float y) {
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
 
-    // this thread's A-tile slot: one row, 8 columns
-    const int a_row = tid >> 2, a_col = (tid & 3) * 8;
-    const int gi = m0 + a_row;
-    const bool row_ok = gi < M;
-    int ex0 = 0;
-    float mi = 0.f;
-    if (row_ok) {
-        ex0 = (gi / r) * r;
-        mi = mask[gi];
+// agg = bf16(E @ h) for 8 columns of one row per thread; E's entries are
+// rounded to bf16 as the TPU kernel's adjacency scratch, and the products
+// of bf16 values are exact in f32.  res_h (K2): the step's input h.
+__global__ void __launch_bounds__(AGG_THREADS)
+ggnn_agg_kernel(const bf16* __restrict__ h, const float* __restrict__ mask,
+                bf16* __restrict__ agg, bf16* __restrict__ res_h, int M,
+                int d, int r) {
+    const int per_row = d / 8;
+    const long long idx = (long long)blockIdx.x * AGG_THREADS + threadIdx.x;
+    if (idx >= (long long)M * per_row) return;
+    const int i = (int)(idx / per_row);
+    const int col = (int)(idx % per_row) * 8;
+    const size_t o = (size_t)i * d + col;
+    const int ex0 = (i / r) * r;
+    const float mi = mask[i];
+    float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int j = ex0; j < ex0 + r; ++j) {
+        float e = mi * mask[j] + (j == i ? 1.f - 2.f * mi : 0.f);
+        e = __bfloat162float(__float2bfloat16(e));
+        if (e == 0.f) continue;
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            h + (size_t)j * d + col);
+        const bf16* v = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) s[q] += e * __bfloat162float(v[q]);
     }
-    // this thread's B-tile slot: one k row, 8 columns
-    const int b_row = tid >> 3, b_col = (tid & 7) * 8;
+    uint4 out;
+    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+        p[q] = __floats2bfloat162_rn(s[2 * q], s[2 * q + 1]);
+    *reinterpret_cast<uint4*>(agg + o) = out;
+    if (res_h != nullptr)
+        *reinterpret_cast<uint4*>(res_h + o) =
+            *reinterpret_cast<const uint4*>(h + o);
+}
 
-    FragC acc_z[2], acc_r[2], acc_c[2];
-    for (int i = 0; i < 2; ++i) {
-        wmma::fill_fragment(acc_z[i], 0.f);
-        wmma::fill_fragment(acc_r[i], 0.f);
-        wmma::fill_fragment(acc_c[i], 0.f);
-    }
-
-    for (int k0 = 0; k0 < d; k0 += BK) {
-        // ---- A tiles: h and agg = bf16(E @ h) for this row's example
-        bf16* dst_h = a_h + a_row * A_LD + a_col;
-        bf16* dst_a = a_agg + a_row * A_LD + a_col;
-        if (row_ok) {
-            const size_t kc = (size_t)k0 + a_col;
-            copy8(dst_h, h + (size_t)gi * d + kc);
-            float s[8];
-            for (int q = 0; q < 8; ++q) s[q] = 0.f;
-            for (int j = 0; j < r; ++j) {
-                const int gj = ex0 + j;
-                const float mj = mask[gj];
-                float e = mi * mj + (gj == gi ? 1.f - 2.f * mi : 0.f);
-                e = __bfloat162float(__float2bfloat16(e));
-                if (e == 0.f) continue;
-                uint4 raw = *reinterpret_cast<const uint4*>(h + (size_t)gj * d + kc);
-                const bf16* v = reinterpret_cast<const bf16*>(&raw);
-                for (int q = 0; q < 8; ++q) s[q] += e * __bfloat162float(v[q]);
+// The gate epilogue of one warpgroup's 64 rows (this thread's rows row0
+// and row0 + 8) by WN accumulator columns, the first being column n0 of the
+// gate's 2d: in each 128 columns from a multiple of 128, the first 64 are
+// z and the next 64 r, of the same 64 columns of h.  Each 64-column block
+// loads its biases (and for r, h) before its first store.
+template <int WN>
+__device__ __forceinline__ void gate_epilogue(const float (&acc)[WN / 2],
+                                              const StepArgs& ep, int row0,
+                                              int n0) {
+    const int q = threadIdx.x & 3;
+    const size_t d = ep.d;
+    const int r0 = min(row0, ep.M - 1), r1 = min(row0 + 8, ep.M - 1);
+#pragma unroll
+    for (int blk = 0; blk < WN / 64; ++blk) {
+        const int n = n0 + 64 * blk;
+        const bool is_r = (n / GROUP) & 1;
+        const int col0 = GROUP * (n / (2 * GROUP)) + 2 * q;
+        float2 bias[8];
+        uint32_t hv[8][2];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            const size_t col = col0 + 8 * j;
+            bias[j] = ld_f2(ep.ba + (is_r ? d : 0) + col);
+            if (is_r) {
+                hv[j][0] = ld_b2(ep.h + (size_t)r0 * d + col);
+                hv[j][1] = ld_b2(ep.h + (size_t)r1 * d + col);
             }
-            for (int q = 0; q < 8; ++q) dst_a[q] = __float2bfloat16(s[q]);
-        } else {
-            zero8(dst_h);
-            zero8(dst_a);
         }
-        // ---- B tiles
-        {
-            const size_t gk = (size_t)k0 + b_row;
-            const int off = b_row * B_LD + b_col;
-            const size_t col = (size_t)n0 + b_col;
-            copy8(b_t + 0 * B_TILE + off, wa + gk * d3 + col);
-            copy8(b_t + 1 * B_TILE + off, wa + gk * d3 + d + col);
-            copy8(b_t + 2 * B_TILE + off, wa + gk * d3 + 2 * (size_t)d + col);
-            copy8(b_t + 3 * B_TILE + off, uzr + gk * d2 + col);
-            copy8(b_t + 4 * B_TILE + off, uzr + gk * d2 + d + col);
-        }
-        __syncthreads();
-
-        for (int kk = 0; kk < BK; kk += 16) {
-            FragA fa[2], fh[2];
-            for (int i = 0; i < 2; ++i) {
-                wmma::load_matrix_sync(fa[i], a_agg + (wr * 32 + i * 16) * A_LD + kk, A_LD);
-                wmma::load_matrix_sync(fh[i], a_h + (wr * 32 + i * 16) * A_LD + kk, A_LD);
-            }
-            FragB fb;
-            const int boff = kk * B_LD + wc * 16;
-            wmma::load_matrix_sync(fb, b_t + 0 * B_TILE + boff, B_LD);
-            for (int i = 0; i < 2; ++i) wmma::mma_sync(acc_z[i], fa[i], fb, acc_z[i]);
-            wmma::load_matrix_sync(fb, b_t + 3 * B_TILE + boff, B_LD);
-            for (int i = 0; i < 2; ++i) wmma::mma_sync(acc_z[i], fh[i], fb, acc_z[i]);
-            wmma::load_matrix_sync(fb, b_t + 1 * B_TILE + boff, B_LD);
-            for (int i = 0; i < 2; ++i) wmma::mma_sync(acc_r[i], fa[i], fb, acc_r[i]);
-            wmma::load_matrix_sync(fb, b_t + 4 * B_TILE + boff, B_LD);
-            for (int i = 0; i < 2; ++i) wmma::mma_sync(acc_r[i], fh[i], fb, acc_r[i]);
-            wmma::load_matrix_sync(fb, b_t + 2 * B_TILE + boff, B_LD);
-            for (int i = 0; i < 2; ++i) wmma::mma_sync(acc_c[i], fa[i], fb, acc_c[i]);
-        }
-        __syncthreads();
-    }
-
-    // ---- epilogue: one accumulator at a time through the staging tile
-    for (int g = 0; g < 3; ++g) {
-        if (g == 0)
-            stage(cs, acc_z, wr, wc);
-        else if (g == 1)
-            stage(cs, acc_r, wr, wc);
-        else
-            stage(cs, acc_c, wr, wc);
-        __syncthreads();
-        for (int idx = tid; idx < BM * BN; idx += THREADS) {
-            const int row = idx / BN, col = idx % BN;
-            const int gr = m0 + row;
-            if (gr >= M) continue;
-            const int gc = n0 + col;
-            const size_t o = (size_t)gr * d + gc;
-            const float v = cs[row * C_LD + col];
-            if (g == 0) {
-                const float zz = sigmoidf_(v + ba[gc]);
-                z_out[o] = zz;
-                if (RES) res_z[o] = __float2bfloat16(zz);
-            } else if (g == 1) {
-                const float rr = sigmoidf_(v + ba[d + gc]);
-                const bf16 hv = h[o];
-                rh_out[o] = __float2bfloat16(rr * __bfloat162float(hv));
-                if (RES) {
-                    res_h[o] = hv;
-                    res_r[o] = __float2bfloat16(rr);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            const int row = row0 + 8 * hh;
+            if (row >= ep.M) break;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const size_t o = (size_t)row * d + col0 + 8 * j;
+                const int i = 4 * (8 * blk + j) + 2 * hh;
+                const float g0 = sigmoidf_(acc[i] + bias[j].x);
+                const float g1 = sigmoidf_(acc[i + 1] + bias[j].y);
+                if (is_r) {
+                    const float2 hf = unpack(hv[j][hh]);
+                    st_b2(ep.rh + o, g0 * hf.x, g1 * hf.y);
+                    if (ep.res_r != nullptr) st_b2(ep.res_r + o, g0, g1);
+                } else {
+                    st_f2(ep.z + o, g0, g1);
+                    if (ep.res_z != nullptr) st_b2(ep.res_z + o, g0, g1);
                 }
-            } else {
-                gc_out[o] = v + ba[2 * (size_t)d + gc];
             }
         }
-        __syncthreads();
     }
 }
 
-// RES: also store the step's candidate gate res_c
-template <bool RES>
-__global__ void __launch_bounds__(THREADS)
-ggnn_cand_kernel(bf16* __restrict__ h, const bf16* __restrict__ rh,
-                 const bf16* __restrict__ uh, const float* __restrict__ z,
-                 const float* __restrict__ gc_in, bf16* __restrict__ res_c,
-                 int M, int d) {
-    __shared__ __align__(128) unsigned char smem[CAND_BYTES];
-    bf16* a_t = reinterpret_cast<bf16*>(smem);
-    bf16* b_t = a_t + A_TILE;
-    float* cs = reinterpret_cast<float*>(smem);
+// What the candidate epilogue of one group of G 8-column chunks reads: the
+// bias of each chunk, and z (an f32 pair) and h (a bf16 pair) of each
+// chunk in rows r0 and r1.
+template <int G>
+struct CandIn {
+    float2 bc[G], z[G][2];
+    uint32_t h[G][2];
+};
 
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5;
-    const int wr = warp >> 2, wc = warp & 3;
-    const int n0 = blockIdx.x * BN;
-    const int m0 = blockIdx.y * BM;
-    const int a_row = tid >> 2, a_col = (tid & 3) * 8;
-    const int gi = m0 + a_row;
-    const int b_row = tid >> 3, b_col = (tid & 7) * 8;
+template <int G>
+__device__ __forceinline__ void cand_inputs(const StepArgs& ep, int r0,
+                                            int r1, int col,
+                                            CandIn<G>& in) {
+    const size_t d = ep.d;
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+        in.bc[j] = ld_f2(ep.ba + 2 * d + col + 8 * j);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            const size_t o = (size_t)(hh ? r1 : r0) * d + col + 8 * j;
+            in.z[j][hh] = ld_f2(ep.z + o);
+            in.h[j][hh] = ld_b2(ep.h + o);
+        }
+    }
+}
 
-    FragC acc[2];
-    for (int i = 0; i < 2; ++i) wmma::fill_fragment(acc[i], 0.f);
-
-    for (int k0 = 0; k0 < d; k0 += BK) {
-        bf16* dst = a_t + a_row * A_LD + a_col;
-        if (gi < M)
-            copy8(dst, rh + (size_t)gi * d + k0 + a_col);
-        else
-            zero8(dst);
-        copy8(b_t + b_row * B_LD + b_col,
-              uh + ((size_t)k0 + b_row) * d + n0 + b_col);
-        __syncthreads();
-        for (int kk = 0; kk < BK; kk += 16) {
-            FragB fb;
-            wmma::load_matrix_sync(fb, b_t + kk * B_LD + wc * 16, B_LD);
-            for (int i = 0; i < 2; ++i) {
-                FragA fa;
-                wmma::load_matrix_sync(fa, a_t + (wr * 32 + i * 16) * A_LD + kk, A_LD);
-                wmma::mma_sync(acc[i], fa, fb, acc[i]);
+// The candidate epilogue of one warpgroup's 64 rows by WN columns from
+// col0: c = tanh(acc + bc), h = bf16((1 - z) h + z c) in
+// place, K2's bf16 c.  The next chunk group's inputs are loaded before
+// this group's stores.
+template <int WN>
+__device__ __forceinline__ void cand_epilogue(const float (&acc)[WN / 2],
+                                              const StepArgs& ep, int row0,
+                                              int col0) {
+    constexpr int G = WN == 128 || WN == 64 ? 4 : 2;
+    constexpr int GROUPS = WN / 8 / G;
+    const int q = threadIdx.x & 3;
+    const size_t d = ep.d;
+    const int r0 = min(row0, ep.M - 1), r1 = min(row0 + 8, ep.M - 1);
+    const int col = col0 + 2 * q;
+    CandIn<G> in[2];
+    cand_inputs<G>(ep, r0, r1, col, in[0]);
+#pragma unroll
+    for (int g = 0; g < GROUPS; ++g) {
+        if (g + 1 < GROUPS)
+            cand_inputs<G>(ep, r0, r1, col + 8 * G * (g + 1),
+                           in[(g + 1) & 1]);
+        const CandIn<G>& cur = in[g & 1];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            const int row = row0 + 8 * hh;
+            if (row >= ep.M) break;
+#pragma unroll
+            for (int j = 0; j < G; ++j) {
+                const int i = 4 * (G * g + j) + 2 * hh;
+                const size_t o = (size_t)row * d + col + 8 * (G * g + j);
+                const float c0 = tanhf(acc[i] + cur.bc[j].x);
+                const float c1 = tanhf(acc[i + 1] + cur.bc[j].y);
+                const float2 z = cur.z[j][hh];
+                const float2 hf = unpack(cur.h[j][hh]);
+                st_b2(ep.h + o, (1.f - z.x) * hf.x + z.x * c0,
+                      (1.f - z.y) * hf.y + z.y * c1);
+                if (ep.res_c != nullptr) st_b2(ep.res_c + o, c0, c1);
             }
         }
-        __syncthreads();
     }
+}
 
-    stage(cs, acc, wr, wc);
+// One step's gate (KIND = GATE: A agg then h, B W_zr then U_zr) or
+// candidate (CAND: A agg then rh, B W_h then U_h) GEMM with its epilogue,
+// on tiles of BM rows by BN output columns: the K loop takes d / 64 stages
+// from the first pair of maps (ta0, tb0), then d / 64 from the second
+// (ta1, tb1).
+template <int KIND, int BM, int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+ggnn_gemm_kernel(const __grid_constant__ CUtensorMap ta0,
+                 const __grid_constant__ CUtensorMap tb0,
+                 const __grid_constant__ CUtensorMap ta1,
+                 const __grid_constant__ CUtensorMap tb1, StepArgs ep) {
+    using L = Layout<BM, BN>;
+    constexpr int WN = L::WN, STAGE = L::STAGE, STAGES = L::STAGES;
+    extern __shared__ uint8_t smem_raw[];
+    // the 128-byte swizzle repeats every 1024 bytes of shared address
+    const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+    const uint32_t full = ring + STAGES * STAGE, empty = full + 8 * STAGES;
+    const int wg = threadIdx.x >> 7;
+    const int half = ep.d / BK;   // depth steps of each pair of maps
+    const int m_tiles = (ep.M + BM - 1) / BM;
+    // output columns: z and r of every column of h, or c
+    const int tiles = m_tiles * ((KIND == GATE ? 2 : 1) * ep.d / BN);
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            mbar_init(full + 8 * s, 1);
+            mbar_init(empty + 8 * s, 8);
+        }
+        fence_mbar_init();
+    }
     __syncthreads();
-    for (int idx = tid; idx < BM * BN; idx += THREADS) {
-        const int row = idx / BN, col = idx % BN;
-        const int gr = m0 + row;
-        if (gr >= M) continue;
-        const size_t o = (size_t)gr * d + n0 + col;
-        const float c = tanhf(gc_in[o] + cs[row * C_LD + col]);
-        if (RES) res_c[o] = __float2bfloat16(c);
-        const float zz = z[o];
-        const float hf = __bfloat162float(h[o]);
-        h[o] = __float2bfloat16((1.f - zz) * hf + zz * c);
+
+    if (wg == 0) {
+        setmaxnreg_dec<PRODUCER_REGS>();
+        if (threadIdx.x == 0) {
+            int it = 0;   // depth steps loaded so far, over all tiles
+            for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+                const int m0 = (t % m_tiles) * BM, n0 = (t / m_tiles) * BN;
+                for (int kt = 0; kt < 2 * half; ++kt, ++it) {
+                    const int s = it % STAGES;
+                    if (it >= STAGES)
+                        mbar_wait(empty + 8 * s, ((it / STAGES) - 1) & 1);
+                    const uint32_t a = ring + s * STAGE, bar = full + 8 * s;
+                    const bool first = kt < half;
+                    const int k = (first ? kt : kt - half) * BK;
+                    mbar_expect_tx(bar, STAGE);
+                    tma_load(a, first ? &ta0 : &ta1, k, m0, bar);
+                    tma_load(a + L::A_BYTES, first ? &tb0 : &tb1, k, n0, bar);
+                }
+            }
+        }
+    } else {
+        setmaxnreg_inc<CONSUMER_REGS>();
+        // consumer c takes rows 64c .. 64c + 63 of a 128-row tile, or
+        // columns WN c .. WN c + WN - 1 of a 64-row tile
+        const int c = wg - 1;
+        const int a_off = BM == 128 ? c * 64 * BK * 2 : 0;
+        const int b_off = BM == 128 ? 0 : c * WN * BK * 2;
+        const int w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+        int it = 0;
+        for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+            const int m0 = (t % m_tiles) * BM, n = t / m_tiles;
+            float acc[WN / 2];
+#pragma unroll
+            for (int i = 0; i < WN / 2; ++i) acc[i] = 0.f;
+            fence_acc(acc);
+            for (int kt = 0; kt < 2 * half; ++kt, ++it) {
+                const int s = it % STAGES;
+                mbar_wait(full + 8 * s, (it / STAGES) & 1);
+                const uint32_t a = ring + s * STAGE + a_off;
+                const uint32_t b = ring + s * STAGE + L::A_BYTES + b_off;
+                wgmma_fence();
+#pragma unroll
+                for (int k = 0; k < BK / 16; ++k)
+                    wgmma<WN>(acc, sw128_desc(a + 32 * k),
+                              sw128_desc(b + 32 * k));
+                wgmma_commit();
+                fence_acc(acc);
+                wgmma_wait<1>();
+                // the stage before is read: hand it back to the producer
+                if (kt > 0 && lane == 0)
+                    mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+            }
+            wgmma_wait<0>();
+            fence_acc(acc);
+            if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+            const int row0 = m0 + (BM == 128 ? 64 * c : 0) + 16 * w
+                             + (lane >> 2);
+            const int n0 = n * BN + (BM == 128 ? 0 : c * WN);
+            if constexpr (KIND == GATE)
+                gate_epilogue<WN>(acc, ep, row0, n0);
+            else
+                cand_epilogue<WN>(acc, ep, row0, n0);
+        }
     }
 }
 
-// `steps` steps over h in place; with RES also the residual
-// stacks of K2 (steps x M x d each).  Returns 0 or the first launch error.
-template <bool RES>
-int run_steps(bf16* h, const float* mask, const bf16* wa, const bf16* uzr,
-              const bf16* uh, const float* ba, float* z, bf16* rh, float* gc,
-              bf16* res_h, bf16* res_z, bf16* res_r, bf16* res_c, int M,
-              int d, int r, int steps, cudaStream_t s) {
-    if (M < 1 || r < 1 || M % r != 0 || d < BN || d % BN != 0 || steps < 0)
+// ----------------------------------------------------------------- host
+
+template <int KIND, int BM, int BN>
+int launch_gemm(const CUtensorMap& ta0, const CUtensorMap& tb0,
+                const CUtensorMap& ta1, const CUtensorMap& tb1,
+                const StepArgs& ep, cudaStream_t s) {
+    using L = Layout<BM, BN>;
+    const long long tiles = (long long)((ep.M + BM - 1) / BM)
+                            * ((KIND == GATE ? 2 : 1) * ep.d / BN);
+    const int sms = sm_count();
+    if (sms < 1 || tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    // once per instantiation: the ring is above the 48 KB default
+    static bool sized = false;
+    if (!sized) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            ggnn_gemm_kernel<KIND, BM, BN>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+        if (e != cudaSuccess) return (int)e;
+        sized = true;
+    }
+    ggnn_gemm_kernel<KIND, BM, BN>
+        <<<(int)(tiles < sms ? tiles : sms), THREADS, L::SMEM, s>>>(
+            ta0, tb0, ta1, tb1, ep);
+    return (int)cudaGetLastError();
+}
+
+// the GEMM of KIND on tiles of bm x bn (a valid plan: see bad_plan)
+template <int KIND>
+int launch(int bm, int bn, const CUtensorMap& ta0, const CUtensorMap& tb0,
+           const CUtensorMap& ta1, const CUtensorMap& tb1,
+           const StepArgs& ep, cudaStream_t s) {
+#define GGNN_LAUNCH(BM, BN)                                                \
+    if (bm == BM && bn == BN)                                              \
+        return launch_gemm<KIND, BM, BN>(ta0, tb0, ta1, tb1, ep, s);
+    GGNN_LAUNCH(128, 256)
+    GGNN_LAUNCH(128, 128)
+    GGNN_LAUNCH(64, 256)
+    GGNN_LAUNCH(64, 128)
+    if constexpr (KIND == CAND) {
+        GGNN_LAUNCH(128, 64)
+        GGNN_LAUNCH(64, 64)
+    }
+#undef GGNN_LAUNCH
+    return (int)cudaErrorInvalidValue;
+}
+
+// tiles the kernels take: rows 64 or 128; gate columns 128 or 256 dividing
+// 2d, candidate columns 64, 128 or 256 dividing d
+bool bad_plan(int d, int gate_bm, int gate_bn, int cand_bm, int cand_bn) {
+    const bool rows_ok = (gate_bm == 64 || gate_bm == 128)
+                         && (cand_bm == 64 || cand_bm == 128);
+    const bool gate_ok = (gate_bn == 128 || gate_bn == 256)
+                         && (2 * d) % gate_bn == 0;
+    const bool cand_ok = (cand_bn == 64 || cand_bn == 128 || cand_bn == 256)
+                         && d % cand_bn == 0;
+    return !(rows_ok && gate_ok && cand_ok);
+}
+
+// `steps` steps over h in place; with res (K2) also the four residual
+// stacks (steps x M x d each).  Returns 0 or the first launch error.
+int run_steps(bf16* h, const float* mask, const bf16* w_zr,
+              const bf16* u_zr, const bf16* w_h, const bf16* u_h,
+              const float* ba, bf16* agg, float* z, bf16* rh,
+              bf16* const* res, int M, int d, int r, int steps,
+              int gate_bm, int gate_bn, int cand_bm, int cand_bn,
+              cudaStream_t s) {
+    if (M < 1 || r < 1 || M % r != 0 || d < GROUP || d % GROUP != 0
+        || steps < 0 || bad_plan(d, gate_bm, gate_bn, cand_bm, cand_bn))
         return (int)cudaErrorInvalidValue;
-    const dim3 grid(d / BN, (M + BM - 1) / BM);
-    if (grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
+    CUtensorMap g_agg, g_h, g_w, g_u, c_agg, c_rh, c_w, c_u;
+    if (!(tensor_map(&g_agg, agg, M, d, gate_bm)
+          && tensor_map(&g_h, h, M, d, gate_bm)
+          && tensor_map(&g_w, w_zr, 2 * d, d, gate_bn)
+          && tensor_map(&g_u, u_zr, 2 * d, d, gate_bn)
+          && tensor_map(&c_agg, agg, M, d, cand_bm)
+          && tensor_map(&c_rh, rh, M, d, cand_bm)
+          && tensor_map(&c_w, w_h, d, d, cand_bn)
+          && tensor_map(&c_u, u_h, d, d, cand_bn)))
+        return (int)cudaErrorInvalidValue;
     const size_t plane = (size_t)M * d;
+    const long long agg_threads = (long long)M * (d / 8);
+    const int agg_blocks =
+        (int)((agg_threads + AGG_THREADS - 1) / AGG_THREADS);
+    StepArgs ep = {h, ba, z, rh, nullptr, nullptr, nullptr, M, d};
     for (int t = 0; t < steps; ++t) {
-        const size_t off = RES ? (size_t)t * plane : 0;
-        ggnn_gate_kernel<RES><<<grid, THREADS, 0, s>>>(
-            h, mask, wa, uzr, ba, z, rh, gc, RES ? res_h + off : nullptr,
-            RES ? res_z + off : nullptr, RES ? res_r + off : nullptr, M, d,
-            r);
-        cudaError_t e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
-        ggnn_cand_kernel<RES><<<grid, THREADS, 0, s>>>(
-            h, rh, uh, z, gc, RES ? res_c + off : nullptr, M, d);
-        e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
+        const size_t off = (size_t)t * plane;
+        if (res != nullptr) {
+            ep.res_z = res[1] + off;
+            ep.res_r = res[2] + off;
+            ep.res_c = res[3] + off;
+        }
+        ggnn_agg_kernel<<<agg_blocks, AGG_THREADS, 0, s>>>(
+            h, mask, agg, res != nullptr ? res[0] + off : nullptr, M, d, r);
+        int e = (int)cudaGetLastError();
+        if (e) return e;
+        e = launch<GATE>(gate_bm, gate_bn, g_agg, g_w, g_h, g_u, ep, s);
+        if (e) return e;
+        e = launch<CAND>(cand_bm, cand_bn, c_agg, c_w, c_rh, c_u, ep, s);
+        if (e) return e;
     }
     return 0;
 }
@@ -344,39 +521,69 @@ int run_steps(bf16* h, const float* mask, const bf16* wa, const bf16* uzr,
 extern "C" {
 
 // K1.  h: (M, d) bf16, updated in place over `steps` steps.  mask: (M,)
-// f32.  wa: (d, 3d) bf16, uzr: (d, 2d) bf16, uh: (d, d) bf16, ba: (3d,)
-// f32.  z, gc: (M, d) f32 scratch; rh: (M, d) bf16 scratch.
-// Takes any M >= 1 that is a multiple of r, and any d that is a multiple
-// of 64.  Returns 0, or the CUDA error of the first failed launch.
-int ggnn_folded_forward(void* h, const void* mask, const void* wa,
-                        const void* uzr, const void* uh, const void* ba,
-                        void* z, void* rh, void* gc, int M, int d, int r,
-                        int steps, void* stream) {
-    return run_steps<false>(
+// f32.  w_zr, u_zr: (2d, d), w_h, u_h: (d, d) bf16, the prepared weights
+// (see the note above); ba: (3d,) f32.  agg, rh: (M, d) bf16 and z: (M, d)
+// f32 scratch.  gate_bm, gate_bn, cand_bm, cand_bn: the tiles.  Takes any
+// M >= 1 that is a multiple of r, and any d that is a multiple of 64.
+int ggnn_folded_forward(void* h, const void* mask, const void* w_zr,
+                        const void* u_zr, const void* w_h, const void* u_h,
+                        const void* ba, void* agg, void* z, void* rh, int M,
+                        int d, int r, int steps, int gate_bm, int gate_bn,
+                        int cand_bm, int cand_bn, void* stream) {
+    return run_steps(
         static_cast<bf16*>(h), static_cast<const float*>(mask),
-        static_cast<const bf16*>(wa), static_cast<const bf16*>(uzr),
-        static_cast<const bf16*>(uh), static_cast<const float*>(ba),
-        static_cast<float*>(z), static_cast<bf16*>(rh),
-        static_cast<float*>(gc), nullptr, nullptr, nullptr, nullptr, M, d,
-        r, steps, static_cast<cudaStream_t>(stream));
+        static_cast<const bf16*>(w_zr), static_cast<const bf16*>(u_zr),
+        static_cast<const bf16*>(w_h), static_cast<const bf16*>(u_h),
+        static_cast<const float*>(ba), static_cast<bf16*>(agg),
+        static_cast<float*>(z), static_cast<bf16*>(rh), nullptr, M, d, r,
+        steps, gate_bm, gate_bn, cand_bm, cand_bn,
+        static_cast<cudaStream_t>(stream));
 }
 
 // K2: K1's arguments plus the residual stacks res_h, res_z, res_r, res_c,
-// each (steps, M, d) bf16, written step by step.
-int ggnn_folded_forward_res(void* h, const void* mask, const void* wa,
-                            const void* uzr, const void* uh, const void* ba,
-                            void* z, void* rh, void* gc, void* res_h,
-                            void* res_z, void* res_r, void* res_c, int M,
-                            int d, int r, int steps, void* stream) {
-    return run_steps<true>(
+// each (steps, M, d) bf16, written step by step: the step's input h and
+// the bf16 gates z, r, c.
+int ggnn_folded_forward_res(void* h, const void* mask, const void* w_zr,
+                            const void* u_zr, const void* w_h,
+                            const void* u_h, const void* ba, void* agg,
+                            void* z, void* rh, void* res_h, void* res_z,
+                            void* res_r, void* res_c, int M, int d, int r,
+                            int steps, int gate_bm, int gate_bn,
+                            int cand_bm, int cand_bn, void* stream) {
+    bf16* const res[4] = {
+        static_cast<bf16*>(res_h), static_cast<bf16*>(res_z),
+        static_cast<bf16*>(res_r), static_cast<bf16*>(res_c)};
+    return run_steps(
         static_cast<bf16*>(h), static_cast<const float*>(mask),
-        static_cast<const bf16*>(wa), static_cast<const bf16*>(uzr),
-        static_cast<const bf16*>(uh), static_cast<const float*>(ba),
-        static_cast<float*>(z), static_cast<bf16*>(rh),
-        static_cast<float*>(gc), static_cast<bf16*>(res_h),
-        static_cast<bf16*>(res_z), static_cast<bf16*>(res_r),
-        static_cast<bf16*>(res_c), M, d, r, steps,
+        static_cast<const bf16*>(w_zr), static_cast<const bf16*>(u_zr),
+        static_cast<const bf16*>(w_h), static_cast<const bf16*>(u_h),
+        static_cast<const float*>(ba), static_cast<bf16*>(agg),
+        static_cast<float*>(z), static_cast<bf16*>(rh), res, M, d, r, steps,
+        gate_bm, gate_bn, cand_bm, cand_bn,
         static_cast<cudaStream_t>(stream));
+}
+
+// bytes of dynamic shared memory a block of ggnn_gemm_kernel takes on
+// tiles of bm (64 or 128) x bn (64, 128 or 256) rows; 0 for any other
+int ggnn_folded_smem(int bm, int bn) {
+    if (bm != 64 && bm != 128) return 0;
+    const bool two = bm == 128;
+    switch (bn) {
+        case 256:
+            return two ? Layout<128, 256>::SMEM : Layout<64, 256>::SMEM;
+        case 128:
+            return two ? Layout<128, 128>::SMEM : Layout<64, 128>::SMEM;
+        case 64:
+            return two ? Layout<128, 64>::SMEM : Layout<64, 64>::SMEM;
+        default:
+            return 0;
+    }
+}
+
+// registers a thread of the consumer (consumer != 0) or producer warpgroup
+// holds after setmaxnreg, in every GEMM instantiation
+int ggnn_folded_maxnreg(int consumer) {
+    return consumer ? CONSUMER_REGS : PRODUCER_REGS;
 }
 
 }  // extern "C"

@@ -3,8 +3,9 @@ with a plain C interface, and load it with ``ctypes``.
 
 The library is built at first use into ``build/torch_kernels/`` beside the
 package (``build/`` is ignored by git), under a name that carries a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is.  Nothing here runs at import time.
+the source, the headers of ``csrc/`` it includes and the flags, so an
+edited source or header is rebuilt and an unchanged one is loaded as it
+is.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -42,13 +43,30 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
 def _target(source: str) -> tuple:
+    """``csrc/<source>`` and its library's path, whose name carries a hash
+    of the source, of the local headers it includes (``#include "..."``,
+    found beside the including file, recursively) and of the flags."""
     src = os.path.join(_CSRC, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
+    digest = hashlib.sha256()
+    seen, todo = set(), [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        digest.update(text)
+        todo += [os.path.join(os.path.dirname(path), name.decode())
+                 for name in _INCLUDE.findall(text)]
+    digest.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
-    return src, os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+    return src, os.path.join(BUILD_DIR,
+                             f"lib{stem}-{digest.hexdigest()[:16]}.so")
 
 
 def build(sources) -> None:

@@ -29,6 +29,9 @@ gates in f32 and h kept in bf16 between steps — the TPU kernel's numerics.
   ``csrc/ggnn_folded.cu`` (K1, K2) or ``csrc/ggnn_folded_bwd.cu`` (K3),
   built by ``nvcc`` at first use and bound with ``ctypes``, or raises.
   There is no fallback.  Each wrapper's ``launches`` counts its launches.
+* ``folded_operands`` — K1/K2's weights in the layout their GEMMs read
+  (``kernel_weights``), kept until the folded weights are written in
+  place or freed; ``tile_plan`` — their tiles for (M, d).
 * ``ggnn_propagate_folded`` — the (B, R, D) entry, flattening the batch
   into rows of whole examples as ``_propagate_fwd_impl`` does.
 """
@@ -36,13 +39,19 @@ gates in f32 and h kept in bf16 between steps — the TPU kernel's numerics.
 from __future__ import annotations
 
 import ctypes
+import math
+import weakref
+from typing import NamedTuple
 
 import torch
 
 from situation_recognition_tpu_torch.ops.ggnn import GGNNParams
 
-#: the kernels take any d that is a multiple of this (their column tile)
+#: the kernels take any d that is a multiple of this (a gate tile's group
+#: of columns of h)
 D_MULTIPLE = 64
+#: streaming multiprocessors of an H100 SXM, for plans made without a card
+H100_SMS = 132
 #: the backward kernel's row tiles hold whole examples of at most this
 #: many rows
 BWD_MAX_R = 64
@@ -134,6 +143,98 @@ def transpose_folded(weights):
     return (wa.t().contiguous(), uzr.t().contiguous(), uh.t().contiguous())
 
 
+def kernel_weights(weights):
+    """``fold_gate_weights`` output → the B operands of K1/K2's GEMMs, each
+    K-major (output features by input features), contiguous:
+
+    * ``w_zr`` (2d, d): ``wa[:, :2d]ᵀ`` with its rows in 64-row groups
+      ``[z_j | r_j]`` for j = 0 .. d/64 - 1, i.e. row ``128 j + 64 g + i``
+      is column ``g d + 64 j + i`` of ``wa`` (g = 0 for z, 1 for r);
+    * ``u_zr`` (2d, d): ``uzrᵀ`` in the same order;
+    * ``w_h`` (d, d): ``wa[:, 2d:]ᵀ``; ``u_h`` (d, d): ``uhᵀ``.
+
+    A gate tile of 128 columns then holds z and r of the same 64 columns
+    of h, and the candidate sums ``agg @ WpWh`` and ``rh @ Uh`` in one
+    accumulator."""
+    wa, uzr, uh, _ = weights
+    d = wa.shape[0]
+    groups = d // D_MULTIPLE
+
+    def zr_groups(w):
+        return (w.t().reshape(2, groups, D_MULTIPLE, d).transpose(0, 1)
+                .reshape(2 * d, d).contiguous())
+
+    return (zr_groups(wa[:, :2 * d]), zr_groups(uzr),
+            wa[:, 2 * d:].t().contiguous(), uh.t().contiguous())
+
+
+# id of each of (wa, uzr, uh) → (weak references to them, their
+# ``_version``s, ``kernel_weights`` of them); an entry goes when one of its
+# tensors is freed
+_KERNEL_WEIGHTS: dict = {}
+
+
+def folded_operands(weights):
+    """``kernel_weights(weights)``, built once per set of folded weights:
+    kept while ``wa``, ``uzr`` and ``uh`` live and rebuilt after an
+    in-place write to any of them (``GGNN.folded`` hands the same tensors
+    to every call until a GGNN weight changes).  Tensors made under
+    ``torch.inference_mode`` (the serving paths fold there) keep no version
+    counter, so only their identity is the key."""
+    src = tuple(weights[:3])
+    key = tuple(id(t) for t in src)
+    versions = tuple(None if t.is_inference() else t._version for t in src)
+    hit = _KERNEL_WEIGHTS.get(key)
+    if (hit is not None and hit[1] == versions
+            and all(ref() is t for ref, t in zip(hit[0], src))):
+        return hit[2]
+    with torch.no_grad():
+        prepared = kernel_weights(weights)
+
+    def drop(_, key=key):
+        _KERNEL_WEIGHTS.pop(key, None)
+
+    _KERNEL_WEIGHTS[key] = (tuple(weakref.ref(t, drop) for t in src),
+                            versions, prepared)
+    return prepared
+
+
+class TilePlan(NamedTuple):
+    """Tiles of one step's GEMMs, rows by output columns: the gate's
+    (``gate_bn`` / 128 groups of z and r of 64 columns each) and the
+    candidate's."""
+    gate_bm: int
+    gate_bn: int
+    cand_bm: int
+    cand_bn: int
+
+
+def _rounds_cost(m: int, n: int, bm: int, bn: int, sms: int) -> int:
+    """Clocks per 64-deep stage of the busiest SM for an (m, n) output in
+    bm × bn tiles: rounds of tiles over the SMs times one tile's stage, its
+    products (2·bm·bn·64 FLOP at 4096 FLOP/clk) plus its operand bytes
+    ((bm + bn)·128 at 64 B/clk), which the card does not fully overlap (the
+    sum, not the larger, orders the plans as the card measured them:
+    PERF.md §6)."""
+    tiles = math.ceil(m / bm) * (n // bn)
+    return math.ceil(tiles / sms) * (bm * bn // 32 + 2 * (bm + bn))
+
+
+def _best_tile(m: int, n: int, widths, sms: int) -> tuple:
+    return min((_rounds_cost(m, n, bm, bn, sms), -bm * bn, -bn, bm, bn)
+               for bm in (128, 64) for bn in widths if n % bn == 0)[3:]
+
+
+def tile_plan(m: int, d: int, sms: int = H100_SMS) -> TilePlan:
+    """The tiles of K1/K2's GEMMs for M rows of width d on a card of
+    ``sms`` SMs: for each GEMM the tile of least ``_rounds_cost``, ties to
+    the larger tile.  Rows 128 or 64 (a 64-row tile splits its columns
+    between the two consumer warpgroups); the gate's columns 256 or 128 of
+    its 2d, the candidate's 256, 128 or 64 of its d."""
+    return TilePlan(*_best_tile(m, 2 * d, (256, 128), sms),
+                    *_best_tile(m, d, (256, 128, 64), sms))
+
+
 def folded_bwd_reference(g: torch.Tensor, mask_rows: torch.Tensor, resids,
                          weights_t, r: int, steps: int):
     """Plain PyTorch twin of K3.  g (M, d) bf16, the cotangent of the
@@ -206,15 +307,25 @@ def _check_cuda_args(h, mask_rows, weights, r: int) -> None:
         "uh": (uh, (d, d), bf), "ba": (ba, (1, 3 * d), torch.float32)})
 
 
-def _lib(source: str, entry: str, n_ptrs: int) -> ctypes.CDLL:
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argument types of each C entry: pointers, ints, the stream last
+_SIGNATURES = {
+    "ggnn_folded_forward": [_P] * 10 + [_I] * 8 + [_P],
+    "ggnn_folded_forward_res": [_P] * 14 + [_I] * 8 + [_P],
+    "ggnn_folded_backward": [_P] * 12 + [_I] * 4 + [_P],
+    "ggnn_folded_smem": [_I] * 2,
+    "ggnn_folded_maxnreg": [_I],
+}
+
+
+def _lib(source: str, entry: str) -> ctypes.CDLL:
     from situation_recognition_tpu_torch.ops import _build
 
     lib = _build.load(source)
     fn = getattr(lib, entry)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
+        fn.argtypes = _SIGNATURES[entry]
     return lib
 
 
@@ -222,25 +333,34 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _forward_scratch(h):
-    m, d = h.shape
-    z = torch.empty((m, d), dtype=torch.float32, device=h.device)
-    return z, torch.empty_like(z), torch.empty(
-        (m, d), dtype=torch.bfloat16, device=h.device)
-
-
-def _launch(h, mask_rows, weights, r: int, steps: int) -> torch.Tensor:
+def _forward_args(h, mask_rows, weights, r: int, plan):
+    """The launch arguments K1 and K2 share: a copy of h that the kernel
+    updates in place, then mask, the prepared weights, ba and the scratch
+    (agg, z, rh), and the tiles."""
     _check_cuda_args(h, mask_rows, weights, r)
-    wa, uzr, uh, ba = weights
     m, d = h.shape
+    if plan is None:
+        sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+        plan = tile_plan(m, d, sms)
     out = h.clone()
-    z, gc, rh = _forward_scratch(h)
-    lib = _lib("ggnn_folded.cu", "ggnn_folded_forward", 9)
+    bf, f32 = torch.bfloat16, torch.float32
+    keep = [mask_rows, *folded_operands(weights), weights[3],
+            torch.empty((m, d), dtype=bf, device=h.device),
+            torch.empty((m, d), dtype=f32, device=h.device),
+            torch.empty((m, d), dtype=bf, device=h.device)]
+    return out, keep, tuple(plan)
+
+
+def _launch(h, mask_rows, weights, r: int, steps: int, plan=None):
+    """K1 on the card; ``plan``: a ``TilePlan`` in place of
+    ``tile_plan``'s."""
+    out, keep, plan = _forward_args(h, mask_rows, weights, r, plan)
+    m, d = h.shape
+    lib = _lib("ggnn_folded.cu", "ggnn_folded_forward")
     with torch.cuda.device(h.device):
         rc = lib.ggnn_folded_forward(
-            out.data_ptr(), mask_rows.data_ptr(), wa.data_ptr(),
-            uzr.data_ptr(), uh.data_ptr(), ba.data_ptr(), z.data_ptr(),
-            rh.data_ptr(), gc.data_ptr(), m, d, r, steps, _stream(h))
+            out.data_ptr(), *(t.data_ptr() for t in keep), m, d, r, steps,
+            *plan, _stream(h))
     if rc != 0:
         raise RuntimeError(f"ggnn_folded_forward failed to launch: CUDA "
                            f"error {rc}")
@@ -248,21 +368,17 @@ def _launch(h, mask_rows, weights, r: int, steps: int) -> torch.Tensor:
     return out
 
 
-def _launch_res(h, mask_rows, weights, r: int, steps: int):
-    _check_cuda_args(h, mask_rows, weights, r)
-    wa, uzr, uh, ba = weights
+def _launch_res(h, mask_rows, weights, r: int, steps: int, plan=None):
+    """K2 on the card; ``plan`` as ``_launch``'s."""
+    out, keep, plan = _forward_args(h, mask_rows, weights, r, plan)
     m, d = h.shape
-    out = h.clone()
-    z, gc, rh = _forward_scratch(h)
     res = tuple(torch.empty((steps, m, d), dtype=torch.bfloat16,
                             device=h.device) for _ in range(4))
-    lib = _lib("ggnn_folded.cu", "ggnn_folded_forward_res", 13)
+    lib = _lib("ggnn_folded.cu", "ggnn_folded_forward_res")
     with torch.cuda.device(h.device):
         rc = lib.ggnn_folded_forward_res(
-            out.data_ptr(), mask_rows.data_ptr(), wa.data_ptr(),
-            uzr.data_ptr(), uh.data_ptr(), ba.data_ptr(), z.data_ptr(),
-            rh.data_ptr(), gc.data_ptr(), *(x.data_ptr() for x in res),
-            m, d, r, steps, _stream(h))
+            out.data_ptr(), *(t.data_ptr() for t in keep),
+            *(x.data_ptr() for x in res), m, d, r, steps, *plan, _stream(h))
     if rc != 0:
         raise RuntimeError(f"ggnn_folded_forward_res failed to launch: "
                            f"CUDA error {rc}")
@@ -290,7 +406,7 @@ def _launch_bwd(g, mask_rows, resids, weights_t, r: int, steps: int):
     da = torch.empty((steps, m, 3 * d), dtype=torch.bfloat16,
                      device=g.device)
     out = torch.empty_like(g)
-    lib = _lib("ggnn_folded_bwd.cu", "ggnn_folded_backward", 12)
+    lib = _lib("ggnn_folded_bwd.cu", "ggnn_folded_backward")
     with torch.cuda.device(g.device):
         rc = lib.ggnn_folded_backward(
             dh.data_ptr(), mask_rows.data_ptr(),

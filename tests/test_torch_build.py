@@ -49,3 +49,37 @@ def test_build_log_reads_the_copy_beside_a_built_library(tmp_path,
     with open(f"{_build._target(source)[1]}.log", "w") as f:
         f.write(_LOG)
     assert _build.build_log(source) == _LOG
+
+
+def _write(path, text):
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def test_target_hashes_the_headers_a_source_includes(tmp_path, monkeypatch):
+    """An edited header of ``csrc/`` (included directly or through another
+    header) names a new library; a header no source includes does not."""
+    monkeypatch.setattr(_build, "_CSRC", str(tmp_path))
+    _write(tmp_path / "k.cu", '#include <cuda.h>\n#include "a.cuh"\nint k;\n')
+    _write(tmp_path / "a.cuh", '#pragma once\n#include "b.cuh"\n')
+    _write(tmp_path / "b.cuh", "int b = 1;\n")
+    _write(tmp_path / "other.cuh", "int o = 1;\n")
+    first = _build._target("k.cu")[1]
+    _write(tmp_path / "other.cuh", "int o = 2;\n")
+    assert _build._target("k.cu")[1] == first
+    _write(tmp_path / "b.cuh", "int b = 2;\n")
+    second = _build._target("k.cu")[1]
+    assert second != first
+    _write(tmp_path / "a.cuh", '#pragma once\n#include "b.cuh"\n// x\n')
+    assert _build._target("k.cu")[1] not in (first, second)
+
+
+def test_the_gemm_sources_share_the_hopper_header():
+    """K1/K2 and K4/K6 take their TMA, mbarrier and wgmma helpers from one
+    header, which their libraries' names cover."""
+    with open(_build._target("ggnn_folded.cu")[0]) as f:
+        ggnn = f.read()
+    with open(_build._target("vit_block.cu")[0]) as f:
+        vit = f.read()
+    assert '#include "hopper.cuh"' in ggnn and '#include "hopper.cuh"' in vit
+    assert "mma_async.sync" not in ggnn + vit

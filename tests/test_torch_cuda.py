@@ -74,6 +74,98 @@ def test_kernel_rejects_unsupported_shapes(cuda_device):
                        weights, 6, 1)
 
 
+def _card_case(b, r, d, seed, device, verb=False):
+    """``_case`` on the card, folded there (f32 products without TF32)."""
+    params, h, mask = _case(b, r, d, seed, verb)
+    params = GGNNParams(*(p.to(device) for p in params))
+    return (tk.fold_gate_weights(params, float(r)), h.to(device),
+            mask.to(device))
+
+
+def _check_folded(weights, h, mask, r, plan=None):
+    """K1 and K2 (output and the four residual stacks) against their twins;
+    ``plan``: the tiles, else ``tile_plan``'s."""
+    want_out, want_res = tk.folded_reference_res(h, mask, weights, r, 4)
+    got = tk._launch(h, mask, weights, r, 4, plan)
+    got_out, got_res = tk._launch_res(h, mask, weights, r, 4, plan)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("K1", "K2 out", "h", "z", "r", "c"),
+                          (got, got_out) + got_res,
+                          (want_out, want_out) + want_res):
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= KERNEL_ATOL, (name, err)
+
+
+# K1/K2's tile edges: examples of r=6 and single rows (r=1) around the
+# 64-row tiles of one consumer warpgroup and the 128-row tiles of two, at
+# widths of one gate column group (64), three (192; only 64-column
+# candidate tiles), the ViT head (1024) and the ResNet head (2048); ragged
+# masks for r=6, and mask 0 (the verb branch: E = I) for r=1 and for some
+# r=6 batches
+FOLDED_EDGE_CASES = ([(b, 6, False) for b in (1, 10, 11, 21, 22, 43, 256)]
+                     + [(b, 6, True) for b in (11, 43)]
+                     + [(m, 1, True) for m in (1, 63, 64, 65, 127, 129,
+                                               256)])
+
+
+@pytest.mark.parametrize("d", (64, 192, 1024, 2048))
+@pytest.mark.parametrize("b,r,verb", FOLDED_EDGE_CASES)
+def test_folded_forward_tile_edges(cuda_device, b, r, verb, d):
+    weights, h, mask = _card_case(b, r, d, b * r + d, cuda_device, verb)
+    _check_folded(weights, h, mask, r)
+
+
+@pytest.mark.parametrize("plan", [
+    tk.TilePlan(gm, gn, cm, cn) for gm, cm in ((128, 64), (64, 128))
+    for gn in (256, 128) for cn in (256, 128, 64)],
+    ids=lambda p: "-".join(map(str, p)))
+def test_folded_forward_every_tile_plan(cuda_device, plan):
+    """Every instantiation of the gate and candidate GEMMs, whichever
+    ``tile_plan`` would pick: 258 rows (a partial last tile of 64 and of
+    128 rows), d = 512 (every gate and candidate width)."""
+    weights, h, mask = _card_case(43, 6, 512, 5, cuda_device)
+    _check_folded(weights, h, mask, 6, plan)
+
+
+def test_folded_forward_is_deterministic(cuda_device):
+    """Two launches of K1 and of K2 on the same inputs are bit-equal: each
+    output element is summed by one warpgroup in a fixed order."""
+    weights, h, mask = _card_case(43, 6, 1024, 7, cuda_device)
+    first = tk.folded_rows(h, mask, weights, 6, 4)
+    second = tk.folded_rows(h, mask, weights, 6, 4)
+    assert torch.equal(first, second)
+    first = tk.folded_rows_res(h, mask, weights, 6, 4)
+    second = tk.folded_rows_res(h, mask, weights, 6, 4)
+    assert torch.equal(first[0], second[0])
+    for a, b in zip(first[1], second[1]):
+        assert torch.equal(a, b)
+
+
+def test_folded_forward_refuses_misaligned_operands(cuda_device):
+    """h or a weight that TMA cannot read (a view one element into a
+    buffer, so not 16-byte aligned; a transposed, non-contiguous one) is
+    refused with ValueError before any launch."""
+    m, d = 66, 128
+    weights, h, mask = _card_case(11, 6, d, 8, cuda_device)
+    buf = torch.zeros(m * d + 8, dtype=torch.bfloat16, device=cuda_device)
+    shifted = buf[1:1 + m * d].view(m, d)
+    strided = torch.zeros(d, m, dtype=torch.bfloat16, device=cuda_device).t()
+    wbuf = torch.zeros(3 * d * d + 8, dtype=torch.bfloat16,
+                       device=cuda_device)
+    bad_wa = [wbuf[1:1 + 3 * d * d].view(d, 3 * d)] + list(weights[1:])
+    bad_uh = list(weights[:2]) + [weights[2].t()] + [weights[3]]
+    counts = (tk.folded_rows.launches, tk.folded_rows_res.launches)
+    for fn in (tk.folded_rows, tk.folded_rows_res):
+        for bad in (shifted, strided):
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                fn(bad, mask, weights, 6, 4)
+        for bad in (bad_wa, bad_uh):
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                fn(h, mask, bad, 6, 4)
+    torch.cuda.synchronize()
+    assert (tk.folded_rows.launches, tk.folded_rows_res.launches) == counts
+
+
 def test_serving_on_the_card_uses_the_kernel(cuda_device, tmp_path):
     from situation_recognition_tpu_torch.data.encoder import ImsituEncoder
     from situation_recognition_tpu_torch.serving import (
@@ -108,7 +200,9 @@ BWD_REL_ATOL = 2 ** -5
 
 @pytest.mark.parametrize("b,r,d,verb", [(24, 6, 256, False),
                                         (7, 6, 128, False),
-                                        (130, 1, 192, True)])
+                                        (130, 1, 192, True),
+                                        (43, 6, 1024, False),
+                                        (256, 6, 2048, False)])
 def test_backward_pair_matches_twins(cuda_device, b, r, d, verb):
     params, h, mask = _case(b, r, d, seed=b + d + 1, verb=verb)
     weights = [w.to(cuda_device) for w in tk.fold_gate_weights(params,
