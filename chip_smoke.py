@@ -16,13 +16,17 @@ Phases, each printing its seconds:
              forward), K2 (forward with residuals: output and the four
              residual stacks) and K3 (backward: dh and da); max and mean
              abs error against the stated tolerances, kernel and twin times
-             from CUDA events, and the bound of the work; for K1 and K2
-             also their tiles and, as a yardstick the port never calls,
-             cuBLAS (``torch.matmul``) on the same steps' products
-             alone.  Then the whole differentiated propagate (forward +
-             backward, the parameter products included) through each
-             route: the K2/K3 autograd Function and autograd over the
-             masked-sum math.
+             from CUDA events, and the bound of the work; for each also
+             its tiles and, as a yardstick the port never calls, cuBLAS
+             (``torch.matmul``) on the same steps' products alone.  K3
+             also at d=1024 (the ViT head's noun and verb shapes), with
+             the route's parameter products on the tensor cores against
+             f32 products of f32 copies (checked, both timed, TF32 off),
+             and after the last phase its device time by launch kind
+             (``torch.profiler``: drh, dagg, E, dh, prep).  Then the
+             whole differentiated propagate (forward + backward, the
+             parameter products included) through each route: the K2/K3
+             autograd Function and autograd over the masked-sum math.
 4. path    — a full-width ResNet-152 + FCGGNN at bf16 with random weights
              from ``--seed`` and the ``synthetic_full`` vocabulary:
              ``export_inference`` into a temporary directory outside the
@@ -79,11 +83,11 @@ Phases, each printing its seconds:
              parameters that moved, peak memory, then an eval batch
              through the forward kernels.
 
-Then a ``kernels`` JSON line (the entries of K1/K2 and of the ViT kernels
+Then a ``kernels`` JSON line (the entries of K1–K3 and of the ViT kernels
 with the registers, spills and shared memory that ``-Xptxas -v``
-reported, and for the GEMMs of K1/K2 and K4/K6 the ``setmaxnreg`` split,
+reported, and for the GEMMs of K1–K3 and K4/K6 the ``setmaxnreg`` split,
 the dynamic shared memory that the library states and the HGMMA count of
-each instantiation's SASS; a GEMM without HGMMA, or a K1/K2 kernel that
+each instantiation's SASS; a GEMM without HGMMA, or a K1–K3 kernel that
 spills, fails the run), the
 card's ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero
@@ -248,7 +252,7 @@ def _bwd_bound(m: int, d: int, r: int, steps: int, mask) -> tuple:
     """Least time (ms) of K3 and its term.  Operations per reverse step:
     drh (2·m·d·d), dagg (2·m·3d·d), da[:, :2d]@Uzrᵀ (2·m·2d·d) and the
     adjacency sum over E's nonzeros.  Bytes: g, mask, the four residual
-    stacks and the transposed weights read once; dh and da written once."""
+    stacks and the folded weights read once; dh and da written once."""
     from situation_recognition_tpu_torch.ops.ggnn_kernel import (
         block_adjacency)
 
@@ -298,7 +302,7 @@ def phase_kernel(enc, seed: int, batch: int) -> dict:
 
     gen = torch.Generator().manual_seed(seed)
     params = _ggnn_params(D, gen)
-    shapes, res_shapes, bwd_shapes = [], [], []
+    shapes, res_shapes, k3_rows = [], [], []
     for label, b, r, m, h, mask in _shape_cases(enc, gen, batch):
         tag = f"{label} B={b} R={r} M={m} d={D} steps={STEPS}"
         weights = tk.fold_gate_weights(params, float(r))
@@ -357,41 +361,198 @@ def phase_kernel(enc, seed: int, batch: int) -> dict:
         res_shapes.append(row)
 
         # K3 from K2's residuals, against the twin on the same residuals
-        g = torch.randn(m, D, generator=gen).to(torch.bfloat16).to(DEVICE)
-        wt = tk.transpose_folded(weights)
-        want_dh, want_da = tk.folded_bwd_reference(g, mask, got_res, wt, r,
-                                                   STEPS)
-        got_dh, got_da = tk.folded_bwd_rows(g, mask, got_res, wt, r, STEPS)
-        torch.cuda.synchronize()
-        errs = {}
-        for name, gt_, wt_ in (("dh", got_dh, want_dh), ("da", got_da,
-                                                         want_da)):
-            e_max, e_mean, same = _errors(gt_, wt_)
-            scale = wt_.float().abs().max().item()
-            errs[name] = {"max": e_max, "mean": e_mean, "equal_share": same,
-                          "max_rel": e_max / scale,
-                          "mean_rel": e_mean / scale, "scale": scale}
-        ms = _time_ms(lambda: tk.folded_bwd_rows(g, mask, got_res, wt, r,
-                                                 STEPS), 20)
-        plain_ms = _time_ms(lambda: tk.folded_bwd_reference(
-            g, mask, got_res, wt, r, STEPS), 5, 1)
-        bound_ms, bound_by, flops, nbytes = _bwd_bound(m, D, r, STEPS, mask)
-        row = {"shape": tag,
-               "max_abs_err": max(e["max"] for e in errs.values()),
-               "errors": errs, "tol_max_rel": BWD_MAX_REL,
-               "tol_mean_rel": BWD_MEAN_REL, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by, "flop": flops,
-               "bytes": nbytes, "tflops": flops / ms / 1e9}
-        _log("[kernel] K3 " + json.dumps(row))
-        bad = [k for k, e in errs.items()
-               if e["max_rel"] > BWD_MAX_REL or e["mean_rel"] > BWD_MEAN_REL]
-        if bad:
-            raise SystemExit(f"K3 disagrees with its twin at {tag}: {bad}")
-        bwd_shapes.append(row)
+        k3_rows.append(_k3_row(tag, m, D, r, mask, weights, got_res, gen))
+    # K3 at the ViT head's width, noun and verb
+    params_1024 = _ggnn_params(1024, gen)
+    for label, b, r, m, h, mask in _shape_cases(enc, gen, batch, 1024,
+                                                ragged=False):
+        weights = tk.fold_gate_weights(params_1024, float(r))
+        _, res = tk.folded_rows_res(h, mask, weights, r, STEPS)
+        k3_rows.append(_k3_row(
+            f"{label} B={b} R={r} M={m} d=1024 steps={STEPS}", m, 1024, r,
+            mask, weights, res, gen))
     routes = [_route_times(params, mask_case)
               for mask_case in _route_cases(enc, gen, batch)]
     return {"shapes": shapes, "res_shapes": res_shapes,
-            "bwd_shapes": bwd_shapes, "routes": routes}
+            "bwd_shapes": [row for row, _ in k3_rows],
+            "k3_inputs": k3_rows, "routes": routes}
+
+
+# the route's parameter products on the tensor cores vs f32 products of
+# f32 copies: the same exact products of bf16 values, f32 sums of steps·M
+# terms in another order, relative to each tensor's largest element
+PARAM_PRODUCTS_REL = 1e-4
+# K3's GEMMs by the KIND of ggnn_gemm_kernel (csrc/ggnn_folded_bwd.cu)
+BWD_KINDS = {2: "drh", 3: "dagg", 4: "dh"}
+
+
+def _k3_row(tag, m: int, d: int, r: int, mask, weights, res, gen):
+    """K3 on the residuals ``res`` against its twin on the same residuals
+    (dh and da, relative to the twin's largest element), timed, with its
+    bound, its tiles, cuBLAS of its products alone and the route's
+    parameter products under both products; fails if K3 disagrees.
+    Returns the row and K3's inputs copied to the host, with which
+    ``_k3_split`` profiles K3 by launch kind after the other phases'
+    profiles: a profiler session that recorded no host copy left the later
+    sessions of the process without their copies, and inputs kept on the
+    card would count in the later phases' peak memory."""
+    import torch
+
+    from situation_recognition_tpu_torch.ops import ggnn_kernel as tk
+
+    g = torch.randn(m, d, generator=gen).to(torch.bfloat16).to(DEVICE)
+    want_dh, want_da = tk.folded_bwd_reference(g, mask, res, weights, r,
+                                               STEPS)
+    got_dh, got_da = tk.folded_bwd_rows(g, mask, res, weights, r, STEPS)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, gt_, wt_ in (("dh", got_dh, want_dh), ("da", got_da, want_da)):
+        e_max, e_mean, same = _errors(gt_, wt_)
+        scale = wt_.float().abs().max().item()
+        errs[name] = {"max": e_max, "mean": e_mean, "equal_share": same,
+                      "max_rel": e_max / scale, "mean_rel": e_mean / scale,
+                      "scale": scale}
+    bad = [k for k, e in errs.items()
+           if e["max_rel"] > BWD_MAX_REL or e["mean_rel"] > BWD_MEAN_REL]
+    if bad:
+        raise SystemExit(f"K3 disagrees with its twin at {tag}: {bad} "
+                         f"{json.dumps(errs)}")
+
+    def call():
+        return tk.folded_bwd_rows(g, mask, res, weights, r, STEPS)
+
+    ms = _time_ms(call, 20)
+    plain_ms = _time_ms(lambda: tk.folded_bwd_reference(
+        g, mask, res, weights, r, STEPS), 5, 1)
+    bound_ms, bound_by, flops, nbytes = _bwd_bound(m, d, r, STEPS, mask)
+    row = {"shape": tag,
+           "max_abs_err": max(e["max"] for e in errs.values()),
+           "errors": errs, "tol_max_rel": BWD_MAX_REL,
+           "tol_mean_rel": BWD_MEAN_REL, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": _bwd_library_ms(got_da, weights), "flop": flops,
+           "bytes": nbytes, "tflops": flops / ms / 1e9,
+           "tiles": tk.bwd_tile_plan(m, d, _sms())._asdict(),
+           "param_products": _param_products_row(mask, res, got_da, r)}
+    _log("[kernel] K3 " + json.dumps(row))
+    return row, (g.cpu(), mask.cpu(), tuple(x.cpu() for x in res),
+                 tuple(w.cpu() for w in weights), r)
+
+
+def _k3_split(row: dict, host_inputs) -> None:
+    """``row``'s device time of K3 by launch kind (``_bwd_split``), on its
+    inputs moved back to the card from ``_k3_row``'s host copies."""
+    from situation_recognition_tpu_torch.ops import ggnn_kernel as tk
+
+    g, mask, res, weights, r = host_inputs
+    g, mask = g.to(DEVICE), mask.to(DEVICE)
+    res = tuple(x.to(DEVICE) for x in res)
+    weights = tuple(w.to(DEVICE) for w in weights)
+    row["device_ms_by_launch_kind"] = _bwd_split(
+        lambda: tk.folded_bwd_rows(g, mask, res, weights, r, STEPS))
+    _log(f"[kernel] K3 device time by launch kind, {row['shape']}: "
+         + json.dumps(row["device_ms_by_launch_kind"]))
+
+
+def _bwd_library_ms(da, weights) -> float:
+    """cuBLAS (``torch.matmul``) time of K3's products alone over
+    ``STEPS`` reverse steps, on one step's da and the folded weights: per
+    step da[:, 2d:] @ uhᵀ, da @ waᵀ and da[:, :2d] @ uzrᵀ, 12·M·d² FLOP as
+    K3's.  No PyTorch call computes K3: a yardstick the port never
+    calls."""
+    import torch
+
+    wa, uzr, uh, _ = weights
+    d = uh.shape[0]
+    x = da[0]
+
+    def products():
+        for _ in range(STEPS):
+            torch.matmul(x[:, 2 * d:], uh.t())
+            torch.matmul(x, wa.t())
+            torch.matmul(x[:, :2 * d], uzr.t())
+
+    return _time_ms(products, 10)
+
+
+def _bwd_split(call, reps: int = 5) -> dict:
+    """Device time (ms) of one K3 call by launch kind, from
+    ``torch.profiler`` over ``reps`` calls after a warm one: for its three
+    GEMMs (drh, dagg, dh), the E kernel and the prep pass before the first
+    reverse step, the mean time of the launches recorded times the
+    launches of a call (``STEPS`` of each, one prep); and the launches of
+    each kind the profiler recorded (it drops some at the start of a
+    window: a one-element kernel leads the window, yet one prep of five
+    went missing on the card)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    kinds = ("drh", "dagg", "E", "dh", "prep")
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device=DEVICE).add_(1)
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    total = {k: 0.0 for k in kinds}
+    seen = {k: 0 for k in kinds}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        gemm = re.search(r"ggnn_gemm_kernel(?:<|ILi)(\d+)", ev.key)
+        if gemm:
+            kind = BWD_KINDS[int(gemm.group(1))]
+        elif "ggnn_bwd_agg_kernel" in ev.key:
+            kind = "E"
+        elif "ggnn_bwd_prep_kernel" in ev.key:
+            kind = "prep"
+        else:
+            continue
+        total[kind] += getattr(ev, "self_device_time_total", getattr(
+            ev, "self_cuda_time_total", 0)) / 1e3
+        seen[kind] += ev.count
+    out = {k: total[k] / max(seen[k], 1) * (1 if k == "prep" else STEPS)
+           for k in kinds}
+    return {**out, "recorded_launches": seen, "calls": reps}
+
+
+def _param_products_row(mask, res, da, r: int) -> dict:
+    """The route's parameter products (``ops/ggnn_train.param_products``:
+    bf16 operands, f32 accumulation and output) against f32 products of
+    f32 copies (``param_products_f32``, the plain version, which the CPU
+    path runs) on the same operands from K2's
+    residuals and K3's da: both timed, the largest error relative to each
+    tensor's largest element; fails beyond ``PARAM_PRODUCTS_REL`` or if
+    TF32 is on.  Also the whole ``param_grads`` (operands, products,
+    bias sum and the pull-back through the fold)."""
+    import torch
+
+    from situation_recognition_tpu_torch.ops import ggnn as tg
+    from situation_recognition_tpu_torch.ops import ggnn_train as tt
+
+    ops = tt.param_operands(mask, res, da, r)
+    got = tt.param_products(*ops)
+    want = tt.param_products_f32(*ops)
+    torch.cuda.synchronize()
+    rel = max(((a - w).abs().max() / w.abs().max()).item()
+              for a, w in zip(got, want))
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("TF32 is on after the parameter products")
+    if rel > PARAM_PRODUCTS_REL:
+        raise SystemExit(f"the parameter products disagree with f32: {rel}")
+    k, d = ops[1].shape
+    params = _ggnn_params(d, torch.Generator().manual_seed(0))
+    params = tg.GGNNParams(*(p.to(torch.bfloat16) for p in params))
+    row = {"max_rel": rel, "tol_max_rel": PARAM_PRODUCTS_REL,
+           "ms": _time_ms(lambda: tt.param_products(*ops), 10),
+           "f32_ms": _time_ms(lambda: tt.param_products_f32(*ops), 5, 1),
+           "param_grads_ms": _time_ms(lambda: tt.param_grads(
+               params, mask, res, da, r), 5, 1),
+           "flop": 12 * k * d * d}
+    row["tflops"] = row["flop"] / row["ms"] / 1e9
+    return row
 
 
 def _route_cases(enc, gen, batch):
@@ -1032,26 +1193,31 @@ def _block_resources() -> dict:
     return out
 
 
-def _folded_resources() -> dict:
+# the GEMM kinds of csrc/ggnn_gemm.cuh's kernel: K1/K2's, then K3's
+GGNN_GEMM_KINDS = ("gate", "cand", "drh", "dagg", "dh")
+
+
+def _ggnn_resources(src: str, entry: str, kernels) -> dict:
     """Registers, spills and stack frame per thread and static shared
-    memory of ``ggnn_folded.cu``'s kernels as ``nvcc -Xptxas -v`` reported
-    them, by kernel: each GEMM instantiation ``ggnn_gemm_kernel<gate|cand,
-    rows x columns>`` and the agg kernel; for each GEMM the ``setmaxnreg``
-    split and the dynamic shared memory of a block, from the library's own
-    constants.  Fails if the SASS of a GEMM instantiation holds no HGMMA
-    (``sass_hgmma``: their count, null without cuobjdump) or ptxas reports
-    spills."""
+    memory of a GGNN source's kernels (``ggnn_folded.cu``: K1/K2;
+    ``ggnn_folded_bwd.cu``: K3) as ``nvcc -Xptxas -v`` reported them, by
+    kernel: each GEMM instantiation ``ggnn_gemm_kernel<kind, rows x
+    columns>`` and the elementwise ``kernels``; for each GEMM the
+    ``setmaxnreg`` split and the dynamic shared memory of a block, from the
+    library's own constants (``<entry>_smem``, ``<entry>_maxnreg``).  Fails
+    if the SASS of a GEMM instantiation holds no HGMMA (``sass_hgmma``:
+    their count, null without cuobjdump) or ptxas reports spills."""
     from situation_recognition_tpu_torch.ops import _build
     from situation_recognition_tpu_torch.ops import ggnn_kernel as tk
 
-    src = "ggnn_folded.cu"
-    lib = tk._lib(src, "ggnn_folded_smem")
-    tk._lib(src, "ggnn_folded_maxnreg")
-    split = {"producer": lib.ggnn_folded_maxnreg(0),
-             "consumers": lib.ggnn_folded_maxnreg(1)}
+    lib = tk._lib(src, f"{entry}_smem")
+    tk._lib(src, f"{entry}_maxnreg")
+    maxnreg = getattr(lib, f"{entry}_maxnreg")
+    smem = getattr(lib, f"{entry}_smem")
+    split = {"producer": maxnreg(0), "consumers": maxnreg(1)}
     hgmma = _sass_hgmma(_build._target(src)[1])
     out = {}
-    for kern in ("ggnn_gemm_kernel", "ggnn_agg_kernel"):
+    for kern in ("ggnn_gemm_kernel",) + tuple(kernels):
         found = _build.kernel_resources(_build.build_log(src), kern)
         if not found:
             raise SystemExit(f"no -Xptxas -v report of {kern} in the build "
@@ -1059,20 +1225,19 @@ def _folded_resources() -> dict:
         for mangled, res in found.items():
             if res["spill_stores"] or res["spill_loads"]:
                 raise SystemExit(f"{mangled} spills: {res}")
-            inst = re.search(r"ggnn_gemm_kernelILi(\d+)ELi(\d+)ELi(\d+)EE",
+            inst = re.search(r"ggnn_gemm_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
                              mangled)
             if inst is None:
-                out["ggnn_agg_kernel"] = {**res, "dynamic_smem": 0}
+                out[kern] = {**res, "dynamic_smem": 0}
                 continue
             kind, bm, bn = (int(inst.group(i)) for i in (1, 2, 3))
-            name = f"ggnn_gemm_kernel<{('gate', 'cand')[kind]},{bm}x{bn}>"
+            name = f"ggnn_gemm_kernel<{GGNN_GEMM_KINDS[kind]},{bm}x{bn}>"
             count = None if hgmma is None else hgmma.get(mangled, 0)
             if count == 0:
                 raise SystemExit(f"no HGMMA in the SASS of {name}")
             out[name] = {**res, "setmaxnreg": split,
-                         "dynamic_smem": lib.ggnn_folded_smem(bm, bn),
-                         "sass_hgmma": count}
-    _log("[kernel] ggnn_folded.cu kernel resources " + json.dumps(out))
+                         "dynamic_smem": smem(bm, bn), "sass_hgmma": count}
+    _log(f"[kernel] {src} kernel resources " + json.dumps(out))
     return out
 
 
@@ -1821,6 +1986,13 @@ def main(argv=None) -> int:
     train = phase_train(enc, args.seed, BATCH)
     train_launches = _counts()
     train["card"] = smi
+    # the parameter products of the train step's two K3 launches (its noun
+    # and verb shapes), under both products, from the kernel phase
+    train["param_products"] = {row["shape"]: row["param_products"]
+                               for row in kernel["bwd_shapes"]
+                               if f" d={D} " in row["shape"]}
+    _log("[train] param_grads products " + json.dumps(
+        train["param_products"]))
     _phase("train", t)
 
     if not all(train_launches.values()):
@@ -1858,10 +2030,19 @@ def main(argv=None) -> int:
         if not sum(by_path.values()):
             raise SystemExit(f"{k} never launched on the ViT path")
 
+    t = time.perf_counter()
+    for row, host_inputs in kernel.pop("k3_inputs"):
+        _k3_split(row, host_inputs)
+    _phase("K3 by launch kind", t)
+
     vit_pallas = "vit_pallas.py"
     res = _attention_resources()
     res["vit_block.cu"] = _block_resources()
-    res["ggnn_folded.cu"] = _folded_resources()
+    res["ggnn_folded.cu"] = _ggnn_resources(
+        "ggnn_folded.cu", "ggnn_folded", ("ggnn_agg_kernel",))
+    res["ggnn_folded_bwd.cu"] = _ggnn_resources(
+        "ggnn_folded_bwd.cu", "ggnn_folded_bwd",
+        ("ggnn_bwd_agg_kernel", "ggnn_bwd_prep_kernel"))
     print(json.dumps({"kernels": [
         _kernel_line("ggnn_folded", "ggnn_folded.cu", 217,
                      kernel["shapes"] + vit_kernel["K1"],
@@ -1875,7 +2056,8 @@ def main(argv=None) -> int:
                      resources=res["ggnn_folded.cu"]),
         _kernel_line("ggnn_folded_bwd", "ggnn_folded_bwd.cu", 521,
                      kernel["bwd_shapes"], {"train": train_launches["K3"]},
-                     routes=kernel["routes"]),
+                     routes=kernel["routes"],
+                     resources=res["ggnn_folded_bwd.cu"]),
         _kernel_line("vit_qkv", "vit_block.cu", 159, [vit_kernel["K4"]],
                      vit_launches["K4"], replaces=vit_pallas,
                      resources=res["vit_block.cu"]),

@@ -55,18 +55,12 @@
 // rate and the epilogues, during which they wait, take ~20% of a launch;
 // at the verb shape each block streams its weight tiles.
 //
-// The GEMM is vit_block.cu's design: one persistent block per SM walking
-// output tiles b, b + gridDim.x, ... with the row tiles of a column tile
-// consecutive (the blocks of a wave share the weight tiles in L2); a
-// producer warpgroup whose one thread issues TMA loads of 64-deep stages
-// into a ring of 128-byte-swizzled stages with full and empty mbarriers;
-// two consumer warpgroups on wgmma from shared-memory descriptors, one
-// commit group in flight, each taking 64 rows of a 128-row tile or half
-// the columns of a 64-row tile (so that two streams of products feed the
-// tensor cores either way); setmaxnreg moves registers from the producer
-// to them.  Epilogues work on the accumulator in registers, their inputs
-// loaded before their first store (the pointers may alias, so the
-// compiler would not move a load past a store).
+// The GEMM (csrc/ggnn_gemm.cuh, shared with K3's ggnn_folded_bwd.cu) is
+// vit_block.cu's design: a persistent block per SM, a producer warpgroup
+// feeding a TMA ring of 128-byte-swizzled stages, two consumer warpgroups
+// on wgmma, setmaxnreg 40 / 232.  Epilogues work on the accumulator in
+// registers, their inputs loaded before their first store (the pointers
+// may alias, so the compiler would not move a load past a store).
 //
 // Weights (prepared once per weight change by `folded_operands` in
 // ops/ggnn_kernel.py), K-major as wgmma's B wants: W_zr (2d, d) =
@@ -93,6 +87,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ggnn_gemm.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -100,29 +95,6 @@ namespace {
 constexpr int GATE = 0, CAND = 1;
 constexpr int GROUP = 64;   // columns of h in a [z | r] group of the gate
 constexpr int AGG_THREADS = 256;
-constexpr int THREADS = 384;   // producer warpgroup + 2 consumer ones
-// registers a thread after setmaxnreg: the producer warpgroup gives up what
-// the consumers take (128 x 40 + 256 x 232 = 384 x 168, the launch bound)
-constexpr int PRODUCER_REGS = 40;
-constexpr int CONSUMER_REGS = 232;
-
-// Shared memory of ggnn_gemm_kernel<KIND, BM, BN>: 1024 bytes to align the
-// ring, the ring, and its mbarriers.  A stage holds BM rows of A and BN
-// rows of B, each 64 deep.  WN: the output columns of one consumer
-// warpgroup.
-template <int BM, int BN>
-struct Layout {
-    static constexpr int WN = BM == 128 ? BN : BN / 2;
-    static constexpr int A_BYTES = BM * BK * 2;
-    static constexpr int STAGE = A_BYTES + BN * BK * 2;
-    // a block takes at most 232,448 bytes; 16 a stage for its barriers.
-    // Up to 8 stages: at the verb shape, where each block streams its
-    // weight tiles, 8 ran 6-20% faster than 6 (PERF.md §6)
-    static constexpr int FIT = (232448 - 1024) / (STAGE + 16);
-    static constexpr int STAGES = FIT < 8 ? FIT : 8;
-    static constexpr int SMEM = 1024 + STAGES * (STAGE + 16);
-    static_assert(STAGE % 1024 == 0 && STAGES >= 4, "ring");
-};
 
 // What a step's GEMMs read and write beside their tensor maps.
 struct StepArgs {
@@ -134,30 +106,15 @@ struct StepArgs {
     bf16* res_r;
     bf16* res_c;
     int M, d;
+
+    // the gate's or the candidate's epilogue (ggnn_gemm.cuh)
+    template <int KIND, int WN>
+    __device__ void epilogue(const float (&acc)[WN / 2], int row0,
+                             int n0) const;
 };
 
 __device__ __forceinline__ float sigmoidf_(float x) {
     return 1.f / (1.f + expf(-x));
-}
-
-__device__ __forceinline__ float2 ld_f2(const float* p) {
-    return *reinterpret_cast<const float2*>(p);
-}
-
-__device__ __forceinline__ uint32_t ld_b2(const bf16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ float2 unpack(uint32_t v) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-}
-
-__device__ __forceinline__ void st_b2(bf16* p, float x, float y) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-
-__device__ __forceinline__ void st_f2(float* p, float x, float y) {
-    *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
 
 // agg = bf16(E @ h) for 8 columns of one row per thread; E's entries are
@@ -316,148 +273,16 @@ __device__ __forceinline__ void cand_epilogue(const float (&acc)[WN / 2],
     }
 }
 
-// One step's gate (KIND = GATE: A agg then h, B W_zr then U_zr) or
-// candidate (CAND: A agg then rh, B W_h then U_h) GEMM with its epilogue,
-// on tiles of BM rows by BN output columns: the K loop takes d / 64 stages
-// from the first pair of maps (ta0, tb0), then d / 64 from the second
-// (ta1, tb1).
-template <int KIND, int BM, int BN>
-__global__ void __launch_bounds__(THREADS, 1)
-ggnn_gemm_kernel(const __grid_constant__ CUtensorMap ta0,
-                 const __grid_constant__ CUtensorMap tb0,
-                 const __grid_constant__ CUtensorMap ta1,
-                 const __grid_constant__ CUtensorMap tb1, StepArgs ep) {
-    using L = Layout<BM, BN>;
-    constexpr int WN = L::WN, STAGE = L::STAGE, STAGES = L::STAGES;
-    extern __shared__ uint8_t smem_raw[];
-    // the 128-byte swizzle repeats every 1024 bytes of shared address
-    const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
-    const uint32_t full = ring + STAGES * STAGE, empty = full + 8 * STAGES;
-    const int wg = threadIdx.x >> 7;
-    const int half = ep.d / BK;   // depth steps of each pair of maps
-    const int m_tiles = (ep.M + BM - 1) / BM;
-    // output columns: z and r of every column of h, or c
-    const int tiles = m_tiles * ((KIND == GATE ? 2 : 1) * ep.d / BN);
-
-    if (threadIdx.x == 0) {
-        for (int s = 0; s < STAGES; ++s) {
-            mbar_init(full + 8 * s, 1);
-            mbar_init(empty + 8 * s, 8);
-        }
-        fence_mbar_init();
-    }
-    __syncthreads();
-
-    if (wg == 0) {
-        setmaxnreg_dec<PRODUCER_REGS>();
-        if (threadIdx.x == 0) {
-            int it = 0;   // depth steps loaded so far, over all tiles
-            for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-                const int m0 = (t % m_tiles) * BM, n0 = (t / m_tiles) * BN;
-                for (int kt = 0; kt < 2 * half; ++kt, ++it) {
-                    const int s = it % STAGES;
-                    if (it >= STAGES)
-                        mbar_wait(empty + 8 * s, ((it / STAGES) - 1) & 1);
-                    const uint32_t a = ring + s * STAGE, bar = full + 8 * s;
-                    const bool first = kt < half;
-                    const int k = (first ? kt : kt - half) * BK;
-                    mbar_expect_tx(bar, STAGE);
-                    tma_load(a, first ? &ta0 : &ta1, k, m0, bar);
-                    tma_load(a + L::A_BYTES, first ? &tb0 : &tb1, k, n0, bar);
-                }
-            }
-        }
-    } else {
-        setmaxnreg_inc<CONSUMER_REGS>();
-        // consumer c takes rows 64c .. 64c + 63 of a 128-row tile, or
-        // columns WN c .. WN c + WN - 1 of a 64-row tile
-        const int c = wg - 1;
-        const int a_off = BM == 128 ? c * 64 * BK * 2 : 0;
-        const int b_off = BM == 128 ? 0 : c * WN * BK * 2;
-        const int w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-        int it = 0;
-        for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-            const int m0 = (t % m_tiles) * BM, n = t / m_tiles;
-            float acc[WN / 2];
-#pragma unroll
-            for (int i = 0; i < WN / 2; ++i) acc[i] = 0.f;
-            fence_acc(acc);
-            for (int kt = 0; kt < 2 * half; ++kt, ++it) {
-                const int s = it % STAGES;
-                mbar_wait(full + 8 * s, (it / STAGES) & 1);
-                const uint32_t a = ring + s * STAGE + a_off;
-                const uint32_t b = ring + s * STAGE + L::A_BYTES + b_off;
-                wgmma_fence();
-#pragma unroll
-                for (int k = 0; k < BK / 16; ++k)
-                    wgmma<WN>(acc, sw128_desc(a + 32 * k),
-                              sw128_desc(b + 32 * k));
-                wgmma_commit();
-                fence_acc(acc);
-                wgmma_wait<1>();
-                // the stage before is read: hand it back to the producer
-                if (kt > 0 && lane == 0)
-                    mbar_arrive(empty + 8 * ((it - 1) % STAGES));
-            }
-            wgmma_wait<0>();
-            fence_acc(acc);
-            if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
-            const int row0 = m0 + (BM == 128 ? 64 * c : 0) + 16 * w
-                             + (lane >> 2);
-            const int n0 = n * BN + (BM == 128 ? 0 : c * WN);
-            if constexpr (KIND == GATE)
-                gate_epilogue<WN>(acc, ep, row0, n0);
-            else
-                cand_epilogue<WN>(acc, ep, row0, n0);
-        }
-    }
+template <int KIND, int WN>
+__device__ __forceinline__ void StepArgs::epilogue(
+    const float (&acc)[WN / 2], int row0, int n0) const {
+    if constexpr (KIND == GATE)
+        gate_epilogue<WN>(acc, *this, row0, n0);
+    else
+        cand_epilogue<WN>(acc, *this, row0, n0);
 }
 
 // ----------------------------------------------------------------- host
-
-template <int KIND, int BM, int BN>
-int launch_gemm(const CUtensorMap& ta0, const CUtensorMap& tb0,
-                const CUtensorMap& ta1, const CUtensorMap& tb1,
-                const StepArgs& ep, cudaStream_t s) {
-    using L = Layout<BM, BN>;
-    const long long tiles = (long long)((ep.M + BM - 1) / BM)
-                            * ((KIND == GATE ? 2 : 1) * ep.d / BN);
-    const int sms = sm_count();
-    if (sms < 1 || tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    // once per instantiation: the ring is above the 48 KB default
-    static bool sized = false;
-    if (!sized) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            ggnn_gemm_kernel<KIND, BM, BN>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
-        if (e != cudaSuccess) return (int)e;
-        sized = true;
-    }
-    ggnn_gemm_kernel<KIND, BM, BN>
-        <<<(int)(tiles < sms ? tiles : sms), THREADS, L::SMEM, s>>>(
-            ta0, tb0, ta1, tb1, ep);
-    return (int)cudaGetLastError();
-}
-
-// the GEMM of KIND on tiles of bm x bn (a valid plan: see bad_plan)
-template <int KIND>
-int launch(int bm, int bn, const CUtensorMap& ta0, const CUtensorMap& tb0,
-           const CUtensorMap& ta1, const CUtensorMap& tb1,
-           const StepArgs& ep, cudaStream_t s) {
-#define GGNN_LAUNCH(BM, BN)                                                \
-    if (bm == BM && bn == BN)                                              \
-        return launch_gemm<KIND, BM, BN>(ta0, tb0, ta1, tb1, ep, s);
-    GGNN_LAUNCH(128, 256)
-    GGNN_LAUNCH(128, 128)
-    GGNN_LAUNCH(64, 256)
-    GGNN_LAUNCH(64, 128)
-    if constexpr (KIND == CAND) {
-        GGNN_LAUNCH(128, 64)
-        GGNN_LAUNCH(64, 64)
-    }
-#undef GGNN_LAUNCH
-    return (int)cudaErrorInvalidValue;
-}
 
 // tiles the kernels take: rows 64 or 128; gate columns 128 or 256 dividing
 // 2d, candidate columns 64, 128 or 256 dividing d
@@ -497,6 +322,10 @@ int run_steps(bf16* h, const float* mask, const bf16* w_zr,
     const int agg_blocks =
         (int)((agg_threads + AGG_THREADS - 1) / AGG_THREADS);
     StepArgs ep = {h, ba, z, rh, nullptr, nullptr, nullptr, M, d};
+    // K = 2d over the two pairs of maps; the gate's outputs are z and r of
+    // every column of h
+    const GemmShape gate = {M, 2 * d, d / BK, d / BK};
+    const GemmShape cand = {M, d, d / BK, d / BK};
     for (int t = 0; t < steps; ++t) {
         const size_t off = (size_t)t * plane;
         if (res != nullptr) {
@@ -508,9 +337,11 @@ int run_steps(bf16* h, const float* mask, const bf16* w_zr,
             h, mask, agg, res != nullptr ? res[0] + off : nullptr, M, d, r);
         int e = (int)cudaGetLastError();
         if (e) return e;
-        e = launch<GATE>(gate_bm, gate_bn, g_agg, g_w, g_h, g_u, ep, s);
+        e = launch_tiles<GATE, false>(gate_bm, gate_bn, g_agg, g_w, g_h,
+                                      g_u, gate, ep, s);
         if (e) return e;
-        e = launch<CAND>(cand_bm, cand_bn, c_agg, c_w, c_rh, c_u, ep, s);
+        e = launch_tiles<CAND, true>(cand_bm, cand_bn, c_agg, c_w, c_rh,
+                                     c_u, cand, ep, s);
         if (e) return e;
     }
     return 0;
@@ -565,20 +396,7 @@ int ggnn_folded_forward_res(void* h, const void* mask, const void* w_zr,
 
 // bytes of dynamic shared memory a block of ggnn_gemm_kernel takes on
 // tiles of bm (64 or 128) x bn (64, 128 or 256) rows; 0 for any other
-int ggnn_folded_smem(int bm, int bn) {
-    if (bm != 64 && bm != 128) return 0;
-    const bool two = bm == 128;
-    switch (bn) {
-        case 256:
-            return two ? Layout<128, 256>::SMEM : Layout<64, 256>::SMEM;
-        case 128:
-            return two ? Layout<128, 128>::SMEM : Layout<64, 128>::SMEM;
-        case 64:
-            return two ? Layout<128, 64>::SMEM : Layout<64, 64>::SMEM;
-        default:
-            return 0;
-    }
-}
+int ggnn_folded_smem(int bm, int bn) { return gemm_smem(bm, bn); }
 
 // registers a thread of the consumer (consumer != 0) or producer warpgroup
 // holds after setmaxnreg, in every GEMM instantiation

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by this package's wgmma + TMA
-// kernels (vit_block.cu, ggnn_folded.cu): mbarriers, TMA loads and stores
+// kernels (vit_block.cu, ggnn_folded.cu, ggnn_folded_bwd.cu and their
+// GEMM in ggnn_gemm.cuh): mbarriers, TMA loads and stores
 // of 2-D tiles in the 128-byte swizzle, wgmma from shared-memory
 // descriptors, and the host side of the tensor maps.
 //
@@ -283,15 +284,17 @@ EncodeTiled encoder() {
     return fn;
 }
 
-// the tensor map of a (rows, K) bf16 row-major matrix read in boxes of BK
-// columns by box_rows rows, 128-byte swizzled, zero past the edges
+// the tensor map of a (rows, K) bf16 row-major matrix, rows ld elements
+// apart (K when ld is 0), read in boxes of BK columns by box_rows rows,
+// 128-byte swizzled, zero past the edges
 bool tensor_map(CUtensorMap* map, const void* base, int rows, int K,
-                int box_rows) {
+                int box_rows, int ld = 0) {
     const EncodeTiled enc = encoder();
     if (enc == nullptr) return false;
     const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
                                 static_cast<cuuint64_t>(rows)};
-    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * sizeof(bf16)};
+    const cuuint64_t strides[1] = {
+        static_cast<cuuint64_t>(ld ? ld : K) * sizeof(bf16)};
     const cuuint32_t box[2] = {static_cast<cuuint32_t>(BK),
                                static_cast<cuuint32_t>(box_rows)};
     const cuuint32_t elem[2] = {1, 1};

@@ -31,7 +31,9 @@ gates in f32 and h kept in bf16 between steps — the TPU kernel's numerics.
   There is no fallback.  Each wrapper's ``launches`` counts its launches.
 * ``folded_operands`` — K1/K2's weights in the layout their GEMMs read
   (``kernel_weights``), kept until the folded weights are written in
-  place or freed; ``tile_plan`` — their tiles for (M, d).
+  place or freed; ``tile_plan`` — their tiles for (M, d); ``bwd_tile_plan``
+  — K3's.  K3 reads the folded weights as ``fold_gate_weights`` returns
+  them.
 * ``ggnn_propagate_folded`` — the (B, R, D) entry, flattening the batch
   into rows of whole examples as ``_propagate_fwd_impl`` does.
 """
@@ -52,9 +54,6 @@ from situation_recognition_tpu_torch.ops.ggnn import GGNNParams
 D_MULTIPLE = 64
 #: streaming multiprocessors of an H100 SXM, for plans made without a card
 H100_SMS = 132
-#: the backward kernel's row tiles hold whole examples of at most this
-#: many rows
-BWD_MAX_R = 64
 
 
 def fold_gate_weights(params: GGNNParams, bias_mult: float,
@@ -136,13 +135,6 @@ def folded_reference_res(h: torch.Tensor, mask_rows: torch.Tensor, weights,
     return out, tuple(torch.stack(x) for x in zip(*keep))
 
 
-def transpose_folded(weights):
-    """``fold_gate_weights`` output → the backward's operands
-    ``(waᵀ (3d, d), uzrᵀ (2d, d), uhᵀ (d, d))``, contiguous."""
-    wa, uzr, uh, _ = weights
-    return (wa.t().contiguous(), uzr.t().contiguous(), uh.t().contiguous())
-
-
 def kernel_weights(weights):
     """``fold_gate_weights`` output → the B operands of K1/K2's GEMMs, each
     K-major (output features by input features), contiguous:
@@ -199,6 +191,20 @@ def folded_operands(weights):
     return prepared
 
 
+def gemm_smem(bm: int, bn: int) -> int:
+    """Dynamic shared memory of a block of the GGNN kernels' GEMM on bm ×
+    bn tiles, as ``csrc/ggnn_gemm.cuh``'s ``Layout`` lays it out: 1024
+    bytes to align the ring, then up to 8 stages of (bm + bn) rows of 64
+    bf16 and a 16-byte pair of barriers each, within a block's 232,448
+    bytes.  Raises for a tile that leaves the ring fewer than 4 stages,
+    which the GEMM does not compile."""
+    stage = (bm + bn) * 64 * 2
+    stages = min(8, (232448 - 1024) // (stage + 16))
+    if stages < 4:
+        raise ValueError(f"a {bm}x{bn} tile leaves {stages} ring stages")
+    return 1024 + stages * (stage + 16)
+
+
 class TilePlan(NamedTuple):
     """Tiles of one step's GEMMs, rows by output columns: the gate's
     (``gate_bn`` / 128 groups of z and r of 64 columns each) and the
@@ -235,15 +241,36 @@ def tile_plan(m: int, d: int, sms: int = H100_SMS) -> TilePlan:
                     *_best_tile(m, d, (256, 128, 64), sms))
 
 
+class BwdTilePlan(NamedTuple):
+    """Tiles of K3's three GEMMs of a reverse step, rows by output columns
+    of d: drh (K = d), dagg (K = 3d) and the ``da[:, :2d] @ Uzrᵀ`` term
+    (K = 2d)."""
+    drh_bm: int
+    drh_bn: int
+    dagg_bm: int
+    dagg_bn: int
+    dh_bm: int
+    dh_bn: int
+
+
+def bwd_tile_plan(m: int, d: int, sms: int = H100_SMS) -> BwdTilePlan:
+    """The tiles of K3's GEMMs for M rows of width d on a card of ``sms``
+    SMs: for each, the tile of its (M, d) output of least
+    ``_rounds_cost`` (clocks per 64-deep stage), ties to the larger tile;
+    rows 128 or 64, columns 256, 128 or 64.  Their K (d, 3d, 2d) scales
+    every tile's cost alike, so the three take the same tile."""
+    return BwdTilePlan(*_best_tile(m, d, (256, 128, 64), sms) * 3)
+
+
 def folded_bwd_reference(g: torch.Tensor, mask_rows: torch.Tensor, resids,
-                         weights_t, r: int, steps: int):
+                         weights, r: int, steps: int):
     """Plain PyTorch twin of K3.  g (M, d) bf16, the cotangent of the
-    output; ``resids`` from K2; ``weights_t`` from ``transpose_folded``.
+    output; ``resids`` from K2; ``weights`` from ``fold_gate_weights``.
     Returns (dh (M, d) bf16, da (steps, M, 3d) bf16): the reverse gate
     chain in f32, dh kept in f32 between steps, bf16(da) fed to the
     products, and dagg rounded to bf16 before E."""
     hs, zs, rs, cs = resids
-    wa_t, uzr_t, uh_t = (w.float() for w in weights_t)
+    wa_t, uzr_t, uh_t = (w.float().t() for w in weights[:3])
     m, d = g.shape
     e = block_adjacency(mask_rows, r)
     dh = g.float()
@@ -312,9 +339,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "ggnn_folded_forward": [_P] * 10 + [_I] * 8 + [_P],
     "ggnn_folded_forward_res": [_P] * 14 + [_I] * 8 + [_P],
-    "ggnn_folded_backward": [_P] * 12 + [_I] * 4 + [_P],
+    "ggnn_folded_backward": [_P] * 14 + [_I] * 10 + [_P],
     "ggnn_folded_smem": [_I] * 2,
     "ggnn_folded_maxnreg": [_I],
+    "ggnn_folded_bwd_smem": [_I] * 2,
+    "ggnn_folded_bwd_maxnreg": [_I],
 }
 
 
@@ -386,33 +415,36 @@ def _launch_res(h, mask_rows, weights, r: int, steps: int, plan=None):
     return out, res
 
 
-def _launch_bwd(g, mask_rows, resids, weights_t, r: int, steps: int):
+def _launch_bwd(g, mask_rows, resids, weights, r: int, steps: int,
+                plan=None):
+    """K3 on the card; ``plan``: a ``BwdTilePlan`` in place of
+    ``bwd_tile_plan``'s."""
     m, d = _check_rows(g, mask_rows, r)
-    if r > BWD_MAX_R:
-        raise ValueError(f"the GGNN backward kernel takes r <= {BWD_MAX_R}, "
-                         f"got r={r}")
-    wa_t, uzr_t, uh_t = weights_t
-    bf = torch.bfloat16
-    want = {"g": (g, (m, d), bf), "mask": (mask_rows, (m,), torch.float32),
-            "wa_t": (wa_t, (3 * d, d), bf), "uzr_t": (uzr_t, (2 * d, d), bf),
-            "uh_t": (uh_t, (d, d), bf)}
+    wa, uzr, uh = weights[:3]
+    bf, f32 = torch.bfloat16, torch.float32
+    want = {"g": (g, (m, d), bf), "mask": (mask_rows, (m,), f32),
+            "wa": (wa, (d, 3 * d), bf), "uzr": (uzr, (d, 2 * d), bf),
+            "uh": (uh, (d, d), bf)}
     for name, x in zip(("hs", "zs", "rs", "cs"), resids):
         want[name] = (x, (steps, m, d), bf)
     _check_tensors(g.device, want)
     if steps == 0:
         return g.clone(), g.new_empty((0, m, 3 * d))
-    dh = g.float()
-    dprev = torch.empty_like(dh)
-    da = torch.empty((steps, m, 3 * d), dtype=torch.bfloat16,
-                     device=g.device)
+    if plan is None:
+        sms = torch.cuda.get_device_properties(g.device).multi_processor_count
+        plan = bwd_tile_plan(m, d, sms)
+    scratch = [torch.empty((m, d), dtype=f32, device=g.device),
+               torch.empty((m, d), dtype=f32, device=g.device),
+               torch.empty((m, d), dtype=bf, device=g.device)]
+    da = torch.empty((steps, m, 3 * d), dtype=bf, device=g.device)
     out = torch.empty_like(g)
     lib = _lib("ggnn_folded_bwd.cu", "ggnn_folded_backward")
     with torch.cuda.device(g.device):
         rc = lib.ggnn_folded_backward(
-            dh.data_ptr(), mask_rows.data_ptr(),
-            *(x.data_ptr() for x in resids), wa_t.data_ptr(),
-            uzr_t.data_ptr(), uh_t.data_ptr(), dprev.data_ptr(),
-            da.data_ptr(), out.data_ptr(), m, d, r, steps, _stream(g))
+            g.data_ptr(), mask_rows.data_ptr(),
+            *(x.data_ptr() for x in resids), wa.data_ptr(), uzr.data_ptr(),
+            uh.data_ptr(), *(t.data_ptr() for t in scratch), da.data_ptr(),
+            out.data_ptr(), m, d, r, steps, *plan, _stream(g))
     if rc != 0:
         raise RuntimeError(f"ggnn_folded_backward failed to launch: CUDA "
                            f"error {rc}")
@@ -452,16 +484,15 @@ folded_rows_res.launches = 0
 
 
 def folded_bwd_rows(g: torch.Tensor, mask_rows: torch.Tensor, resids,
-                    weights_t, r: int, steps: int):
+                    weights, r: int, steps: int):
     """K3: the cotangent g (M, d) bf16 of K2's output → (dh (M, d) bf16,
-    da (steps, M, 3d) bf16), from K2's residuals and ``transpose_folded``
-    weights.  CPU tensors run the plain twin; CUDA tensors launch the
-    kernel or raise."""
+    da (steps, M, 3d) bf16), from K2's residuals and the folded weights
+    (``fold_gate_weights``; the bias is not read).  CPU tensors run the
+    plain twin; CUDA tensors launch the kernel or raise."""
     if g.device.type == "cpu":
-        return folded_bwd_reference(g, mask_rows, resids, weights_t, r,
-                                    steps)
+        return folded_bwd_reference(g, mask_rows, resids, weights, r, steps)
     if g.device.type == "cuda":
-        return _launch_bwd(g, mask_rows, resids, weights_t, r, steps)
+        return _launch_bwd(g, mask_rows, resids, weights, r, steps)
     raise ValueError(f"no GGNN kernel for device {g.device}")
 
 

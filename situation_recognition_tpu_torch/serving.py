@@ -158,8 +158,15 @@ def load_inference(path: str, device=None, ggnn_impl: str = "auto",
     model.head.load_state_dict(state["head"], strict=True)
     model.eval().to(dev)
     if model.backbone_has_bn:
-        # a ResNet runs in the compute type, channels-last (cuDNN's layout)
-        model.backbone.to(dtype=dtype, memory_format=torch.channels_last)
+        # a ResNet's convolutions run in the compute type and its
+        # BatchNorm parameters and statistics stay f32, as the JAX serving
+        # keeps every 1-D leaf and as Trainer casts; channels-last on the
+        # card (cuDNN's layout)
+        for m in model.backbone.modules():
+            if isinstance(m, nn.Conv2d):
+                m.to(dtype=dtype)
+        if dev.type == "cuda":
+            model.backbone.to(memory_format=torch.channels_last)
     else:
         # a ViT block_impl that cannot run raises here, not at a request
         model.backbone.resolved_impl(dev)

@@ -2,6 +2,8 @@
 ``-Xptxas -v`` reported for each kernel (registers, spills, shared memory),
 read back from the build log kept beside a library."""
 
+import os
+
 import pytest
 
 from situation_recognition_tpu_torch.ops import _build
@@ -83,3 +85,20 @@ def test_the_gemm_sources_share_the_hopper_header():
         vit = f.read()
     assert '#include "hopper.cuh"' in ggnn and '#include "hopper.cuh"' in vit
     assert "mma_async.sync" not in ggnn + vit
+
+
+def test_the_ggnn_sources_share_one_gemm():
+    """K1/K2 and K3 run their products on one wgmma GEMM, from the header
+    that both include (and that their libraries' names cover), each with
+    its own epilogues; neither source has a GEMM kernel of its own."""
+    texts = []
+    for src in ("ggnn_folded.cu", "ggnn_folded_bwd.cu"):
+        with open(_build._target(src)[0]) as f:
+            texts.append(f.read())
+    with open(os.path.join(_build._CSRC, "ggnn_gemm.cuh")) as f:
+        gemm = f.read()
+    assert "ggnn_gemm_kernel(" in gemm and "wgmma<" in gemm
+    for text in texts:
+        assert '#include "ggnn_gemm.cuh"' in text
+        assert "ggnn_gemm_kernel(" not in text and "wgmma<" not in text
+        assert "template <int KIND, int WN>" in text   # its epilogues

@@ -215,9 +215,8 @@ def test_backward_pair_matches_twins(cuda_device, b, r, d, verb):
         assert (got.float() - want.float()).abs().max().item() <= KERNEL_ATOL
     g = torch.randn(h.shape, generator=torch.Generator().manual_seed(b)).to(
         torch.bfloat16).to(cuda_device)
-    wt = tk.transpose_folded(weights)
-    dh, da = tk.folded_bwd_rows(g, mask, res, wt, r, 4)
-    want_dh, want_da = tk.folded_bwd_reference(g, mask, res, wt, r, 4)
+    dh, da = tk.folded_bwd_rows(g, mask, res, weights, r, 4)
+    want_dh, want_da = tk.folded_bwd_reference(g, mask, res, weights, r, 4)
     torch.cuda.synchronize()
     assert (tk.folded_rows_res.launches,
             tk.folded_bwd_rows.launches) == (before[0] + 1, before[1] + 1)
@@ -225,6 +224,183 @@ def test_backward_pair_matches_twins(cuda_device, b, r, d, verb):
         scale = want.float().abs().max().item()
         err = (got.float() - want.float()).abs().max().item()
         assert err <= BWD_REL_ATOL * scale, (err, scale)
+
+
+# and the mean error, relative to the same scale: a wrong tile or fragment
+# gives errors of the order of the largest element over whole tiles
+BWD_REL_MEAN = 2 ** -10
+
+
+def _check_bwd(weights, h, mask, r, plan=None, seed=0):
+    """K3 (``plan``: its tiles, else ``bwd_tile_plan``'s) on K2's residuals
+    against the twin on the same residuals: dh and da within BWD_REL_ATOL
+    (max) and BWD_REL_MEAN (mean) of the twin's largest element."""
+    _, res = tk._launch_res(h, mask, weights, r, 4)
+    g = torch.randn(h.shape, generator=torch.Generator().manual_seed(seed))
+    g = g.to(torch.bfloat16).to(h.device)
+    got = tk._launch_bwd(g, mask, res, weights, r, 4, plan)
+    want = tk.folded_bwd_reference(g, mask, res, weights, r, 4)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("dh", "da"), got, want):
+        assert a.shape == w.shape and a.dtype == torch.bfloat16, name
+        scale = w.float().abs().max().item()
+        diff = (a.float() - w.float()).abs()
+        assert diff.max().item() <= BWD_REL_ATOL * scale, (name, diff.max())
+        assert diff.mean().item() <= BWD_REL_MEAN * scale, (name,
+                                                            diff.mean())
+
+
+@pytest.mark.parametrize("d", (64, 192, 1024, 2048))
+@pytest.mark.parametrize("b,r,verb", FOLDED_EDGE_CASES)
+def test_folded_backward_tile_edges(cuda_device, b, r, verb, d):
+    """K3 at K1/K2's tile edges: examples of r=6 and single rows around
+    the 64- and 128-row tiles, widths of one, three, 16 and 32 column
+    tiles of 64, ragged masks and mask 0 (E = I)."""
+    weights, h, mask = _card_case(b, r, d, b * r + d + 3, cuda_device, verb)
+    _check_bwd(weights, h, mask, r, seed=b + d)
+
+
+@pytest.mark.parametrize("plan", [
+    tk.BwdTilePlan(bm, bn, bm, bn, bm, bn) for bm in (128, 64)
+    for bn in (256, 128, 64)] + [tk.BwdTilePlan(64, 64, 128, 256, 64, 128),
+                                 tk.BwdTilePlan(128, 128, 64, 256, 128, 64)],
+    ids=lambda p: "-".join(map(str, p)))
+def test_folded_backward_every_tile_plan(cuda_device, plan):
+    """Every instantiation of K3's three GEMMs, whichever
+    ``bwd_tile_plan`` would pick, and plans that give the three GEMMs
+    different tiles: 258 rows (a partial last tile of 64 and of 128 rows),
+    d = 512."""
+    weights, h, mask = _card_case(43, 6, 512, 9, cuda_device)
+    _check_bwd(weights, h, mask, 6, plan, seed=9)
+
+
+def test_folded_backward_is_deterministic(cuda_device):
+    """Two launches of K3 on the same inputs are bit-equal: each output
+    element is summed by one warpgroup in a fixed order."""
+    weights, h, mask = _card_case(43, 6, 1024, 10, cuda_device)
+    _, res = tk.folded_rows_res(h, mask, weights, 6, 4)
+    g = torch.randn(h.shape, generator=torch.Generator().manual_seed(10))
+    g = g.to(torch.bfloat16).to(cuda_device)
+    first = tk.folded_bwd_rows(g, mask, res, weights, 6, 4)
+    second = tk.folded_bwd_rows(g, mask, res, weights, 6, 4)
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+def test_folded_backward_refuses_misaligned_operands(cuda_device):
+    """g, a residual stack or a folded weight that TMA cannot read (one
+    element into a buffer; transposed) is refused with ValueError before
+    any launch; so is a transposed weight of the right shape's
+    transpose."""
+    m, d = 66, 128
+    weights, h, mask = _card_case(11, 6, d, 11, cuda_device)
+    _, res = tk.folded_rows_res(h, mask, weights, 6, 4)
+    g = h.clone()
+    buf = torch.zeros(m * d + 8, dtype=torch.bfloat16, device=cuda_device)
+    shifted = buf[1:1 + m * d].view(m, d)
+    rbuf = torch.zeros(4 * m * d + 8, dtype=torch.bfloat16,
+                       device=cuda_device)
+    bad_res = (rbuf[1:1 + 4 * m * d].view(4, m, d),) + tuple(res[1:])
+    wbuf = torch.zeros(3 * d * d + 8, dtype=torch.bfloat16,
+                       device=cuda_device)
+    bad_wa = [wbuf[1:1 + 3 * d * d].view(d, 3 * d)] + list(weights[1:])
+    bad_uh = list(weights[:2]) + [weights[2].t()] + [weights[3]]
+    before = tk.folded_bwd_rows.launches
+    for args in ((shifted, res, weights), (g, bad_res, weights),
+                 (g, res, bad_wa), (g, res, bad_uh)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tk.folded_bwd_rows(args[0], mask, args[1], args[2], 6, 4)
+    with pytest.raises(ValueError, match="must be"):
+        tk.folded_bwd_rows(g, mask, res, [weights[0].t().contiguous()]
+                           + list(weights[1:]), 6, 4)
+    torch.cuda.synchronize()
+    assert tk.folded_bwd_rows.launches == before
+
+
+def test_folded_backward_ring_fits_shared_memory(cuda_device):
+    """The library's shared memory per GEMM tile is the ring that
+    ``gemm_smem`` describes to the host and fits a block; its setmaxnreg
+    split is K1/K2's."""
+    lib = tk._lib("ggnn_folded_bwd.cu", "ggnn_folded_bwd_smem")
+    tk._lib("ggnn_folded_bwd.cu", "ggnn_folded_bwd_maxnreg")
+    for bm in (64, 128):
+        for bn in (64, 128, 256):
+            assert lib.ggnn_folded_bwd_smem(bm, bn) == tk.gemm_smem(bm, bn)
+    assert lib.ggnn_folded_bwd_smem(32, 64) == 0
+    assert (lib.ggnn_folded_bwd_maxnreg(0),
+            lib.ggnn_folded_bwd_maxnreg(1)) == (40, 232)
+
+
+@pytest.mark.parametrize("b,r,d,verb", [(43, 6, 1024, False),
+                                        (256, 1, 2048, True)])
+def test_param_products_on_the_card_match_f32(cuda_device, b, r, d, verb):
+    """The route's parameter products on the tensor cores (bf16 operands,
+    f32 accumulation and output) against f32 products of f32 copies: the
+    same exact products summed in another order, within 1e-4 of each
+    tensor's largest element; TF32 stays off."""
+    from situation_recognition_tpu_torch.ops import ggnn_train as tt
+
+    weights, h, mask = _card_case(b, r, d, b + d + 12, cuda_device, verb)
+    _, res = tk.folded_rows_res(h, mask, weights, r, 4)
+    g = torch.randn(h.shape, generator=torch.Generator().manual_seed(12))
+    _, da = tk.folded_bwd_rows(g.to(torch.bfloat16).to(cuda_device), mask,
+                               res, weights, r, 4)
+    ops = tt.param_operands(mask, res, da, r)
+    assert all(x.dtype == torch.bfloat16 for x in ops)
+    got = tt.param_products(*ops)
+    want = tt.param_products_f32(*ops)
+    torch.cuda.synchronize()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    for name, a, w in zip(("dWa", "dUzr", "dUh"), got, want):
+        assert a.dtype == torch.float32 and a.shape == w.shape, name
+        scale = w.abs().max().item()
+        assert (a - w).abs().max().item() <= 1e-4 * scale, name
+
+
+def test_served_resnet_keeps_batchnorm_in_f32_on_the_card(cuda_device,
+                                                          tmp_path):
+    """A bf16 ResNet artifact served on the card keeps its BatchNorm in
+    f32 and matches the frozen Trainer's eval features on the same weights
+    and images (both bf16 convolutions, f32 BN, channels-last; cuDNN may
+    choose other algorithms for the two, so within 2^-6 of the largest
+    feature)."""
+    from situation_recognition_tpu_torch.data.encoder import ImsituEncoder
+    from situation_recognition_tpu_torch.serving import (
+        SituationModel, export_inference, load_inference)
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+
+    enc = ImsituEncoder.synthetic_full(0)
+    model = SituationModel(enc, backbone="mini", hidden=128,
+                           dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(3)
+    model.backbone.reset_parameters(gen)
+    model.head.reset_parameters(gen)
+    rng = np.random.default_rng(3)
+    with torch.no_grad():
+        for bn in model.backbone.modules():
+            if isinstance(bn, torch.nn.BatchNorm2d):
+                c = bn.num_features
+                bn.running_mean.copy_(torch.from_numpy(rng.normal(0, 3, c)))
+                bn.weight.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, c)))
+    path = str(tmp_path / "art")
+    export_inference(model, path, batch_size=2)
+    fn = load_inference(path)
+    bns = [m for m in fn.model.backbone.modules()
+           if isinstance(m, torch.nn.BatchNorm2d)]
+    assert bns and all(t.dtype == torch.float32 for bn in bns for t in (
+        bn.weight, bn.bias, bn.running_mean, bn.running_var))
+    state = torch.load(f"{path}/weights.pt", weights_only=True)
+    trainer = Trainer(enc, TrainerConfig(
+        hidden=128, batch_size=2, backbone="mini",
+        compute_dtype=torch.bfloat16), backbone_state=state["backbone"],
+        head_state=state["head"])
+    images = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (2, 256, 256, 3), dtype=np.uint8)).to(cuda_device)
+    want = trainer._features(images, None, False)
+    with torch.inference_mode():
+        got = fn.model.features(images)
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 2 ** -6 * scale
 
 
 def test_train_step_on_the_card_launches_the_kernels(cuda_device,

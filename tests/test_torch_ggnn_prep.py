@@ -139,3 +139,24 @@ def test_tile_plan_takes_every_width_the_kernels_take():
             p = tk.tile_plan(m, d)
             assert p.gate_bm in (64, 128) and p.cand_bm in (64, 128)
             assert (2 * d) % p.gate_bn == 0 and d % p.cand_bn == 0
+
+
+# the shapes of the paths (ResNet noun, verb, a ragged last batch, the ViT
+# head's noun and verb) with the tile the rule gives on 132 SMs, and edges
+@pytest.mark.parametrize("m,d,tile", [
+    (1536, 2048, (128, 256)), (256, 2048, (64, 64)), (42, 2048, (64, 64)),
+    (1536, 1024, (128, 128)), (256, 1024, (64, 64)), (6, 64, (64, 64)),
+    (258, 192, None), (1, 128, None)])
+def test_bwd_tile_plan_divides_fits_and_costs_least(m, d, tile):
+    plan = tk.bwd_tile_plan(m, d)
+    tiles = list(zip(plan[::2], plan[1::2]))
+    if tile is not None:
+        assert tiles == [tile] * 3
+    for bm, bn in tiles:
+        assert bm in (64, 128) and bn in (64, 128, 256) and d % bn == 0
+        assert tk.gemm_smem(bm, bn) <= 232448
+        cost = tk._rounds_cost(m, d, bm, bn, tk.H100_SMS)
+        assert all(cost <= tk._rounds_cost(m, d, obm, obn, tk.H100_SMS)
+                   for obm in (64, 128) for obn in (64, 128, 256)
+                   if d % obn == 0)
+        assert (_walk(m, d, bm, bn) == 1).all()

@@ -117,8 +117,8 @@ def test_k3_twin_matches_pallas_interpret(b, r):
         torch.bfloat16) for x in jres)
     weights = tk.fold_gate_weights(tpar, float(r))
     got_dh, got_da = tk.folded_bwd_reference(
-        _bf16_rows(g, d), torch.from_numpy(mask_rows), tres,
-        tk.transpose_folded(weights), r, steps)
+        _bf16_rows(g, d), torch.from_numpy(mask_rows), tres, weights, r,
+        steps)
     assert got_dh.dtype == torch.bfloat16 and got_dh.shape == (m, d)
     assert got_da.dtype == torch.bfloat16 and got_da.shape == (
         steps, m, 3 * d)
@@ -203,10 +203,10 @@ def test_wrappers_take_cpu_twins_and_count_no_launch():
                                                steps)
     assert torch.equal(out, ref_out)
     assert all(torch.equal(a, b_) for a, b_ in zip(res, ref_res))
-    wt = tk.transpose_folded(weights)
-    dh, da = tk.folded_bwd_rows(_bf16_rows(g, d), mrows, res, wt, r, steps)
-    rdh, rda = tk.folded_bwd_reference(_bf16_rows(g, d), mrows, res, wt, r,
-                                       steps)
+    dh, da = tk.folded_bwd_rows(_bf16_rows(g, d), mrows, res, weights, r,
+                                steps)
+    rdh, rda = tk.folded_bwd_reference(_bf16_rows(g, d), mrows, res,
+                                       weights, r, steps)
     assert torch.equal(dh, rdh) and torch.equal(da, rda)
     assert (tk.folded_rows_res.launches,
             tk.folded_bwd_rows.launches) == before

@@ -189,3 +189,56 @@ def test_http_handler_predicts(artifact):
         assert logic.get("/healthz")[0] == 200
     finally:
         batcher.close()
+
+
+def test_served_bf16_resnet_keeps_batchnorm_in_f32(tmp_path):
+    """A bf16 ResNet artifact runs its convolutions in bf16 and normalises
+    with f32 BatchNorm, as the JAX serving (every 1-D leaf f32) and the
+    port's Trainer do: its BN tensors stay f32, and its features equal the
+    frozen Trainer's eval features on the same weights and images (the
+    same casts and layout on the CPU, so bit for bit).  Running means of
+    σ = 3 make a bf16 cast of the statistics visible."""
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+
+    enc = ImsituEncoder.synthetic_full(0)
+    model = SituationModel(enc, backbone="mini", hidden=HIDDEN,
+                           dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(3)
+    model.backbone.reset_parameters(gen)
+    model.head.reset_parameters(gen)
+    rng = np.random.default_rng(3)
+    bns = [m for m in model.backbone.modules()
+           if isinstance(m, torch.nn.BatchNorm2d)]
+    assert bns
+    with torch.no_grad():
+        for bn in bns:
+            c = bn.num_features
+            for t, draw in ((bn.running_mean, rng.normal(0.0, 3.0, c)),
+                            (bn.running_var, rng.uniform(0.5, 1.5, c)),
+                            (bn.weight, rng.uniform(0.5, 1.5, c)),
+                            (bn.bias, rng.normal(0.0, 0.5, c))):
+                t.copy_(torch.from_numpy(draw))
+    path = str(tmp_path / "art")
+    export_inference(model, path, batch_size=2)
+    fn = load_inference(path, device="cpu")
+    served = [m for m in fn.model.backbone.modules()
+              if isinstance(m, torch.nn.BatchNorm2d)]
+    assert len(served) == len(bns)
+    for bn in served:
+        for t in (bn.weight, bn.bias, bn.running_mean, bn.running_var):
+            assert t.dtype == torch.float32
+    convs = [m for m in fn.model.backbone.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    assert convs and all(m.weight.dtype == torch.bfloat16 for m in convs)
+
+    state = torch.load(os.path.join(path, "weights.pt"), weights_only=True)
+    trainer = Trainer(enc, TrainerConfig(
+        hidden=HIDDEN, batch_size=2, backbone="mini",
+        compute_dtype=torch.bfloat16), device="cpu",
+        backbone_state=state["backbone"], head_state=state["head"])
+    images = torch.from_numpy(_images(2, 7))
+    want = trainer._features(images, None, False)
+    with torch.inference_mode():
+        got = fn.model.features(images)
+    assert got.dtype == want.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -19,7 +19,8 @@ folded GGNN forward) under every tile plan, on one card.
    (``torch.profiler``: device time by kernel).
 
 ``--csrc DIR`` builds ``DIR/ggnn_folded.cu`` (a copy of the package's
-source with a change, beside a copy of ``hopper.cuh``) in place of the
+source with a change, beside copies of ``ggnn_gemm.cuh`` and
+``hopper.cuh``) in place of the
 package's, to compare a variant with it in one call; ``--diagnostic``
 skips the checks, for such a copy that does not compute the function (an
 epilogue that returns at once, to time a main loop alone); ``--chosen``
