@@ -48,7 +48,30 @@ Phases, each printing its seconds:
              for the gt branch; K2 and K3 twice each under ``pallas``,
              never under ``xla``) and per eval batch (K1 three times); 8
              finite scores in [0, 100]; training and eval img/s.
-6. vit     — ViT-L/14 + FCGGNN(1024) at full width (224², 257 tokens, 24
+6. cli     — the reference CLI's path through ``cli.main`` in this
+             process, at full width (ResNet-152 + FCGGNN, d=2048, batch
+             256, bf16): a synthetic imSitu folder in a temporary directory
+             (train.json of 512 images taking every verb of
+             ``synthetic_full(--seed)`` in turn and every label, so the
+             encoder built from it has the flagship's 504 / 190 / 2001 / 6;
+             dev.json and test.json of 256; a packed store of 256² numpy
+             windows), then (a) train one epoch with a snapshot after each
+             step, ``--keep_best`` and ``--metrics_jsonl``, (b) resume to
+             epoch 2 with ``--cache_device``, (c) ``--evaluate_dev`` of the
+             checkpoint.  Checks the stats block, finite losses and scores
+             in [0, 100], (b) continuing (a)'s histories, K1 launched once
+             per train step (and twice more in (b)'s memory probe) and 3
+             times per eval batch in each run, the device memory (a) and
+             (b) took beside the windows within what (b)'s probe reserved,
+             strict loads of the checkpoint into a fresh model and a save /
+             load / save on the card bit-equal.  Prints the CLI's epochs'
+             img/s (fill included), the steady step of the CLI trainer's
+             loop over 20 in-memory batches apart from its fill and drain,
+             and of its eval loop, the host's idle time per step against
+             the device time of a profiled step, the packed loader's host
+             time per batch, a batch's upload from pinned against pageable
+             memory, the checkpoint's size and save and load seconds.
+7. vit     — ViT-L/14 + FCGGNN(1024) at full width (224², 257 tokens, 24
              blocks, 16 heads, bf16, batch 256, random weights from
              ``--seed``).  Kernels: K4 (qkv), K6 (out-MLP, both GELUs),
              each of their four GEMMs alone (qkv, out-projection, fc1,
@@ -72,7 +95,7 @@ Phases, each printing its seconds:
              shape (257-row stride) and at the 264-row stride with pad
              rows, timed beside its bound and the backward of SDPA on the
              same (B, h, N, 64) tensors.
-7. vit ft  — fine-tuning.  First the ft stack on the card: 2 blocks at
+8. vit ft  — fine-tuning.  First the ft stack on the card: 2 blocks at
              ViT-L/14 width, batch 16, its gradients (K7 forward, K8
              backward, torch products) against autograd over the plain
              blocks, per tensor.  Then a ``Trainer`` with
@@ -1032,6 +1055,471 @@ def phase_train(enc, seed: int, batch: int) -> dict:
     if (loss_rel > ROUTE_LOSS_REL or grad_rel > ROUTE_GRAD_REL
             or cos < ROUTE_UPDATE_COS):
         raise SystemExit("the two GGNN backward routes disagree")
+    return result
+
+
+# ------------------------------------------------------------- the CLI path
+
+#: the synthetic imSitu folder of the CLI phase: train images, and dev and
+#: test images (test reuses dev's images under other annotations)
+CLI_TRAIN, CLI_EVAL = 2 * BATCH, BATCH
+#: timed host-to-device copies of one batch of windows, pageable vs pinned
+UPLOAD_REPS = 10
+#: timed steps of the CLI trainer's loop on in-memory batches (cycling
+#: through CLI_LOOP_BATCHES host batches), the leading ones that fill the
+#: pipeline left out of the steady step, and the eval loop's batches
+CLI_LOOP_STEPS, CLI_LOOP_BATCHES, CLI_LOOP_FILL = 20, 4, 4
+CLI_EVAL_STEPS = 10
+#: epochs of the packed train split read by the loader alone
+CLI_LOADER_EPOCHS = 3
+
+
+def _synthetic_imsitu(root: str, enc, seed: int, n_train: int,
+                      n_eval: int) -> dict:
+    """An imSitu folder under ``root``: ``train.json`` whose images take
+    the verbs of ``enc`` in turn (every verb appears once there are as
+    many images as verbs) with their roles, and whose frames take the
+    labels of ``enc`` in turn (every label appears); ``dev.json`` and
+    ``test.json`` with random verbs and labels; the images a packed store
+    of 256² uint8 windows made with numpy (no JPEG)."""
+    import numpy as np
+
+    from situation_recognition_tpu_torch.data.dataset import write_packed
+
+    rng = np.random.default_rng(seed)
+    verbs, labels = enc.verb_list, enc.label_list
+    counter = 0
+
+    def record(verb, pick):
+        nonlocal counter
+        frames = []
+        for _ in range(3):
+            frame = {}
+            for role in enc.roles_per_verb[verb]:
+                frame[role] = pick()
+                counter += 1
+            frames.append(frame)
+        return {"verb": verb, "frames": frames}
+
+    train = {f"train{i}.jpg": record(
+        verbs[i % len(verbs)], lambda: labels[counter % len(labels)])
+        for i in range(n_train)}
+    # dev and test draw from what train holds (all of it at full size)
+    n_verbs, n_labels = min(n_train, len(verbs)), min(counter, len(labels))
+    dev = {f"eval{i}.jpg": record(
+        verbs[int(rng.integers(n_verbs))],
+        lambda: labels[int(rng.integers(n_labels))])
+        for i in range(n_eval)}
+    test = {name: record(verbs[int(rng.integers(n_verbs))],
+                         lambda: labels[int(rng.integers(n_labels))])
+            for name in dev}
+    folder = os.path.join(root, "imSitu")
+    os.makedirs(folder)
+    for name, ann in (("train", train), ("dev", dev), ("test", test)):
+        with open(os.path.join(folder, name + ".json"), "w") as f:
+            json.dump(ann, f)
+    packed = os.path.join(root, "packed")
+    write_packed(packed, ((name, rng.integers(0, 256, (256, 256, 3),
+                                              dtype=np.uint8))
+                          for name in list(train) + list(dev)))
+    return {"dataset": folder, "packed": packed,
+            "bytes": os.path.getsize(os.path.join(packed, "images.bin"))}
+
+
+def _upload_ms(batch: int) -> dict:
+    """One batch of 256² uint8 windows to the card: a pageable host array
+    (``.to``) against a pinned one (``non_blocking``), CUDA-event times."""
+    import numpy as np
+    import torch
+
+    host = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (batch, 256, 256, 3), dtype=np.uint8))
+    pinned = host.pin_memory()
+    out = {}
+    for name, src, kw in (("pageable", host, {}),
+                          ("pinned", pinned, {"non_blocking": True})):
+        out[name + "_ms"] = _time_ms(lambda: src.to(DEVICE, **kw),
+                                     UPLOAD_REPS)
+    out["bytes"] = host.numel()
+    out["pinned_gb_per_s"] = host.numel() / out["pinned_ms"] / 1e6
+    return out
+
+
+def _run_cli(argv) -> str:
+    """``cli.main(argv)`` in this process → its stdout (echoed)."""
+    import contextlib
+    import io
+
+    from situation_recognition_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    text = out.getvalue()
+    for line in text.splitlines():
+        _log(f"[cli] | {line}")
+    return text
+
+
+_STATS = re.compile(r"verb count: (\d+).*?role count: (\d+).*?"
+                    r"label count: (\d+).*?max role count: (\d+)", re.S)
+_LOSSES = re.compile(r"losses = \[v: (\S+), n: (\S+), gt: (\S+)\]")
+_SCORE = re.compile(r"(?:1-|5-|gt-)[\w-]+: (-?[\d.]+|nan|inf)")
+
+
+def _check_transcript(text: str, tag: str) -> dict:
+    """Finite losses and scores in [0, 100] in a CLI transcript."""
+    import numpy as np
+
+    losses = [float(x) for m in _LOSSES.findall(text) for x in m]
+    scores = [float(x) for x in _SCORE.findall(text)]
+    if not losses or not np.isfinite(losses).all():
+        raise SystemExit(f"{tag}: losses missing or not finite: {losses}")
+    if not scores or not all(0 <= s <= 100 for s in scores):
+        raise SystemExit(f"{tag}: scores missing or out of [0, 100]: "
+                         f"{scores}")
+    return {"losses": losses, "scores": scores}
+
+
+def _assert_bit_equal(a, b, path="") -> None:
+    import torch
+
+    if torch.is_tensor(a):
+        if not (torch.is_tensor(b) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a.cpu(), b.cpu())):
+            raise SystemExit(f"checkpoint save/load/save differs at {path}")
+    elif isinstance(a, dict):
+        if not isinstance(b, dict) or list(a) != list(b):
+            raise SystemExit(f"checkpoint keys differ at {path}")
+        for k in a:
+            _assert_bit_equal(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            raise SystemExit(f"checkpoint lengths differ at {path}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_bit_equal(x, y, f"{path}[{i}]")
+    elif a != b:
+        raise SystemExit(f"checkpoint differs at {path}: {a} vs {b}")
+
+
+def phase_cli(enc, seed: int, batch: int, card: str) -> dict:
+    """The reference CLI's path (see the module docstring): train, resume
+    and evaluate through ``cli.main`` on a synthetic imSitu folder."""
+    import numpy as np
+    import torch
+
+    from situation_recognition_tpu_torch import cli
+    from situation_recognition_tpu_torch.data.dataset import (
+        ImsituDataset, ImsituLoader)
+    from situation_recognition_tpu_torch.data.encoder import ImsituEncoder
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+    from situation_recognition_tpu_torch.utils.checkpoint import (
+        HISTORY_KEYS, load_checkpoint, save_checkpoint)
+
+    t_phase = time.perf_counter()
+    result = {"card": card, "batch": batch, "launches": {}}
+    n_train = CLI_TRAIN * batch // BATCH
+    n_eval = CLI_EVAL * batch // BATCH
+    timings = []
+    trainers = []
+    real = {"train_epoch": Trainer.train_epoch, "evaluate": Trainer.evaluate,
+            "fit": Trainer.fit, "reserve": cli._working_reserve}
+    reserves = []
+
+    def timed(kind):
+        def wrapper(self, loader, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[kind](self, loader, *args, **kwargs)
+            torch.cuda.synchronize()
+            timings.append({"kind": kind, "seconds":
+                            time.perf_counter() - t0,
+                            "images": len(loader.dataset)})
+            return out
+        return wrapper
+
+    def keep(self, *args, **kwargs):
+        trainers.append(self)
+        return real["fit"](self, *args, **kwargs)
+
+    def reserve(*args, **kwargs):
+        # the probe's own train step runs with the timers off
+        Trainer.train_epoch = real["train_epoch"]
+        Trainer.evaluate = real["evaluate"]
+        try:
+            reserves.append(real["reserve"](*args, **kwargs))
+        finally:
+            Trainer.train_epoch = timed("train_epoch")
+            Trainer.evaluate = timed("evaluate")
+        return reserves[-1]
+
+    with tempfile.TemporaryDirectory(prefix="srtorch_cli_") as root:
+        t = time.perf_counter()
+        data = _synthetic_imsitu(root, enc, seed, n_train, n_eval)
+        result["packed_bytes"] = data["bytes"]
+        _phase("cli: synthetic imSitu folder", t)
+        saving = os.path.join(root, "checkpoints")
+        metrics = os.path.join(root, "metrics.jsonl")
+        common = ["--backbone", BACKBONE, "--batch_size", str(batch),
+                  "--dataset_folder", data["dataset"],
+                  "--imgset_dir", os.path.join(root, "unused"),
+                  "--packed_dir", data["packed"], "--saving_folder", saving,
+                  "--seed", str(seed), "--num_workers", "4"]
+        if DEVICE == "cpu":
+            common += ["--platform", "cpu"]
+        runs = {
+            "train": common + ["--epochs", "1", "--save_steps", "1",
+                               "--keep_best", "--metrics_jsonl", metrics],
+            "resume": common + ["--resume_model", "sr", "--epochs", "2",
+                                "--cache_device"],
+            "evaluate": common + ["--evaluate_dev", "--resume_model", "sr"]}
+        want = {"train": -(-n_train // batch) + 3 * -(-n_eval // batch)}
+        # --cache_device's memory probe takes two train steps
+        want["resume"] = want["train"] + 2 * (DEVICE == "cuda")
+        want["evaluate"] = 3 * -(-n_eval // batch)
+        texts, histories, used = {}, {}, {}
+        Trainer.train_epoch = timed("train_epoch")
+        Trainer.evaluate = timed("evaluate")
+        Trainer.fit = keep
+        cli._working_reserve = reserve
+        try:
+            for name, argv in runs.items():
+                t = time.perf_counter()
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_reserved()
+                torch.cuda.reset_peak_memory_stats()
+                _zero_counts()
+                texts[name] = _run_cli(argv)
+                torch.cuda.synchronize()
+                used[name] = torch.cuda.max_memory_reserved() - base
+                result["launches"][name] = _counts()
+                _phase(f"cli: {name}", t)
+                if name != "evaluate":
+                    ck = load_checkpoint(os.path.join(saving, "sr"))
+                    histories[name] = {k: ck[k] for k in HISTORY_KEYS}
+                    del ck
+                if name == "train":
+                    trainers.clear()
+                torch.cuda.empty_cache()
+        finally:
+            Trainer.train_epoch = real["train_epoch"]
+            Trainer.evaluate = real["evaluate"]
+            Trainer.fit = real["fit"]
+            cli._working_reserve = real["reserve"]
+
+        # the vocabulary, the transcripts and the histories
+        stats = tuple(int(x) for x in _STATS.search(texts["train"]).groups())
+        result["stats"] = stats
+        if n_train >= len(enc.verb_list) and stats != (504, 190, 2001, 6):
+            raise SystemExit(f"the encoder's widths are {stats}, not the "
+                             f"flagship's (504, 190, 2001, 6)")
+        for name, text in texts.items():
+            result[name] = _check_transcript(text, f"cli {name}")
+        if "Epoch-1, lr: " not in texts["resume"] \
+                or "Epoch-0" in texts["resume"]:
+            raise SystemExit("the resume did not continue at epoch 1")
+        for k in HISTORY_KEYS:
+            a, b = histories["train"][k], histories["resume"][k]
+            if len(a) != 1 or len(b) != 2 or b[:1] != a:
+                raise SystemExit(f"history {k}: {a} then {b}")
+        if not os.path.exists(os.path.join(saving, "sr_best")):
+            raise SystemExit("--keep_best wrote no sr_best")
+        with open(metrics) as f:
+            if len(f.read().splitlines()) != 1:
+                raise SystemExit("--metrics_jsonl has not one record")
+        _log("[cli] launches " + json.dumps(result["launches"]))
+        for name, count in result["launches"].items():
+            if count != {"K1": want[name], "K2": 0, "K3": 0}:
+                raise SystemExit(f"launches in the cli {name} run: {count},"
+                                 f" want K1 {want[name]} (1 a train step, 3"
+                                 f" an eval batch)")
+
+        # --cache_device's reserve (measured by its probe step) against
+        # the device memory each run took beside its window arrays: the
+        # streamed train run (a) and the cached resume (b) within it
+        windows = (n_train + n_eval) * 256 * 256 * 3
+        result["memory_gb"] = {
+            "reserve": reserves[0] / 1e9 if reserves else None,
+            "train_streamed": used["train"] / 1e9,
+            "resume_cached_less_windows": (used["resume"] - windows) / 1e9,
+            "evaluate_streamed": used["evaluate"] / 1e9,
+            "windows": windows / 1e9}
+        if DEVICE == "cuda":
+            if len(reserves) != 1:
+                raise SystemExit(f"--cache_device measured {len(reserves)}"
+                                 f" reserves in the resume, want 1")
+            for name, took in (("train", used["train"]),
+                               ("resume", used["resume"] - windows)):
+                if took > reserves[0]:
+                    raise SystemExit(
+                        f"the cli {name} run took {took / 1e9:.2f} GB of "
+                        f"device memory beside its windows, more than the "
+                        f"{reserves[0] / 1e9:.2f} GB --cache_device "
+                        f"reserved")
+
+        # the CLI's epochs (one and two steps: fill and drain included):
+        # the first streams pinned uploads (and writes a snapshot after
+        # each step), the resumed one gathers from the device window cache
+        epochs = [x for x in timings if x["kind"] == "train_epoch"]
+        evals = [x for x in timings if x["kind"] == "evaluate"]
+        result["train_img_per_s"] = {
+            "streamed_with_snapshots": epochs[0]["images"]
+            / epochs[0]["seconds"],
+            "cached": epochs[-1]["images"] / epochs[-1]["seconds"]}
+        result["eval_img_per_s"] = {
+            "cached": evals[-2]["images"] / evals[-2]["seconds"],
+            "streamed": evals[-1]["images"] / evals[-1]["seconds"]}
+        result["upload"] = _upload_ms(batch)
+
+        # the loader alone on the packed train split (crop, flip, pad on
+        # the host; no JPEG): the first batch of an epoch (its workers
+        # start) apart from the others
+        with open(os.path.join(data["dataset"], "train.json")) as f:
+            ds = ImsituDataset(os.path.join(root, "unused"), json.load(f),
+                               trainers[-1].encoder, train=True)
+        ds.enable_packed(data["packed"])
+        reader = ImsituLoader(ds, batch_size=batch, shuffle=True,
+                              seed=seed, num_workers=4)
+        first, later = [], []
+        for epoch in range(CLI_LOADER_EPOCHS):
+            reader.set_epoch(epoch)
+            t = time.perf_counter()
+            for i, _ in enumerate(reader):
+                (later if i else first).append(
+                    (time.perf_counter() - t) * 1e3)
+                t = time.perf_counter()
+        result["loader_ms_per_batch"] = {"first": first, "later": later}
+        del ds, reader
+
+        # the CLI trainer's step loop on in-memory batches (uploads through
+        # the pinned side stream, no snapshots): the steady step is the
+        # mean gap between step starts once CLI_LOOP_FILL steps have
+        # filled the pipeline; the fill (loop start to that step) and the
+        # drain (the last start to the loop's end) apart
+        trainer = trainers[-1]
+        host = _train_batches(trainer.encoder, seed + 5, batch,
+                              CLI_LOOP_BATCHES)
+        loader = [host[i % len(host)] for i in range(CLI_LOOP_STEPS)]
+        trainer.train_epoch(loader[:1], 99)            # warm
+        starts, dispatch = [], []
+
+        def timing(step):
+            def timed_step(*args):
+                t0 = time.perf_counter()
+                starts.append(t0)
+                out = step(*args)
+                dispatch.append(time.perf_counter() - t0)
+                return out
+            return timed_step
+
+        def loop(run, steps):
+            starts.clear()
+            dispatch.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            k = CLI_LOOP_FILL
+            return {"steps": steps,
+                    "steady_ms": (starts[-1] - starts[k]) * 1e3
+                    / (steps - 1 - k),
+                    "fill_ms": (starts[k] - t0) * 1e3,
+                    "drain_ms": (t1 - starts[-1]) * 1e3,
+                    "whole_ms_per_step": (t1 - t0) * 1e3 / steps,
+                    "dispatch_ms": [x * 1e3 for x in dispatch]}
+
+        trainer.train_step = timing(trainer.train_step)
+        result["loop"] = loop(lambda: trainer.train_epoch(loader, 100),
+                              CLI_LOOP_STEPS)
+        del trainer.train_step
+        trainer.eval_step = timing(trainer.eval_step)
+        result["eval_loop"] = loop(
+            lambda: trainer.evaluate(loader[:CLI_EVAL_STEPS]),
+            CLI_EVAL_STEPS)
+        del trainer.eval_step
+        steady = result["loop"]["steady_ms"]
+        result["loop_img_per_s"] = batch * 1e3 / steady
+        result["eval_loop_img_per_s"] = \
+            batch * 1e3 / result["eval_loop"]["steady_ms"]
+        prof = _profile("one CLI-trainer train step",
+                        lambda: trainer.train_epoch(loader[:1], 101),
+                        tag="cli")
+        result["step_device_ms"] = prof["device_ms"]
+        result["idle_ms_per_step"] = steady - prof["device_ms"]
+        result["idle_share"] = result["idle_ms_per_step"] / steady
+        trainers.clear()
+        del trainer, loader, host
+        torch.cuda.empty_cache()
+
+        # the checkpoint: strict loads into a fresh model, and a save /
+        # load / save on the card is bit-equal
+        from situation_recognition_tpu_torch.convert import from_reference
+
+        path = os.path.join(saving, "sr")
+        result["checkpoint_bytes"] = os.path.getsize(path)
+        cfg = TrainerConfig(hidden=D if BACKBONE == "resnet152" else 64,
+                            batch_size=batch, backbone=BACKBONE,
+                            compute_dtype=torch.bfloat16 if DEVICE == "cuda"
+                            else torch.float32, seed=seed + 1)
+        t = time.perf_counter()
+        ck = load_checkpoint(path)
+        fresh = Trainer(ImsituEncoder.load(os.path.join(saving, "encoder")),
+                        cfg, device=DEVICE)
+        bb, head = from_reference(ck["model_state_dict"])
+        fresh.backbone.load_state_dict(bb, strict=True)
+        fresh.head.load_state_dict(head, strict=True)
+        fresh.load_model_state(ck)
+        torch.cuda.synchronize()
+        result["load_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        again = os.path.join(root, "again")
+        own = fresh.model_state_dict()
+        # the epoch and the histories are the fit loop's, copied through
+        save_checkpoint(again, {"epoch": ck["epoch"],
+                                **{k: ck[k] for k in HISTORY_KEYS}, **own})
+        result["save_s"] = time.perf_counter() - t
+        back = load_checkpoint(again)
+        checked = ("model_state_dict", "optimizer_state_dict", "step_count",
+                   "opt_steps")
+        if sorted(own) != sorted(checked):
+            raise SystemExit(f"the trainer's checkpoint state has keys "
+                             f"{sorted(own)}, want {sorted(checked)}")
+        for key in checked:
+            _assert_bit_equal(ck[key], back[key], key)
+        result["save_load_save"] = "bit-equal"
+        del fresh, ck, back
+        torch.cuda.empty_cache()
+    result["phase_s"] = time.perf_counter() - t_phase
+    _log("[cli] " + json.dumps(result))
+    run, ev, mem = result["loop"], result["eval_loop"], result["memory_gb"]
+    disp = run["dispatch_ms"][CLI_LOOP_FILL:]
+    _log(f"[cli] {card}: CLI train epochs (fill included) "
+         f"{result['train_img_per_s']['streamed_with_snapshots']:.1f} img/s"
+         f" streamed with snapshots, {result['train_img_per_s']['cached']:.1f}"
+         f" cached; eval {result['eval_img_per_s']['cached']:.1f} img/s "
+         f"cached / {result['eval_img_per_s']['streamed']:.1f} streamed; "
+         f"step loop over {run['steps']} steps: steady "
+         f"{run['steady_ms']:.2f} ms/step ({result['loop_img_per_s']:.1f} "
+         f"img/s; the host enqueues a steady step in {min(disp):.2f}-"
+         f"{max(disp):.2f} ms), fill {run['fill_ms']:.1f} ms for "
+         f"{CLI_LOOP_FILL} steps, drain {run['drain_ms']:.1f} ms; device "
+         f"{result['step_device_ms']:.2f} ms, idle "
+         f"{result['idle_ms_per_step']:.2f} ms "
+         f"({100 * result['idle_share']:.1f}%); eval loop over "
+         f"{ev['steps']} batches: steady {ev['steady_ms']:.2f} ms/batch "
+         f"({result['eval_loop_img_per_s']:.1f} img/s); packed loader "
+         f"{min(result['loader_ms_per_batch']['later']):.1f}-"
+         f"{max(result['loader_ms_per_batch']['later']):.1f} ms/batch "
+         f"(first of an epoch {max(result['loader_ms_per_batch']['first']):.1f}"
+         f"); device memory beside the windows: reserve "
+         f"{mem['reserve'] or 0:.2f} GB, train run {mem['train_streamed']:.2f},"
+         f" cached resume {mem['resume_cached_less_windows']:.2f}; upload of a "
+         f"batch {result['upload']['pinned_ms']:.3f} ms pinned vs "
+         f"{result['upload']['pageable_ms']:.3f} pageable; checkpoint "
+         f"{result['checkpoint_bytes'] / 1e6:.1f} MB, save "
+         f"{result['save_s']:.2f} s, load {result['load_s']:.2f} s; phase "
+         f"{result['phase_s']:.1f} s")
     return result
 
 
@@ -1999,6 +2487,12 @@ def main(argv=None) -> int:
         raise SystemExit(f"a kernel of the training path never launched: "
                          f"{train_launches}")
 
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    cli = phase_cli(enc, args.seed, BATCH, smi)
+    cli_k1 = sum(c["K1"] for c in cli["launches"].values())
+    _phase("cli", t)
+
     t = time.perf_counter()
     vit_kernel = phase_vit_kernel(enc, args.seed, BATCH)
     _phase("vit kernel", t)
@@ -2047,7 +2541,7 @@ def main(argv=None) -> int:
         _kernel_line("ggnn_folded", "ggnn_folded.cu", 217,
                      kernel["shapes"] + vit_kernel["K1"],
                      {"serve": path["launches"],
-                      "train": train_launches["K1"],
+                      "train": train_launches["K1"], "cli": cli_k1,
                       **{f"vit_{p}": c
                          for p, c in vit_launches["K1"].items()}},
                      resources=res["ggnn_folded.cu"]),

@@ -4,7 +4,9 @@
 The layout mirrors the JAX package module for module, so each file has a
 counterpart to be held against:
 
-* ``data``     — vocabulary encoder tables and image transforms.
+* ``data``     — vocabulary encoder tables, image transforms, the imSitu
+                 dataset and its prefetching loader, and the native libjpeg
+                 batch decoder (``data/native/decoder.cpp``, ``ctypes``).
 * ``ops``      — GGNN propagation: the masked-sum math, the folded
                  multi-step kernels in CUDA (``csrc/ggnn_folded.cu``: K1
                  forward and K2 forward with residuals;
@@ -18,8 +20,14 @@ counterpart to be held against:
                  ``vit_tiny``), ``build_backbone``, and the FCGGNN head
                  with its losses.
 * ``metrics``  — the imSitu scorer.
-* ``train``    — ``Trainer``: train and eval steps, ``train_epoch``,
-                 ``evaluate``.
+* ``train``    — ``Trainer``: train and eval steps, the pinned uploader,
+                 ``train_epoch``, ``evaluate``, checkpoint state and
+                 ``fit``.
+* ``utils``    — checkpoints in the reference's torch layout, the
+                 reference's metric format and ``StepTimer``.
+* ``cli``      — the reference CLI (``python -m
+                 situation_recognition_tpu_torch.cli``): train, resume,
+                 evaluate.
 * ``convert``  — JAX parameter trees and reference checkpoints → this
                  package's state dicts, and back for comparisons.
 * ``serving``  — export → load → ``fn(images_u8)`` artifacts.

@@ -13,11 +13,14 @@ numpy table built once:
 
 A batch's structures are one gather (``role_ids[verbs]``); the GGNN only
 needs ``role_mask`` (ops/ggnn.py turns the adjacency into a masked sum).
+``save``/``load`` write and read the JAX encoder's JSON file, so either
+package reads the other's ``<saving_folder>/encoder``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping
+import json
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 
@@ -29,6 +32,9 @@ class ImsituEncoder:
     label, ...} x 3]}`` and is scanned in insertion order.  ``verbose``
     prints the reference's "train set stats" block.
     """
+
+    #: annotator frames per image in imSitu
+    NUM_FRAMES = 3
 
     def __init__(self, train_set: Mapping[str, dict] | None = None,
                  verbose: bool = True):
@@ -99,6 +105,8 @@ class ImsituEncoder:
         num_roles = len(self.role_list)
 
         role_index = {r: i for i, r in enumerate(self.role_list)}
+        self._label_index = {l: i for i, l in enumerate(self.label_list)}
+        self._verb_index = {v: i for i, v in enumerate(self.verb_list)}
 
         self.role_ids = np.full((V, R), num_roles, dtype=np.int32)
         self.role_counts = np.zeros((V,), dtype=np.int32)
@@ -134,9 +142,82 @@ class ImsituEncoder:
     def get_max_role_count(self) -> int:
         return self.max_role_count
 
+    def get_role_count(self, verb_id: int) -> int:
+        return int(self.role_counts[verb_id])
+
+    # ------------------------------------------------------------- encoding
+
+    def encode(self, item: dict) -> Tuple[int, np.ndarray]:
+        """One annotation record → (verb id, labels (frames, R) int32)."""
+        verb = self._verb_index[item["verb"]]
+        return verb, self.get_label_ids(item["verb"], item["frames"])
+
+    def get_label_ids(self, verb: str,
+                      frames: Sequence[Mapping[str, str]]) -> np.ndarray:
+        """Label ids of each frame's roles in the verb's role order: an
+        unseen label maps to ``UNK`` (``ValueError`` without one, as the
+        reference's ``list.index``), the pad slots to ``num_labels``."""
+        roles = self.roles_per_verb[verb]
+        num_labels = len(self.label_list)
+        unk = self._label_index.get("UNK")
+        out = np.full((len(frames), self.max_role_count), num_labels,
+                      dtype=np.int32)
+        for f, frame in enumerate(frames):
+            for j, role in enumerate(roles):
+                label = frame[role]
+                idx = self._label_index.get(label)
+                if idx is None:
+                    if unk is None:
+                        raise ValueError(
+                            f"unseen label {label!r} and no UNK in vocab")
+                    idx = unk
+                out[f, j] = idx
+        return out
+
+    # ---------------------------------------------------------- table lookups
+
+    def get_role_ids(self, verb_id: int) -> np.ndarray:
+        """(R,) role ids of one verb (pad = num_roles)."""
+        return self.role_ids[verb_id]
+
+    def get_role_ids_batch(self, verbs) -> np.ndarray:
+        """(B, R) role ids of the given verbs."""
+        return self.role_ids[np.asarray(verbs)]
+
     def get_adj_matrix_noself(self, verb_ids) -> np.ndarray:
         """(B, R, R) adjacency of the given verbs."""
         return self.adjacency[np.asarray(verb_ids)]
+
+    def get_verb2role_encoding_batch(self, verb_ids) -> np.ndarray:
+        """(B, R) role mask of the given verbs."""
+        return self.role_mask[np.asarray(verb_ids)]
+
+    # ------------------------------------------------------------ transforms
+
+    def dev_transform(self, img) -> np.ndarray:
+        """Eval preprocessing of one HWC uint8 image (or PIL image) →
+        normalised (224, 224, 3) float32: the center 256 window and the
+        device transform, on the CPU."""
+        import torch
+
+        from situation_recognition_tpu_torch.data import transforms as T
+
+        window = T.host_window(np.asarray(img), train=False)
+        return T.eval_transform(torch.from_numpy(
+            np.ascontiguousarray(window[None]))).numpy()[0]
+
+    def train_transform(self, img, rng: np.random.Generator) -> np.ndarray:
+        """Train preprocessing of one image: the random window from
+        ``rng``, then a flip drawn from it (``rng`` is required: an
+        unseeded crop would break determinism)."""
+        import torch
+
+        from situation_recognition_tpu_torch.data import transforms as T
+
+        window = T.host_window(np.asarray(img), train=True, rng=rng)
+        flip = torch.tensor([rng.random() < 0.5])
+        return T.device_transform(torch.from_numpy(
+            np.ascontiguousarray(window[None])), flip).numpy()[0]
 
     # --------------------------------------------------------- serialization
 
@@ -160,3 +241,12 @@ class ImsituEncoder:
         enc.max_role_count = int(d["max_role_count"])
         enc._build_tables()
         return enc
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f)
+
+    @classmethod
+    def load(cls, path: str) -> "ImsituEncoder":
+        with open(path) as f:
+            return cls.from_dict(json.load(f))

@@ -2,8 +2,11 @@
 
 Port of ``situation_recognition_tpu/train.py``: ``TrainerConfig`` (the
 fields this package uses), ``make_lr_fn``, and ``Trainer`` with its train
-and eval steps (``train.py:697-738``), ``train_epoch`` and ``evaluate``,
-run synchronously: one step per batch, scored on the host.
+and eval steps (``train.py:697-738``), the pipelined ``train_epoch`` and
+``evaluate``, checkpoint state (``model_state_dict``,
+``model_state_snapshot``, ``load_model_state``) and the reference's epoch
+loop ``fit`` with mid-epoch snapshots, SIGTERM preemption, ``keep_best``,
+``metrics_jsonl`` and background saves (``AsyncSaver``).
 
 A train step does what the JAX step does:
 
@@ -39,23 +42,49 @@ all three branches forward-only (K1 on the card) with eval-mode BN.
 
 The trainer takes any iterable of batch dicts ``{"images": uint8 (B, 256,
 256, 3), "flip": bool (B,), "verbs": (B,), "labels": (B, 3, R)}`` of at
-most ``batch_size`` rows; shorter batches are wrapped to ``batch_size``
-(``_pad_batch``), so their pad rows enter the BN statistics, as in JAX,
-and are masked out of the losses and scores.
+most ``batch_size`` rows (``data/dataset.ImsituLoader`` yields them, or
+``indices`` into a window cache in place of ``images``); shorter batches
+are wrapped to ``batch_size`` (``_pad_batch``), so their pad rows enter
+the BN statistics, as in JAX, and are masked out of the losses and scores.
+
+Batches reach the device through an uploader thread (``_device_batches``):
+on the card it stages each padded batch into pinned host buffers from a
+small reused pool, issues the copies with ``non_blocking=True`` on a side
+stream and records an event that the step's stream waits on, so the copy
+overlaps the steps in flight; ``SRTPU_UPLOAD_DEPTH`` (default 2) batches
+wait ready.  A window-cached split (``--cache_device``) is uploaded once
+and each batch is a gather on the device.  The step loop keeps up to
+``PIPELINE_DEPTH`` (2) steps in flight before it reads their losses and
+top-k back and scores them, so the host scores step k while the card runs
+step k+1.
+
+A frozen backbone's convolutions are cast to the compute type in place on
+the card; the f32 parameters they came from are kept on the host (taken
+at construction and at every load) and are what a checkpoint writes, as
+the JAX trainer writes its f32 ``backbone_params``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
+import queue
+import signal
 import sys
+import threading
 import time
+import weakref
+from collections import OrderedDict, deque
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from situation_recognition_tpu_torch.convert import from_reference
+from situation_recognition_tpu_torch.data.dataset import put_until_stopped
 from situation_recognition_tpu_torch.data.encoder import ImsituEncoder
 from situation_recognition_tpu_torch.data.transforms import device_transform
 from situation_recognition_tpu_torch.device import resolve_device
@@ -64,6 +93,17 @@ from situation_recognition_tpu_torch.metrics.scorer import (
 from situation_recognition_tpu_torch.models.fcggnn import (
     FCGGNNHead, nouns_loss_masked, resolve_ggnn_impl, verb_loss_masked)
 from situation_recognition_tpu_torch.models.backbone import build_backbone
+from situation_recognition_tpu_torch.utils.checkpoint import (
+    HISTORY_KEYS, copy_checkpoint, history_list, restore_tolerant,
+    save_checkpoint)
+from situation_recognition_tpu_torch.utils.logging import (
+    StepTimer, format_dict)
+
+#: the reference model's prefixes of its twin backbones
+REF_BACKBONE = "convnet_verbs.model."
+REF_TWIN = "convnet_nouns.model."
+#: steps ``train_epoch`` and ``evaluate`` keep in flight before scoring
+PIPELINE_DEPTH = 2
 
 
 @dataclasses.dataclass
@@ -93,6 +133,12 @@ class TrainerConfig:
     train_backbone: bool = False
     backbone_lr: Optional[float] = None
     remat_backbone: bool = False
+    # epochs of ``fit``
+    epochs: int = 1000
+    # BN mode of the backbone in train steps: "train" (batch statistics,
+    # running statistics updated — the reference's) or "eval" (running
+    # statistics only; JAX ``frozen_backbone_bn``)
+    frozen_backbone_bn: str = "train"
 
 
 def make_lr_fn(config: TrainerConfig):
@@ -143,12 +189,6 @@ def make_lr_fn(config: TrainerConfig):
     return fn
 
 
-def format_dict(d: Dict[str, float], s: str, p: str) -> str:
-    """'<p><key>: <s.format(v*100)>' joined by ', ' (reference format)."""
-    return ", ".join(p + str(k) + ": " + s.format(v * 100)
-                     for k, v in d.items())
-
-
 def _topk5(x: torch.Tensor) -> torch.Tensor:
     """Top-5 indices along the last axis by iterative argmax, ties to the
     lower index (``torch.argmax`` returns the first maximum)."""
@@ -159,6 +199,150 @@ def _topk5(x: torch.Tensor) -> torch.Tensor:
         idxs.append(i)
         x.scatter_(-1, i[..., None], -torch.inf)
     return torch.stack(idxs, dim=-1)
+
+
+def _host_f32(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous f32 copy of ``t`` on the host."""
+    return t.detach().to("cpu", torch.float32, copy=True,
+                         memory_format=torch.contiguous_format)
+
+
+def _host_copy(state):
+    """``state`` (nested dicts, lists and tuples) with every CUDA tensor
+    copied to pinned host memory: non-blocking copies on a side stream
+    that first waits for the work queued so far, then one synchronise."""
+    found = []
+
+    def find(x):
+        if torch.is_tensor(x):
+            if x.is_cuda and not found:
+                found.append(x.device)
+        elif isinstance(x, dict):
+            for v in x.values():
+                find(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                find(v)
+
+    def copy(x):
+        if torch.is_tensor(x):
+            if not x.is_cuda:
+                return x
+            out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            return out.copy_(x, non_blocking=True)
+        if isinstance(x, dict):
+            return type(x)((k, copy(v)) for k, v in x.items())
+        if isinstance(x, list):
+            return [copy(v) for v in x]
+        if isinstance(x, tuple):
+            return tuple(copy(v) for v in x)
+        return x
+
+    find(state)
+    if not found:
+        return state
+    dev = found[0]
+    torch.cuda.set_device(dev)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.default_stream(dev))
+    with torch.cuda.stream(stream):
+        out = copy(state)
+    stream.synchronize()
+    return out
+
+
+class AsyncSaver:
+    """Checkpoint writer with at most one write in flight: each save (and
+    ``join``) waits for the previous one and raises its error.
+
+    ``state`` may hold device tensors (``Trainer.model_state_snapshot``:
+    private copies the loop never touches again); the writer copies them
+    to the host (``_host_copy``) and then serialises, on a thread of this
+    process — a process holding a CUDA context must not fork.  Writes are
+    atomic and fsync-ed (``utils/checkpoint.save_checkpoint``), and the
+    ``copy_to`` copy too."""
+
+    def __init__(self):
+        self._thread = None
+        self._error = None
+
+    def save(self, path: str, state: dict, background: bool = True,
+             copy_to: Optional[str] = None) -> None:
+        self.join()
+
+        def write():
+            save_checkpoint(path, _host_copy(state))
+            if copy_to:
+                copy_checkpoint(path, copy_to)
+
+        if not background:
+            write()
+            return
+
+        def run():
+            try:
+                write()
+            except BaseException as e:           # raised by the next join
+                self._error = e
+
+        # not a daemon: the interpreter's exit waits for the write
+        self._thread = threading.Thread(target=run,
+                                        name="srtorch-ckpt-writer")
+        self._thread.start()
+
+    def join(self) -> None:
+        """Wait for the write in flight; raise its error (a dropped
+        checkpoint must not pass for a written one)."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            e, self._error = self._error, None
+            raise e
+
+
+class Preempted(Exception):
+    """Raised out of the loop on a preemption stop (``fit(handle_sigterm=
+    True)`` sets the event from SIGTERM).  ``saved``: whether a resumable
+    snapshot was written before the raise."""
+
+    def __init__(self, epoch: int, batch_in_epoch: int,
+                 saved: bool = False):
+        super().__init__(f"preempted at epoch {epoch}, "
+                         f"batch {batch_in_epoch}")
+        self.epoch = epoch
+        self.batch_in_epoch = batch_in_epoch
+        self.saved = saved
+
+
+class _PinnedSlot:
+    """One batch's pinned host buffers, reused across batches and calls
+    (pinning memory is slow and can stall the device's queue); ``event``
+    marks the end of the copies last issued from them."""
+
+    def __init__(self):
+        self.buffers: Dict[str, torch.Tensor] = {}
+        self.event = None
+
+    def buffer(self, key: str, like: torch.Tensor) -> torch.Tensor:
+        """The pinned buffer ``key`` of ``like``'s shape and type."""
+        buf = self.buffers.get(key)
+        if buf is None or buf.shape != like.shape or buf.dtype != like.dtype:
+            buf = torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+            self.buffers[key] = buf
+        return buf
+
+
+def _upload_depth() -> int:
+    """Batches the uploader keeps ready: ``SRTPU_UPLOAD_DEPTH`` (2)."""
+    return max(1, int(os.environ.get("SRTPU_UPLOAD_DEPTH", "2")))
+
+
+#: device dtypes of a padded batch's arrays
+_BATCH_DTYPES = {"images": torch.uint8, "flip": torch.bool,
+                 "verbs": torch.long, "labels": torch.long,
+                 "valid": torch.float32, "indices": torch.long}
+_plot_warned = False
 
 
 class Trainer:
@@ -180,14 +364,22 @@ class Trainer:
         if config.image_size < 32:
             raise ValueError(f"image_size must be >= 32, got "
                              f"{config.image_size}")
+        if config.frozen_backbone_bn not in ("train", "eval"):
+            raise ValueError(f"frozen_backbone_bn must be train|eval, got "
+                             f"{config.frozen_backbone_bn!r}")
         self._ft = bool(config.train_backbone)
         self.backbone, has_bn = build_backbone(
             config.backbone, config.hidden, config.image_size, dt,
             remat=config.remat_backbone and self._ft)
+        self._has_bn = has_bn
         if backbone_state is None:
             self.backbone.reset_parameters(gen)
         else:
             self.backbone.load_state_dict(backbone_state, strict=True)
+        # a frozen backbone's f32 parameters, before any cast (the source
+        # of every checkpoint); a fine-tuned one keeps f32 masters live
+        self._bb_host = None if self._ft else {
+            n: _host_f32(p) for n, p in self.backbone.named_parameters()}
         self.head = FCGGNNHead(
             encoder.get_num_verbs(), encoder.get_num_roles(),
             encoder.get_num_labels(), encoder.max_role_count,
@@ -239,6 +431,11 @@ class Trainer:
         self.opt_steps = 0
         self._set_lr()
         self.step_count = 0
+        self._window_caches: dict = {}
+        self._current_epoch = 0
+        # the uploader's pinned buffers, kept for the next call
+        self._pinned: list = []
+        self._pinned_lock = threading.Lock()
 
     def current_lr(self) -> float:
         """The rate the next optimizer step takes: ``lr``, or the schedule
@@ -271,7 +468,10 @@ class Trainer:
         x = device_transform(images, flip if train else None,
                              dtype=self.config.compute_dtype,
                              crop=self.config.image_size)
-        self.backbone.train(train)
+        # frozen_backbone_bn is a BN-mode switch only: a backbone without
+        # BN keeps its true train flag
+        self.backbone.train(train and (
+            not self._has_bn or self.config.frozen_backbone_bn != "eval"))
         with torch.set_grad_enabled(grad):
             return self.backbone(x).float()
 
@@ -329,13 +529,15 @@ class Trainer:
 
     def _pad_batch(self, batch: Dict) -> Tuple[Dict, np.ndarray, int]:
         """Pad to config.batch_size by wrapping; returns (arrays, valid,
-        n)."""
+        n).  A window-cached batch carries ``indices`` in place of
+        ``images``."""
         big = self.config.batch_size
         n = len(batch["verbs"])
         if n > big:
             raise ValueError(
                 f"loader batch of {n} exceeds config.batch_size {big}")
-        keys = ("images", "flip", "verbs", "labels")
+        keys = [k for k in ("images", "indices", "flip", "verbs", "labels")
+                if k in batch]
         if n == big:
             # a full batch passes through: the wrap-gather would copy the
             # whole uint8 image batch on the host for an identity index
@@ -345,66 +547,274 @@ class Trainer:
             out = {k: np.asarray(batch[k])[idx] for k in keys}
         return out, (np.arange(big) < n).astype(np.float32), n
 
+    def _host_tensors(self, batch: Dict) -> Tuple[Dict, int]:
+        """The padded batch (``_pad_batch``) and its ``valid`` mask as
+        host tensors of the device types, and the count of real rows."""
+        arrays, valid, n = self._pad_batch(batch)
+        arrays["valid"] = valid
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+            _BATCH_DTYPES[k]) for k, v in arrays.items()}, n
+
     def _upload(self, batch: Dict):
         """Host batch → (images, flip, verbs, labels, valid) on the device,
-        and the count of real rows."""
-        arrays, valid, n = self._pad_batch(batch)
+        and the count of real rows, synchronously on this thread."""
+        host, n = self._host_tensors(batch)
+        return tuple(host[k].to(self.device) for k in (
+            "images", "flip", "verbs", "labels", "valid")), n
 
-        def put(x, dtype):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(
-                device=self.device, dtype=dtype)
+    def _device_window_cache(self, dataset) -> torch.Tensor:
+        """A window-cached dataset's (N, S, S, 3) uint8 windows on the
+        device, uploaded once (in 256 MB chunks through one pinned buffer
+        on the card) and kept while the host array lives."""
+        host = dataset.window_cache
+        entry = self._window_caches.get(id(dataset))
+        if entry is not None and entry[0]() is host:
+            return entry[1]
+        if self.device.type != "cuda":
+            dev = torch.from_numpy(host)
+        else:
+            dev = torch.empty(host.shape, dtype=torch.uint8,
+                              device=self.device)
+            rows = max(1, (256 << 20) // max(1, host[0].nbytes))
+            pinned = torch.empty((min(rows, len(host)),) + host.shape[1:],
+                                 dtype=torch.uint8, pin_memory=True)
+            for start in range(0, len(host), rows):
+                part = host[start:start + rows]
+                pinned[:len(part)].numpy()[...] = part
+                dev[start:start + len(part)].copy_(pinned[:len(part)],
+                                                   non_blocking=True)
+                torch.cuda.current_stream(self.device).synchronize()
+        self._window_caches[id(dataset)] = (weakref.ref(host), dev)
+        return dev
 
-        return (put(arrays["images"], torch.uint8),
-                put(arrays["flip"], torch.bool),
-                put(arrays["verbs"], torch.long),
-                put(arrays["labels"], torch.long),
-                put(valid, torch.float32)), n
+    def _device_batches(self, loader):
+        """Iterate (device args (images, flip, verbs, labels, valid), host
+        batch, n) with the next batches staged ahead by an uploader thread
+        (see the module docstring).  A loader error is raised here, on the
+        consumer's thread, however full the queue is."""
+        ds = getattr(loader, "dataset", None)
+        cache = (self._device_window_cache(ds)
+                 if getattr(ds, "window_cached", False) else None)
+        cuda = self.device.type == "cuda"
+        depth = _upload_depth()
+        q: queue.Queue = queue.Queue(maxsize=depth)
+        stop = threading.Event()
+        end = object()
+        own_pool = False
+        if cuda:
+            index = (self.device.index if self.device.index is not None
+                     else torch.cuda.current_device())
+            side = torch.cuda.Stream(index)
+            # a slot for each batch queued, the one in use and the next;
+            # the trainer's pool unless another call holds it
+            own_pool = self._pinned_lock.acquire(blocking=False)
+            pool = self._pinned if own_pool else []
+            while len(pool) < depth + 2:
+                pool.append(_PinnedSlot())
+
+        def stage(batch, count):
+            host, n = self._host_tensors(batch)
+            if not cuda:
+                if "indices" in host:
+                    host["images"] = cache.index_select(
+                        0, host.pop("indices"))
+                return host, batch, n, None
+            if count == 0:
+                # every slot's buffers at once, before the first copy
+                for other in pool:
+                    for k, v in host.items():
+                        other.buffer(k, v)
+            slot = pool[count % len(pool)]
+            if slot.event is not None:
+                # its buffers' last copies must land before the refill
+                slot.event.synchronize()
+            with torch.cuda.stream(side):
+                dev = {}
+                for k, v in host.items():
+                    dev[k] = slot.buffer(k, v).copy_(v).to(
+                        self.device, non_blocking=True)
+                if "indices" in dev:
+                    dev["images"] = cache.index_select(0,
+                                                       dev.pop("indices"))
+                event = torch.cuda.Event()
+                event.record(side)
+            slot.event = event
+            return dev, batch, n, event
+
+        def work():
+            it = iter(loader)
+            try:
+                if cuda:
+                    torch.cuda.set_device(index)
+                for count, batch in enumerate(it):
+                    if not put_until_stopped(q, stage(batch, count), stop):
+                        return
+                put_until_stopped(q, end, stop)
+            except BaseException as e:  # raised on the consumer's thread
+                put_until_stopped(q, e, stop)
+            finally:
+                close = getattr(it, "close", None)
+                if close is not None:
+                    close()
+
+        t = threading.Thread(target=work, name="srtorch-uploader",
+                             daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                dev, batch, n, event = item
+                if event is not None:
+                    cur = torch.cuda.current_stream(self.device)
+                    cur.wait_event(event)
+                    # made on the side stream, used on this one
+                    for x in dev.values():
+                        x.record_stream(cur)
+                yield ((dev["images"], dev["flip"], dev["verbs"],
+                        dev["labels"], dev["valid"]), batch, n)
+        finally:
+            # the consumer may leave mid-epoch (preemption): let the
+            # uploader see the stop and wind its loader down
+            stop.set()
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            t.join()
+            if own_pool:
+                self._pinned_lock.release()
 
     @staticmethod
-    def _score(top1, top5, topk, batch, n):
+    def batches_on_device() -> int:
+        """The most batches ``_device_batches`` and the step loop hold on
+        the device at once: those queued, the one staging, the one in the
+        step and those in flight."""
+        return _upload_depth() + 2 + PIPELINE_DEPTH
+
+    @staticmethod
+    def _score(top1, top5, topk, verbs, labels, n):
         pv5, pn5, gt1 = (x.cpu().numpy()[:n] for x in topk)
-        verbs = np.asarray(batch["verbs"])[:n]
-        labels = np.asarray(batch["labels"])[:n]
         top1.add_point_indices(pv5[:, :1], verbs, pn5[:, :, :1], labels, gt1)
         top5.add_point_indices(pv5, verbs, pn5, labels)
 
     # ------------------------------------------------------------ epoch API
 
-    def train_epoch(self, loader, epoch: int):
+    def train_epoch(self, loader, epoch: int,
+                    timer: Optional[StepTimer] = None,
+                    mid_state: Optional[dict] = None,
+                    save_every: Optional[int] = None,
+                    save_callback=None, preempt=None):
         """One pass over ``loader`` (a train step per batch) → (top1,
-        top5 scorers, mean (verb, nouns, gt) losses)."""
+        top5 scorers, mean (verb, nouns, gt) losses).
+
+        ``save_every``: ``save_callback(mid)`` every N batches with a
+        resumable snapshot of the epoch's accumulators; passed back as
+        ``mid_state`` it continues the epoch at the next batch.
+        ``preempt`` (a ``threading.Event``): once set, the loop calls
+        ``save_callback`` at the next step boundary and raises
+        ``Preempted``."""
         if hasattr(loader, "set_epoch"):
             loader.set_epoch(epoch)
         top1 = ImsituScorer(self.encoder, 1, 3)
         top5 = ImsituScorer(self.encoder, 5, 3)
         sums = np.zeros(3)
         num_batches = 0
-        for batch in loader:
-            args, n = self._upload(batch)
-            losses, topk = self.train_step(*args)
-            self._score(top1, top5, topk, batch, n)
+        start_batch = 0
+        if mid_state is not None:
+            top1.load_state_dict(mid_state["top1"])
+            top5.load_state_dict(mid_state["top5"])
+            sums = np.asarray(history_list(mid_state["loss_sums"]),
+                              np.float64)
+            num_batches = int(mid_state["num_batches"])
+            start_batch = int(mid_state["batch_in_epoch"])
+            self.step_count = int(mid_state["step_count"])
+        if start_batch:
+            loader.start_batch = start_batch
+        batch_idx = start_batch
+        inflight: deque = deque()
+
+        def consume_one():
+            nonlocal num_batches, sums
+            losses, topk, verbs, labels, n = inflight.popleft()
             sums += losses.cpu().numpy()
+            self._score(top1, top5, topk, verbs, labels, n)
+            if timer is not None:
+                timer.lap(n)
             num_batches += 1
+
+        def mid():
+            return {"batch_in_epoch": batch_idx,
+                    "step_count": self.step_count,
+                    "top1": _plain(top1.state_dict()),
+                    "top5": _plain(top5.state_dict()),
+                    "loss_sums": [float(x) for x in sums],
+                    "num_batches": num_batches}
+
+        for args, batch, n in self._device_batches(loader):
+            losses, topk = self.train_step(*args)
+            # the sidecars are taken now: the in-flight window keeps
+            # nothing else of the host batch
+            inflight.append((losses, topk, np.asarray(batch["verbs"])[:n],
+                             np.asarray(batch["labels"])[:n], n))
             self.step_count += 1
+            batch_idx += 1
+            while len(inflight) > PIPELINE_DEPTH:
+                consume_one()
+            dispatched = num_batches + len(inflight)
+            want_save = bool(save_every and save_callback
+                             and dispatched % save_every == 0)
+            want_stop = preempt is not None and preempt.is_set()
+            if want_save or want_stop:
+                # a snapshot's scores cover exactly batch_in_epoch batches
+                while inflight:
+                    consume_one()
+                if save_callback:
+                    save_callback(mid())
+                if want_stop:
+                    raise Preempted(epoch, batch_idx,
+                                    saved=save_callback is not None)
+        while inflight:
+            consume_one()
         return top1, top5, tuple(sums / max(num_batches, 1))
 
-    def evaluate(self, loader, logging: bool = False):
+    def evaluate(self, loader, logging: bool = False, preempt=None):
         """An eval step per batch → (top1, top5, val_losses dict,
         avg_score); ``avg_score`` (the mean of the 8 metrics x100) and the
-        reference's printout only with ``logging``."""
+        reference's printout only with ``logging``.  ``preempt``: stop
+        between batches with ``Preempted`` (nothing here changes the
+        trainer's state, so the eval can simply run again)."""
         top1 = ImsituScorer(self.encoder, 1, 3)
         top5 = ImsituScorer(self.encoder, 5, 3)
         sums = np.zeros(3)
         num_batches = 0
         images = 0
-        t0 = time.perf_counter()
-        for batch in loader:
-            (imgs, _, verbs, labels, valid), n = self._upload(batch)
-            losses, topk = self.eval_step(imgs, verbs, labels, valid)
-            self._score(top1, top5, topk, batch, n)
+        inflight: deque = deque()
+
+        def consume_one():
+            nonlocal num_batches, sums, images
+            losses, topk, verbs, labels, n = inflight.popleft()
             sums += losses.cpu().numpy()
+            self._score(top1, top5, topk, verbs, labels, n)
             num_batches += 1
             images += n
+
+        t0 = time.perf_counter()
+        for (imgs, _, verbs, labels, valid), batch, n in \
+                self._device_batches(loader):
+            losses, topk = self.eval_step(imgs, verbs, labels, valid)
+            inflight.append((losses, topk, np.asarray(batch["verbs"])[:n],
+                             np.asarray(batch["labels"])[:n], n))
+            while len(inflight) > PIPELINE_DEPTH:
+                consume_one()
+            if preempt is not None and preempt.is_set():
+                raise Preempted(-1, num_batches + len(inflight))
+        while inflight:
+            consume_one()
         wall = time.perf_counter() - t0
         if images and wall > 0:
             print(f"[srtorch] eval: {images} img in {wall:.1f}s "
@@ -427,3 +837,416 @@ class Trainer:
                           format_dict(top5_a, '{:.2f}', '5-'),
                           format_dict(gt, '{:.2f}', ''), avg_score))
         return top1, top5, val_losses, avg_score
+
+    # ------------------------------------------------------------- fit loop
+
+    def fit(self, train_loader, dev_loader, model_saving_name: str,
+            folder: str, checkpoint: Optional[dict] = None,
+            plot: bool = True, save: bool = True,
+            timer: Optional[StepTimer] = None,
+            save_every_steps: Optional[int] = None,
+            handle_sigterm: bool = False, keep_best: bool = False,
+            metrics_jsonl: Optional[str] = None,
+            async_save: bool = False):
+        """The reference's ``train`` loop: per epoch the ``Epoch-<e>, lr``
+        line, ``train_epoch``, the training printout, the dev
+        ``evaluate``, the curve and a checkpoint that overwrites
+        ``<folder>/<model_saving_name>``.
+
+        ``checkpoint``: the bookkeeping of a resume (``epoch``, the
+        histories, ``mid``; model state in it is loaded too).
+        ``save_every_steps``: also a mid-epoch snapshot every N steps.
+        ``handle_sigterm``: SIGTERM sets a flag; the loop writes a
+        resumable snapshot at the next step boundary and returns (from the
+        main thread only, which alone may own a handler; the previous
+        handler is restored on exit).  ``keep_best``: the best val mean so
+        far (resumed history included) is also copied to
+        ``<name>_best``.  ``metrics_jsonl``: one JSON line per epoch.
+        ``async_save``: checkpoints are written by a background thread,
+        at most one in flight, joined before ``fit`` returns."""
+        histories = {k: [] for k in HISTORY_KEYS}
+        epoch = 0
+        mid_state = None
+        if checkpoint is not None:
+            epoch = int(checkpoint["epoch"])
+            for k in histories:
+                histories[k] = history_list(checkpoint.get(k, []))
+            if checkpoint.get("model_state_dict") is not None:
+                self.load_model_state(checkpoint)
+            mid_state = checkpoint.get("mid")
+
+        ckpt_path = os.path.join(folder, model_saving_name)
+        saver = AsyncSaver()
+
+        def save_mid(mid):
+            # the histories are copied: the writer never serialises lists
+            # the loop appends to
+            saver.save(ckpt_path, {
+                "epoch": self._current_epoch,
+                **{k: list(v) for k, v in histories.items()},
+                **self.model_state_snapshot(), "mid": mid},
+                background=async_save)
+
+        if timer is None:
+            timer = StepTimer()
+        preempt = threading.Event()
+        prev_handler = None
+        if handle_sigterm \
+                and threading.current_thread() is threading.main_thread():
+            prev_handler = signal.signal(
+                signal.SIGTERM, lambda signum, frame: preempt.set())
+        try:
+            self._fit_epochs(train_loader, dev_loader, model_saving_name,
+                             folder, histories, epoch, mid_state, plot,
+                             save, timer, save_every_steps, save_mid,
+                             preempt, keep_best, metrics_jsonl, saver,
+                             async_save)
+        except Preempted as p:
+            # stderr: stdout keeps the reference's format
+            if p.saved:
+                print(f'[srtorch] SIGTERM: saved resumable checkpoint at '
+                      f'epoch {p.epoch} batch {p.batch_in_epoch}; exiting '
+                      f'cleanly (relaunch with --resume_model to continue)',
+                      file=sys.stderr)
+            else:
+                print(f'[srtorch] SIGTERM: exiting cleanly at epoch '
+                      f'{p.epoch} (no new snapshot; resume from the last '
+                      f'saved checkpoint, if any)', file=sys.stderr)
+        finally:
+            saver.join()
+            if prev_handler is not None:
+                signal.signal(signal.SIGTERM, prev_handler)
+
+    def _fit_epochs(self, train_loader, dev_loader, model_saving_name,
+                    folder, histories, epoch, mid_state, plot, save, timer,
+                    save_every_steps, save_mid, preempt, keep_best,
+                    metrics_jsonl, saver, async_save):
+        path = os.path.join(folder, model_saving_name)
+        best_path = path + "_best"
+
+        def epoch_ckpt(next_epoch):
+            return {"epoch": next_epoch,
+                    **{k: list(v) for k, v in histories.items()},
+                    **self.model_state_snapshot()}
+
+        def is_best(val_avg):
+            # >= so that the first epoch seeds the best file; [:-1] holds
+            # the resumed history, so a restart never demotes a better
+            # earlier epoch
+            return keep_best and val_avg >= max(
+                histories["val_avg_scores"][:-1], default=-1.0)
+
+        def record_val(val_losses, val_avg):
+            histories["val_avg_scores"].append(float(val_avg))
+            histories["val_verb_losses"].append(
+                float(val_losses["verb_loss"]))
+            histories["val_nouns_losses"].append(
+                float(val_losses["nouns_loss"]))
+
+        if (dev_loader is not None and epoch > 0
+                and len(histories["val_avg_scores"])
+                < len(histories["avg_scores"])):
+            # the last run stopped in its dev eval, after the epoch's
+            # checkpoint: finish that eval first, so the histories align
+            print(f'[srtorch] completing the interrupted dev eval of epoch '
+                  f'{epoch - 1} (previous run stopped mid-eval)',
+                  file=sys.stderr)
+            try:
+                _, _, val_losses, val_avg = self.evaluate(
+                    dev_loader, logging=True, preempt=preempt)
+            except Preempted:
+                raise Preempted(epoch - 1, 0, saved=False)
+            record_val(val_losses, val_avg)
+            if metrics_jsonl:
+                with open(metrics_jsonl, "a") as f:
+                    f.write(json.dumps({
+                        "epoch": epoch - 1, "catch_up_eval": True,
+                        "val_losses": _plain(val_losses),
+                        "val_mean": float(val_avg),
+                        "time": time.time()}) + "\n")
+            if save:
+                saver.save(path, epoch_ckpt(epoch), background=async_save,
+                           copy_to=best_path if is_best(val_avg) else None)
+
+        for e in range(epoch, self.config.epochs):
+            if preempt.is_set():
+                # flagged between epochs: the last epoch's checkpoint is
+                # the resume point, nothing new is written
+                raise Preempted(e, 0)
+            # the reference prints the configured lr; with a schedule the
+            # rate of the epoch's first optimizer step
+            epoch_lr = self.current_lr()
+            print('Epoch-{}, lr: {:.4f}'.format(e, epoch_lr))
+            timer.reset()
+            self._current_epoch = e
+            top1, top5, (vloss, nloss, gloss) = self.train_epoch(
+                train_loader, e, timer=timer, mid_state=mid_state,
+                save_every=save_every_steps,
+                save_callback=save_mid if save else None, preempt=preempt)
+            mid_state = None
+            if timer.images_per_sec > 0:
+                print(f'[srtorch] epoch {e}: {timer.images_per_sec:.0f} '
+                      f'img/s, {timer.mean_step_time * 1000:.0f} ms/step',
+                      file=sys.stderr)
+            top1_a = top1.get_average_results_both()
+            top5_a = top5.get_average_results_both()
+            avg_score = mean_of_eight(top1_a, top5_a)
+            histories["avg_scores"].append(float(avg_score))
+            histories["verb_losses"].append(float(vloss))
+            histories["nouns_losses"].append(float(nloss))
+            print('training losses = [v: {:.2f}, n: {:.2f}, gt: {:.2f}]'
+                  .format(vloss, nloss, gloss))
+            gt = {k: top1_a[k] for k in ['gt-value', 'gt-value-all']}
+            one_val = {k: top1_a[k] for k in ['verb', 'value', 'value-all']}
+            print('{}\n{}\n{}, mean = {:.2f}\n{}'
+                  .format(format_dict(one_val, '{:.2f}', '1-'),
+                          format_dict(top5_a, '{:.2f}', '5-'),
+                          format_dict(gt, '{:.2f}', ''), avg_score,
+                          '-' * 50))
+            try:
+                _, _, val_losses, val_avg = self.evaluate(
+                    dev_loader, logging=True, preempt=preempt)
+            except Preempted:
+                # the epoch's training is done: write it with the val
+                # histories one short (the resume finishes the eval)
+                if save:
+                    saver.save(path, epoch_ckpt(e + 1), background=False)
+                raise Preempted(e, 0, saved=save)
+            record_val(val_losses, val_avg)
+            if metrics_jsonl:
+                with open(metrics_jsonl, "a") as f:
+                    f.write(json.dumps({
+                        "epoch": e, "lr": epoch_lr,
+                        "train_losses": {"verb": float(vloss),
+                                         "nouns": float(nloss),
+                                         "gt": float(gloss)},
+                        "train_top1": {k: v * 100 for k, v in top1_a.items()},
+                        "train_top5": {k: v * 100 for k, v in top5_a.items()},
+                        "train_mean": float(avg_score),
+                        "val_losses": _plain(val_losses),
+                        "val_mean": float(val_avg),
+                        "img_per_sec": timer.images_per_sec,
+                        "ms_per_step": timer.mean_step_time * 1000,
+                        "time": time.time()}) + "\n")
+            if plot:
+                self._plot(histories, path + ".png")
+            if save:
+                saver.save(path, epoch_ckpt(e + 1), background=async_save,
+                           copy_to=best_path if is_best(val_avg) else None)
+
+    @staticmethod
+    def _plot(histories, path):
+        """The reference's curve of the six histories; without
+        ``matplotlib`` one line on stderr and no figure."""
+        global _plot_warned
+        try:
+            import matplotlib
+        except ImportError:
+            if not _plot_warned:
+                print("[srtorch] matplotlib is not installed: no training "
+                      "curve is drawn", file=sys.stderr)
+                _plot_warned = True
+            return
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        plt.plot(histories["verb_losses"], label='verb losses')
+        plt.plot(histories["nouns_losses"], label='nouns losses')
+        plt.plot(histories["avg_scores"], label='accuracy mean')
+        plt.plot(histories["val_verb_losses"], '-.', label='val verb losses')
+        plt.plot(histories["val_nouns_losses"], '-.',
+                 label='val nouns losses')
+        plt.plot(histories["val_avg_scores"], '-.',
+                 label='val accuracy mean')
+        plt.grid()
+        plt.legend()
+        plt.savefig(path)
+        plt.clf()
+
+    # ----------------------------------------------------------- state mgmt
+
+    def _param_names(self) -> Tuple[list, list]:
+        """The trainable parameters' reference names: (in the reference's
+        registration order, which indexes its Adamax state: role_emb,
+        verb_emb, the backbone only when fine-tuned as
+        ``convnet_verbs.model.*``, ggsnn, the classifiers; in this
+        optimizer's order: the head, then the backbone)."""
+        head = [n for n, _ in self.head.named_parameters()]
+        bb = [REF_BACKBONE + n for n, _ in self.backbone.named_parameters()
+              ] if self._ft else []
+        return head[:2] + bb + head[2:], head + bb
+
+    def _backbone_source(self) -> "OrderedDict[str, torch.Tensor]":
+        """The backbone's state in f32 as a checkpoint holds it: a frozen
+        backbone's parameters from the host copy, the rest live."""
+        out: OrderedDict = OrderedDict()
+        for k, v in self.backbone.state_dict().items():
+            if self._bb_host is not None and k in self._bb_host:
+                out[k] = self._bb_host[k]
+            else:
+                out[k] = v
+        return out
+
+    def model_state_dict(self, snapshot: bool = False) -> dict:
+        """The model part of a checkpoint: ``model_state_dict`` (the
+        reference's keys and order, the backbone written to both twins,
+        ``num_batches_tracked`` 0), ``optimizer_state_dict`` (Adamax,
+        reference indices), ``step_count`` and ``opt_steps``.  Host
+        copies; with ``snapshot`` the mutable tensors are private copies
+        on their device instead (``model_state_snapshot``)."""
+        def get(t: torch.Tensor) -> torch.Tensor:
+            t = t.detach()
+            if snapshot:
+                return t.clone(memory_format=torch.contiguous_format)
+            return t.to("cpu", copy=True,
+                        memory_format=torch.contiguous_format)
+
+        bb: OrderedDict = OrderedDict()
+        for k, v in self._backbone_source().items():
+            if k.endswith("num_batches_tracked"):
+                bb[k] = torch.zeros((), dtype=torch.long)
+            elif self._bb_host is not None and k in self._bb_host:
+                bb[k] = v                    # immutable host copy
+            else:
+                bb[k] = get(v)
+        head = OrderedDict((k, get(v))
+                           for k, v in self.head.state_dict().items())
+        msd: OrderedDict = OrderedDict()
+        names = list(head)
+        for k in names[:2]:
+            msd[k] = head[k]
+        for prefix in (REF_BACKBONE, REF_TWIN):
+            # one tensor under both names: torch.save writes it once
+            for k, v in bb.items():
+                msd[prefix + k] = v
+        for k in names[2:]:
+            msd[k] = head[k]
+
+        osd = self.optimizer.state_dict()
+        ref, port = self._param_names()
+        where = {n: i for i, n in enumerate(ref)}
+        state = {}
+        for i, s in osd["state"].items():
+            state[where[port[i]]] = {k: get(v) if torch.is_tensor(v) else v
+                                     for k, v in s.items()}
+        group = {k: v for k, v in osd["param_groups"][0].items()
+                 if k not in ("params", "lr_ratio")}
+        group["params"] = list(range(len(where)))
+        return {"model_state_dict": msd,
+                "optimizer_state_dict": {
+                    "state": dict(sorted(state.items())),
+                    "param_groups": [group]},
+                "step_count": self.step_count,
+                "opt_steps": self.opt_steps}
+
+    def model_state_snapshot(self) -> dict:
+        """``model_state_dict`` with the mutable tensors as private copies
+        on the device, for ``AsyncSaver`` to fetch and write while the
+        loop trains on."""
+        return self.model_state_dict(snapshot=True)
+
+    def load_backbone_state(self, state, prefix: str = "backbone") -> None:
+        """Name-matched, tolerant load of a backbone state dict in the
+        port's (torchvision's) layout: keys it lacks print ``[Missed]``
+        and keep their values, other shapes ``[Mismatch]``, extra keys
+        (a torchvision ``fc``) are ignored."""
+        src = self._backbone_source()
+        merged = restore_tolerant(
+            OrderedDict((k, v.float() if v.is_floating_point() else v)
+                        for k, v in src.items()), state, prefix)
+        with torch.no_grad():
+            self.backbone.load_state_dict(merged, strict=True)
+        if not self._ft:
+            self._bb_host = {n: _host_f32(merged[n])
+                             for n, _ in self.backbone.named_parameters()}
+
+    def load_model_state(self, state: dict) -> None:
+        """Restore from a checkpoint dict (``load_checkpoint``: this
+        package's, the reference's or a JAX export): tolerant by name as
+        ``load_backbone_state``, with the backbone from ``convnet_verbs``
+        (the reference's twins' statistics can differ); Adamax through
+        ``_load_optimizer``; ``step_count`` and ``opt_steps`` where the
+        file has them."""
+        msd = state.get("model_state_dict")
+        keys = []
+        if msd is not None:
+            keys = list(msd)
+            bb, head = from_reference(msd)
+            self.load_backbone_state(bb, REF_BACKBONE.rstrip("."))
+            merged = restore_tolerant(self.head.state_dict(), head)
+            with torch.no_grad():
+                self.head.load_state_dict(merged, strict=True)
+        if state.get("step_count") is not None:
+            self.step_count = int(state["step_count"])
+        osd = state.get("optimizer_state_dict")
+        if osd and osd.get("param_groups"):
+            self._load_optimizer(osd, keys, state.get("opt_steps"))
+        else:
+            self.optimizer.state.clear()
+            self.opt_steps = int(state.get("opt_steps") or 0)
+        self._set_lr()
+
+    def _load_optimizer(self, osd: dict, keys: list, opt_steps) -> None:
+        """Adamax state indexed as the reference indexes it (its trainable
+        parameters in registration order: ``keys`` without the frozen
+        twins, or with ``convnet_verbs`` when the file's optimizer holds
+        the backbone) → this optimizer's indices.  A file whose trainable
+        set is not this trainer's (``train_backbone`` changed) prints
+        ``[Mismatch]`` and restarts Adamax."""
+        saved = [i for g in osd["param_groups"] for i in g["params"]]
+        bb_params = {n for n, _ in self.backbone.named_parameters()}
+        if keys:
+            head_only = [k for k in keys
+                         if not k.startswith((REF_BACKBONE, REF_TWIN))]
+            with_bb = [k for k in keys if not k.startswith(REF_TWIN) and (
+                not k.startswith(REF_BACKBONE)
+                or k[len(REF_BACKBONE):] in bb_params)]
+            names = next((c for c in (head_only, with_bb)
+                          if len(c) == len(saved)), None)
+        else:
+            names = self._param_names()[0]
+        port = {n: i for i, n in enumerate(self._param_names()[1])}
+        params = [p for g in self.optimizer.param_groups
+                  for p in g["params"]]
+        state, problem = {}, None
+        if names is None or len(names) != len(saved) \
+                or set(names) != set(port):
+            problem = "its parameters are not this trainer's"
+        else:
+            pstate = osd.get("state", {})
+            for idx, name in zip(saved, names):
+                s = pstate.get(idx, pstate.get(str(idx)))
+                if s is None:
+                    continue
+                p = params[port[name]]
+                if tuple(s["exp_avg"].shape) != tuple(p.shape):
+                    problem = f"{name} has shape {tuple(s['exp_avg'].shape)}"
+                    break
+                state[port[name]] = dict(s)
+        if problem is not None:
+            # the reference's tolerant-load stance: keep the parameters,
+            # restart the optimizer
+            print(f"[Mismatch]: optimizer state does not fit this "
+                  f"trainer's optimizer (train_backbone changed?) — "
+                  f"reinitializing it ({problem})")
+            self.optimizer.state.clear()
+            self.opt_steps = 0
+            return
+        groups = self.optimizer.state_dict()["param_groups"]
+        self.optimizer.load_state_dict({"state": state,
+                                        "param_groups": groups})
+        if opt_steps is None:
+            opt_steps = max((int(float(s["step"])) for s in state.values()),
+                            default=0)
+        self.opt_steps = int(opt_steps)
+
+
+def _plain(x):
+    """Numpy scalars in nested dicts → Python numbers (a checkpoint loads
+    with ``weights_only=True``)."""
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    if isinstance(x, np.generic):
+        return x.item()
+    return x
+

@@ -1,0 +1,73 @@
+"""The reference's metric formatting and step timing.
+
+Port of ``situation_recognition_tpu/utils/logging.py``: ``format_dict``
+(the reference's stdout format) and ``StepTimer``.  The JAX profiler hook
+has its counterpart in ``torch.profiler`` and is not ported here.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional
+
+
+def format_dict(d: Dict[str, float], s: str, p: str) -> str:
+    """'<p><key>: <s.format(v*100)>' joined by ', ' (reference format)."""
+    return ", ".join(p + str(k) + ": " + s.format(v * 100)
+                     for k, v in d.items())
+
+
+class StepTimer:
+    """Images/s and step time of a loop, skipping ``warmup_steps`` steps
+    (the first launches build and tune kernels)."""
+
+    def __init__(self, warmup_steps: int = 2):
+        self.warmup_steps = warmup_steps
+        self.reset()
+
+    def reset(self) -> None:
+        self._steps = 0
+        self._images = 0
+        self._time = 0.0
+        self._last: Optional[float] = None
+
+    def start(self) -> None:
+        self._last = time.perf_counter()
+
+    def stop(self, num_images: int) -> float:
+        if self._last is None:
+            raise RuntimeError("StepTimer.stop() without a matching "
+                               "start() (or after reset())")
+        dt = time.perf_counter() - self._last
+        self._steps += 1
+        if self._steps > self.warmup_steps:
+            self._images += num_images
+            self._time += dt
+        return dt
+
+    def lap(self, num_images: int) -> float:
+        """Interval timing for pipelined loops: each call records the time
+        since the previous ``lap`` as one step of ``num_images``.  The
+        first lap after ``reset`` only arms the clock, and
+        ``warmup_steps`` more are skipped, as with ``start``/``stop``."""
+        now = time.perf_counter()
+        if self._last is None:
+            self._last = now
+            self._steps += 1
+            return 0.0
+        dt = now - self._last
+        self._last = now
+        self._steps += 1
+        if self._steps > self.warmup_steps:
+            self._images += num_images
+            self._time += dt
+        return dt
+
+    @property
+    def images_per_sec(self) -> float:
+        return self._images / self._time if self._time > 0 else 0.0
+
+    @property
+    def mean_step_time(self) -> float:
+        n = self._steps - self.warmup_steps
+        return self._time / n if n > 0 else 0.0

@@ -824,3 +824,169 @@ def test_vit_serving_on_the_card_uses_the_kernels(cuda_device, tmp_path):
     assert torch.isfinite(verb_logits).all() and torch.isfinite(nouns).all()
     pv, _, _ = plain(images)
     assert (verb_logits - pv).abs().max().item() < 0.25
+
+
+# ---------------------------------------------- checkpoints and the uploader
+
+
+def _mini_trainer(device, dtype, **kw):
+    from situation_recognition_tpu_torch.data.encoder import ImsituEncoder
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+
+    return Trainer(ImsituEncoder.synthetic_full(0), TrainerConfig(
+        hidden=64, batch_size=8, backbone="mini", compute_dtype=dtype,
+        **kw), device=device)
+
+
+def _host_batches(enc, sizes, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in sizes:
+        verbs = rng.integers(0, enc.get_num_verbs(), n)
+        out.append({"images": rng.integers(0, 256, (n, 256, 256, 3),
+                                           dtype=np.uint8),
+                    "flip": rng.random(n) < 0.5,
+                    "verbs": verbs.astype(np.int32),
+                    "labels": rng.integers(0, enc.get_num_labels(),
+                                           (n, 3, enc.max_role_count)
+                                           ).astype(np.int32)})
+    return out
+
+
+def _assert_tree_bit_equal(a, b, path=""):
+    if torch.is_tensor(a):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()), path
+    elif isinstance(a, dict):
+        assert list(a) == list(b), path
+        for k in a:
+            _assert_tree_bit_equal(a[k], b[k], f"{path}.{k}")
+    else:
+        assert a == b, path
+
+
+def test_reference_checkpoint_through_a_bf16_frozen_trainer_is_bit_equal(
+        cuda_device, tmp_path):
+    """A reference-layout checkpoint (f32, from a CPU trainer after a
+    step) loaded into a bf16 trainer on the card, whose convolutions are
+    cast in place, saves back bit for bit: the f32 sources are kept."""
+    from situation_recognition_tpu_torch.utils.checkpoint import (
+        load_checkpoint, save_checkpoint)
+
+    src = _mini_trainer("cpu", torch.float32)
+    batch = _host_batches(src.encoder, (8,), 0)
+    src.train_epoch(batch, 0)
+    path = str(tmp_path / "ref")
+    save_checkpoint(path, {"epoch": 1, **src.model_state_dict()})
+    card = _mini_trainer(cuda_device, torch.bfloat16)
+    conv = card.backbone.conv1.weight
+    assert conv.dtype == torch.bfloat16 and conv.is_cuda
+    ck = load_checkpoint(path)
+    card.load_model_state(ck)
+    save_checkpoint(str(tmp_path / "again"),
+                    {"epoch": 1, **card.model_state_dict()})
+    _assert_tree_bit_equal(load_checkpoint(str(tmp_path / "again")), ck)
+    # and after a step on the card the frozen convolutions still save f32
+    card.train_epoch(_host_batches(card.encoder, (8,), 1), 1)
+    msd = card.model_state_dict()["model_state_dict"]
+    assert torch.equal(msd["convnet_verbs.model.conv1.weight"],
+                       ck["model_state_dict"][
+                           "convnet_verbs.model.conv1.weight"])
+
+
+@pytest.mark.parametrize("train_backbone", [False, True])
+def test_cache_device_reserve_covers_a_fit_run(cuda_device, tmp_path,
+                                               capsys, train_backbone):
+    """``--cache_device``'s reserve, measured by its probe, covers the
+    device memory a ``fit`` of the same configuration takes: an epoch with
+    an asynchronous snapshot after every step, then its dev eval."""
+    from situation_recognition_tpu_torch import cli
+    from situation_recognition_tpu_torch.data.encoder import ImsituEncoder
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+
+    enc = ImsituEncoder.synthetic_full(0)
+    cfg = TrainerConfig(hidden=64, batch_size=32, backbone="mini",
+                        compute_dtype=torch.bfloat16, epochs=1,
+                        train_backbone=train_backbone)
+    reserve = cli._working_reserve(enc, cfg, cuda_device, 256, train=True)
+    assert reserve > 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(enc, cfg, device=cuda_device)
+    tr.fit(_host_batches(enc, (32, 32, 32, 20), 4),
+           _host_batches(enc, (32, 32), 5), "sr", folder=str(tmp_path),
+           plot=False, save_every_steps=1, async_save=True)
+    torch.cuda.synchronize()
+    took = torch.cuda.max_memory_reserved() - base
+    capsys.readouterr()
+    assert took <= reserve, (took, reserve)
+
+
+@pytest.mark.parametrize("depth", ["1", "3"])
+def test_uploader_batches_equal_the_host_batches(cuda_device, monkeypatch,
+                                                 depth):
+    """Over 3 epochs (a short last batch each), every device batch the
+    uploader hands over equals the padded host batch."""
+    monkeypatch.setenv("SRTPU_UPLOAD_DEPTH", depth)
+    tr = _mini_trainer(cuda_device, torch.bfloat16)
+    for epoch in range(3):
+        host = _host_batches(tr.encoder, (8, 8, 8, 5), 10 + epoch)
+        seen = 0
+        for (images, flip, verbs, labels, valid), batch, n in \
+                tr._device_batches(host):
+            arrays, hvalid, hn = tr._pad_batch(host[seen])
+            assert n == hn and batch is host[seen]
+            for got, want in ((images, arrays["images"]),
+                              (flip, arrays["flip"]),
+                              (verbs, arrays["verbs"]),
+                              (labels, arrays["labels"]),
+                              (valid, hvalid)):
+                assert got.is_cuda
+                np.testing.assert_array_equal(got.cpu().numpy(),
+                                              want.astype(
+                                                  got.cpu().numpy().dtype))
+            # work queued on the step's stream reads the uploaded bytes
+            assert int(images.sum()) == int(arrays["images"].sum())
+            seen += 1
+        assert seen == 4
+
+
+def test_window_cache_gathers_equal_streamed_batches(cuda_device, tmp_path):
+    """``--cache_device``: the device gather of a window-cached split
+    equals the streamed (pinned upload) batches of the same split."""
+    import json
+    import os
+
+    from situation_recognition_tpu_torch.data import dataset as tds
+    from situation_recognition_tpu_torch.data.encoder import ImsituEncoder
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "imSitu", "overfitting.json")) as f:
+        ann = json.load(f)
+    rng = np.random.default_rng(3)
+    tds.write_packed(str(tmp_path), ((n, rng.integers(
+        0, 256, (256, 256, 3), dtype=np.uint8)) for n in ann))
+    enc = ImsituEncoder(ann, verbose=False)
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+
+    tr = Trainer(enc, TrainerConfig(hidden=64, batch_size=2,
+                                    backbone="mini",
+                                    compute_dtype=torch.bfloat16),
+                 device=cuda_device)
+    for train in (True, False):
+        loaders = []
+        for cached in (False, True):
+            ds = tds.ImsituDataset(str(tmp_path), ann, enc, train=train)
+            ds.enable_packed(str(tmp_path))
+            if cached:
+                ds.enable_window_cache()
+            loaders.append(tds.ImsituLoader(ds, 2, shuffle=train, seed=5))
+        for epoch in range(2):
+            for ld in loaders:
+                ld.set_epoch(epoch)
+            pairs = zip(*(list(tr._device_batches(ld)) for ld in loaders))
+            for (streamed, sb, sn), (cached, cb, cn) in pairs:
+                assert "indices" in cb and "images" in sb and sn == cn
+                for a, b in zip(streamed, cached):
+                    assert torch.equal(a, b)

@@ -63,3 +63,93 @@ def test_dict_roundtrip_and_jax_interchange(source):
         for name in _TABLES:
             np.testing.assert_array_equal(getattr(enc, name),
                                           getattr(ours, name))
+
+
+def _json(name):
+    with open(os.path.join(_REPO, "imSitu", name)) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("name", ["overfitting.json", "o.json"])
+def test_encode_and_lookups_equal_jax(name):
+    """``encode``, ``get_label_ids``, the role lookups and the per-verb
+    counts of every record equal the JAX encoder's, exactly."""
+    data = _json(name)
+    ours = ImsituEncoder(data, verbose=False)
+    ref = JaxEncoder(data, verbose=False)
+    for item in data.values():
+        v, labels = ours.encode(item)
+        jv, jlabels = ref.encode(item)
+        assert v == jv
+        assert labels.dtype == jlabels.dtype
+        np.testing.assert_array_equal(labels, jlabels)
+        np.testing.assert_array_equal(
+            ours.get_label_ids(item["verb"], item["frames"]),
+            ref.get_label_ids(item["verb"], item["frames"]))
+    verbs = np.arange(ours.get_num_verbs())
+    for v in verbs:
+        assert ours.get_role_count(v) == ref.get_role_count(v)
+        np.testing.assert_array_equal(ours.get_role_ids(v),
+                                      ref.get_role_ids(v))
+    np.testing.assert_array_equal(ours.get_role_ids_batch(verbs[::-1]),
+                                  ref.get_role_ids_batch(verbs[::-1]))
+    np.testing.assert_array_equal(
+        ours.get_verb2role_encoding_batch(verbs),
+        ref.get_verb2role_encoding_batch(verbs))
+
+
+def test_unseen_label_maps_to_unk_or_raises():
+    data = _json("overfitting.json")
+    ours = ImsituEncoder(data, verbose=False)
+    ref = JaxEncoder(data, verbose=False)
+    item = dict(next(iter(data.values())))
+    role = ours.roles_per_verb[item["verb"]][0]
+    item["frames"] = [dict(f, **{role: "never-seen"})
+                      for f in item["frames"]]
+    if "UNK" in ours.label_list:
+        np.testing.assert_array_equal(ours.encode(item)[1],
+                                      ref.encode(item)[1])
+    else:
+        with pytest.raises(ValueError):
+            ours.encode(item)
+        with pytest.raises(ValueError):
+            ref.encode(item)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_transforms_equal_jax(train):
+    """``dev_transform`` / ``train_transform`` of one image against the
+    JAX encoder's: the same window and flip draws from the same seed, and
+    f32 transforms within ``test_torch_transforms.py``'s f32 tolerance
+    (rtol 1e-5, atol 2e-5)."""
+    ours = ImsituEncoder.synthetic_full(0)
+    ref = JaxEncoder.synthetic_full(0)
+    img = np.random.default_rng(3).integers(0, 256, (256, 300, 3),
+                                            dtype=np.uint8)
+    if train:
+        got = ours.train_transform(img, np.random.default_rng(7))
+        want = ref.train_transform(img, np.random.default_rng(7))
+    else:
+        got, want = ours.dev_transform(img), ref.dev_transform(img)
+    assert got.shape == want.shape == (224, 224, 3)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("name", ["overfitting.json", "o.json"])
+def test_save_load_round_trip_and_jax_file(tmp_path, name):
+    """The port's ``save``/``load`` round-trips, and the file the JAX
+    encoder saves (the CLI's ``<saving_folder>/encoder``) loads here into
+    the same tables, and the port's file into the JAX encoder."""
+    data = _json(name)
+    ours = ImsituEncoder(data, verbose=False)
+    ref = JaxEncoder(data, verbose=False)
+    ours.save(str(tmp_path / "port"))
+    ref.save(str(tmp_path / "jax"))
+    for enc in (ImsituEncoder.load(str(tmp_path / "port")),
+                ImsituEncoder.load(str(tmp_path / "jax")),
+                JaxEncoder.load(str(tmp_path / "port"))):
+        for attr in _VOCAB:
+            assert getattr(enc, attr) == getattr(ours, attr), attr
+        for attr in _TABLES:
+            np.testing.assert_array_equal(getattr(enc, attr),
+                                          getattr(ours, attr))

@@ -44,8 +44,10 @@ def test_no_jax_imports(path):
 
 def test_importing_the_port_loads_no_jax():
     modules = ["situation_recognition_tpu_torch." + m for m in (
-        "device", "convert", "serving", "server", "train", "data.encoder",
-        "data.transforms", "metrics.scorer", "ops.ggnn", "ops.ggnn_kernel",
+        "device", "convert", "serving", "server", "train", "cli",
+        "data.encoder", "data.transforms", "data.dataset",
+        "data.native_decoder", "utils.checkpoint", "utils.logging",
+        "metrics.scorer", "ops.ggnn", "ops.ggnn_kernel",
         "ops.ggnn_train", "ops._build", "ops.vit", "ops.vit_kernel",
         "ops.vit_train",
         "models.resnet", "models.vit", "models.backbone", "models.fcggnn")]
