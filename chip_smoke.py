@@ -23,7 +23,10 @@ Phases, each printing its seconds:
              the route's parameter products on the tensor cores against
              f32 products of f32 copies (checked, both timed, TF32 off),
              and after the last phase its device time by launch kind
-             (``torch.profiler``: drh, dagg, E, dh, prep).  Then the
+             (``torch.profiler``: drh, dagg, E, dh, prep).  K3 and K1
+             also at d=512 (resnet18/34's head, noun and verb shapes),
+             and K1 at single-image inference's M = 6 (nouns) and M = 1
+             (verb) at d=2048.  Then the
              whole differentiated propagate (forward + backward, the
              parameter products included) through each route: the K2/K3
              autograd Function and autograd over the masked-sum math.
@@ -48,6 +51,26 @@ Phases, each printing its seconds:
              for the gt branch; K2 and K3 twice each under ``pallas``,
              never under ``xla``) and per eval batch (K1 three times); 8
              finite scores in [0, 100]; training and eval img/s.
+5b. accum  — gradient accumulation at the flagship (ResNet-152, d=2048,
+             bf16): ``grad_accum`` 2 at microbatch 128 against batch 256.
+             A group of two microbatches A and B (B: A's verbs in
+             another order, so that the noun losses' denominators agree)
+             against one step on [A; B] (dropout 0, eval-mode BN): the
+             mean gradient of every head tensor as the clip receives it
+             within ``ACCUM_GRAD_REL``, and the clip's global norm; the
+             launches
+             of one microbatch (K1 once; K2 and K3 twice each under
+             ``pallas``); three microbatches end an epoch in two optimizer
+             steps; then with train-mode BN, the steady optimizer step of
+             20 groups at 128 beside 20 steps at 256 from the same rows
+             (the fill left out), and a profiled one's device time.
+5c. resnets — resnet18, 34, 50 and 101 at their published widths (head
+             512, 512, 2048, 2048) and depths + FCGGNN, bf16, batch 256,
+             random weights from ``--seed``: a warm train step and a loop
+             of 20, a warm eval batch and a loop of 20; finite losses, K1
+             once a train step and 3 times an eval batch, train and eval
+             img/s of the steady loops (the fill left out) beside a
+             profiled step's and batch's device time.
 6. cli     — the reference CLI's path through ``cli.main`` in this
              process, at full width (ResNet-152 + FCGGNN, d=2048, batch
              256, bf16): a synthetic imSitu folder in a temporary directory
@@ -71,6 +94,15 @@ Phases, each printing its seconds:
              the device time of a profiled step, the packed loader's host
              time per batch, a batch's upload from pinned against pageable
              memory, the checkpoint's size and save and load seconds.
+             Then a ``--grad_accum 2`` training run (microbatch 128;
+             snapshots with ``--save_steps 1`` after each group only; K1
+             once a microbatch and 3 times an eval batch), and from the
+             folder's root (whose ``imSitu/imsitu_space.json`` the
+             inference reads) on the trained checkpoint ``--test_img``
+             without and with ``--verb`` and ``--subset 2``: each
+             transcript in the form of its golden under ``tests/golden``,
+             K1 twice an image for a predicted verb and once for a given
+             one; and the per-image latency of single-image inference.
 7. vit     — ViT-L/14 + FCGGNN(1024) at full width (224², 257 tokens, 24
              blocks, 16 heads, bf16, batch 256, random weights from
              ``--seed``).  Kernels: K4 (qkv), K6 (out-MLP, both GELUs),
@@ -104,7 +136,15 @@ Phases, each printing its seconds:
              warm step, 2 timed steps with their launches (K7 48, K8 24, K1
              1, K4/K6 0 per step), a profile of one step, the backbone
              parameters that moved, peak memory, then an eval batch
-             through the forward kernels.
+             through the forward kernels.  Then ``grad_accum`` 2 at
+             microbatch 128 against batch 256 (dropout 0, each trainer
+             alone on the card): a group of A and B against a step on
+             [A; B] (the mean gradient of every head and backbone tensor
+             as the clip receives it, within ``ACCUM_GRAD_REL``), and a
+             loop of 8 groups with its launches (K7 48 and K8 24 a
+             microbatch), steady optimizer step and peak memory beside
+             the step's; ``--cache_device``'s reserve, probed for the
+             accumulating run, covers what that trainer took.
 
 Then a ``kernels`` JSON line (the entries of K1–K3 and of the ViT kernels
 with the registers, spills and shared memory that ``-Xptxas -v``
@@ -136,6 +176,8 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 BACKBONE, D, STEPS = "resnet152", 2048, 4
+# the head width of resnet18/34 (BasicBlock stacks)
+SMALL_D = 512
 DEVICE = "cuda"
 # kernel vs twin: the same bf16 operands with f32 sums of 2048-4096 terms
 # in other orders; a last-bit flip of a bf16 intermediate moves h by a few
@@ -385,18 +427,24 @@ def phase_kernel(enc, seed: int, batch: int) -> dict:
 
         # K3 from K2's residuals, against the twin on the same residuals
         k3_rows.append(_k3_row(tag, m, D, r, mask, weights, got_res, gen))
-    # K3 at the ViT head's width, noun and verb
-    params_1024 = _ggnn_params(1024, gen)
-    for label, b, r, m, h, mask in _shape_cases(enc, gen, batch, 1024,
-                                                ragged=False):
-        weights = tk.fold_gate_weights(params_1024, float(r))
-        _, res = tk.folded_rows_res(h, mask, weights, r, STEPS)
-        k3_rows.append(_k3_row(
-            f"{label} B={b} R={r} M={m} d=1024 steps={STEPS}", m, 1024, r,
-            mask, weights, res, gen))
+    # K3 at the ViT head's width and at resnet18/34's, noun and verb
+    for d in (1024, SMALL_D):
+        params_d = _ggnn_params(d, gen)
+        for label, b, r, m, h, mask in _shape_cases(enc, gen, batch, d,
+                                                    ragged=False):
+            weights = tk.fold_gate_weights(params_d, float(r))
+            _, res = tk.folded_rows_res(h, mask, weights, r, STEPS)
+            k3_rows.append(_k3_row(
+                f"{label} B={b} R={r} M={m} d={d} steps={STEPS}", m, d, r,
+                mask, weights, res, gen))
+    # K1 at single-image inference's shapes (M = 6 nouns, M = 1 verb) and
+    # at resnet18/34's width
+    k1_more = (_k1_rows_at(enc, gen, 1, D, tag="kernel")
+               + _k1_rows_at(enc, gen, batch, SMALL_D, tag="kernel"))
     routes = [_route_times(params, mask_case)
               for mask_case in _route_cases(enc, gen, batch)]
     return {"shapes": shapes, "res_shapes": res_shapes,
+            "k1_more": k1_more,
             "bwd_shapes": [row for row, _ in k3_rows],
             "k3_inputs": k3_rows, "routes": routes}
 
@@ -821,17 +869,20 @@ def phase_path(enc, seed: int, batch: int, card: str) -> dict:
     return result
 
 
-def _train_batches(enc, seed: int, batch: int, count: int):
+def _train_batches(enc, seed: int, batch: int, count: int, verbs=None):
     """``count`` host batches of ``batch`` synthetic uint8 windows, verbs
-    drawn from the ``synthetic_full`` tables and labels with the ignore
-    index outside each verb's roles."""
+    drawn from the ``synthetic_full`` tables (or each batch a permutation
+    of ``verbs``) and labels with the ignore index outside each verb's
+    roles."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     n_labels, roles = enc.get_num_labels(), enc.max_role_count
+    given = verbs
     out = []
     for _ in range(count):
-        verbs = rng.integers(0, enc.get_num_verbs(), batch)
+        verbs = rng.integers(0, enc.get_num_verbs(), batch) \
+            if given is None else rng.permutation(given)
         labels = rng.integers(0, n_labels, (batch, 3, roles))
         real = np.arange(roles)[None, None, :] \
             < enc.role_counts[verbs][:, None, None]
@@ -894,8 +945,9 @@ def _fixed_verb_grads(trainer, batch) -> dict:
     return {"grad_rel": rel, "verb_argmax_agree": agree}
 
 
-def _profile(label: str, fn, tag: str = "train") -> dict:
-    """Device time of ``fn()`` by kernel name (torch.profiler)."""
+def _profile(label: str, fn, tag: str = "train", top: int = 15) -> dict:
+    """Device time of ``fn()`` by kernel name (torch.profiler); the
+    ``top`` kernels are logged."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -917,12 +969,54 @@ def _profile(label: str, fn, tag: str = "train") -> dict:
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
     _log(f"[{tag}] profile of {label}: device time {total:.3f} ms over "
-         f"{len(rows)} kernel names; top 15:")
-    for ms, count, key in rows[:15]:
+         f"{len(rows)} kernel names; top {top}:")
+    for ms, count, key in rows[:top]:
         _log(f"[{tag}]   {ms:9.3f} ms  x{count:<5d} {key}")
     return {"device_ms": total,
             "top": [{"ms": ms, "count": c, "kernel": k}
                     for ms, c, k in rows[:25]]}
+
+
+def _steady_loop(obj, method: str, run, fill: int, unit: int = 1) -> dict:
+    """Host-clock timing of ``run()``, a loop that calls ``obj.<method>``
+    once a step (a train step or microbatch, an eval batch): the steady
+    step is the mean gap between step starts once ``fill`` steps have
+    filled the pipeline, over whole groups of ``unit`` steps (a group of
+    ``grad_accum`` microbatches takes one optimizer step); the fill (loop
+    start to that step) and the drain (the last start to the loop's end)
+    apart, and the host's time to enqueue each step."""
+    import torch
+
+    starts, dispatch = [], []
+    step = getattr(obj, method)
+
+    def timed_step(*args, **kwargs):
+        t0 = time.perf_counter()
+        starts.append(t0)
+        out = step(*args, **kwargs)
+        dispatch.append(time.perf_counter() - t0)
+        return out
+
+    setattr(obj, method, timed_step)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        delattr(obj, method)
+    steps = len(starts)
+    gaps = (steps - 1 - fill) // unit * unit
+    if gaps <= 0:
+        raise SystemExit(f"{steps} calls of {method}: none after the fill "
+                         f"of {fill}")
+    return {"steps": steps,
+            "steady_ms": (starts[fill + gaps] - starts[fill]) * 1e3 / gaps,
+            "fill_ms": (starts[fill] - t0) * 1e3,
+            "drain_ms": (t1 - starts[-1]) * 1e3,
+            "whole_ms_per_step": (t1 - t0) * 1e3 / steps,
+            "dispatch_ms": [x * 1e3 for x in dispatch]}
 
 
 def phase_train(enc, seed: int, batch: int) -> dict:
@@ -1056,6 +1150,322 @@ def phase_train(enc, seed: int, batch: int) -> dict:
             or cos < ROUTE_UPDATE_COS):
         raise SystemExit("the two GGNN backward routes disagree")
     return result
+
+
+# ------------------------------------------------- gradient accumulation
+
+#: microbatches per optimizer step in the accumulation parts; the
+#: flagship's timed groups, and the leading calls (microbatches or steps)
+#: that fill the pipeline, left out of the steady step (``_steady_loop``)
+ACCUM, ACCUM_TIMED_GROUPS, ACCUM_FILL = 2, 20, 4
+# a group of two different microbatches A and B against one step on
+# [A; B] at twice the batch, bf16, dropout 0, eval-mode BN: the same rows
+# through the same kernels.  The noun losses divide by the batch's count
+# of labelled roles, so a group's mean of microbatch means (JAX's too)
+# equals the big batch's only where the microbatches hold equal counts: B
+# takes A's verbs in another order (other windows, flips and labels), and
+# exact arithmetic gives the same mean gradient.  It is compared as
+# ``apply_step`` hands it to the clip (summed, divided by the count), so
+# that the clip cannot hide a wrong sum or count.  A bf16 product's weight
+# gradient sums over the batch's rows and is rounded to bf16 once per
+# microbatch here, once for the batch there (2^-9 relative per element),
+# and cuDNN and cuBLAS may pick other kernels (and f32 sum orders) at the
+# two batch sizes, which flips the last bit of bf16 intermediates now and
+# then; relative Frobenius error of each tensor's mean gradient, 10x what
+# those roundings give.  The verb logits of random weights are bf16 values
+# that often tie: such a flip can move a row's argmax verb, and with it
+# which rows of the embedding tables its noun branch reaches (one row of
+# 128 moves ~10% of verb_emb's gradient), so the check first makes one
+# verb decisive (``_decisive_verb``)
+ACCUM_GRAD_REL = 2e-2
+# its margin over the other verbs' logits (theirs are of order 1)
+DECISIVE_MARGIN = 8.0
+
+
+def _decisive_verb(*trainers) -> None:
+    """The same verb the argmax of every row: ``DECISIVE_MARGIN`` added
+    to verb 0's classifier bias in each trainer (their heads are equal)."""
+    import torch
+
+    for trainer in trainers:
+        with torch.no_grad():
+            trainer.head.verb_classifier[1].bias[0] += DECISIVE_MARGIN
+
+
+def _group_grads(trainer, batches) -> tuple:
+    """The mean gradient of one group of ``batches`` as ``apply_step``
+    hands it to the clip (``accum_step`` sums each batch into ``.grad``,
+    ``apply_step`` divides by their count), as f32 copies, and the global
+    norm that the clip finds (above 1 the clip scales it down); the
+    optimizer step itself runs."""
+    import torch
+
+    seen = []
+    clip = torch.nn.utils.clip_grad_norm_
+
+    def capture(params, *args, **kwargs):
+        seen.append([torch.zeros_like(p, dtype=torch.float32)
+                     if p.grad is None else p.grad.detach().float().clone()
+                     for p in trainer._trainable])
+        norm = clip(params, *args, **kwargs)
+        seen.append(float(norm))
+        return norm
+
+    torch.nn.utils.clip_grad_norm_ = capture
+    try:
+        for i, batch in enumerate(batches):
+            args, _ = trainer._upload(batch)
+            trainer.accum_step(*args, first=i == 0)
+        trainer.apply_step(len(batches))
+    finally:
+        torch.nn.utils.clip_grad_norm_ = clip
+    return seen[0], seen[1]
+
+
+def _grad_rel(got, want, names) -> dict:
+    """Relative Frobenius error of each tensor of ``got`` against
+    ``want`` (on the card, one tensor at a time)."""
+    out = {}
+    for name, g, w in zip(names, got, want):
+        g, w = g.to(DEVICE), w.to(DEVICE)
+        out[name] = ((g - w).norm() / (w.norm() + 1e-30)).item()
+    return out
+
+
+def _cat(*batches) -> dict:
+    """[A; B; ...]: host batches stacked into one."""
+    import numpy as np
+
+    return {k: np.concatenate([b[k] for b in batches]) for k in batches[0]}
+
+
+def phase_accum(enc, seed: int, batch: int) -> dict:
+    """Gradient accumulation at the flagship (ResNet-152 + FCGGNN, d=2048,
+    bf16): ``grad_accum`` 2 at microbatch batch/2 (see the module
+    docstring)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from situation_recognition_tpu_torch.data.transforms import (
+        eval_transform)
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+
+    micro = batch // ACCUM
+    t = time.perf_counter()
+
+    def make(b, accum):
+        return Trainer(enc, TrainerConfig(
+            hidden=D, batch_size=b, backbone=BACKBONE,
+            compute_dtype=torch.bfloat16, seed=seed, grad_accum=accum,
+            dropout_rate=0.0, frozen_backbone_bn="eval"), device=DEVICE)
+
+    acc, big = make(micro, ACCUM), make(batch, 1)
+    host = _train_batches(enc, seed + 7, micro, 8)
+    # B for the check: A's verbs in another order (see ACCUM_GRAD_REL)
+    b = _train_batches(enc, seed + 8, micro, 1, verbs=host[0]["verbs"])[0]
+    _set_bn_statistics(acc.backbone, eval_transform(
+        torch.from_numpy(host[0]["images"][:64]).to(DEVICE),
+        dtype=torch.bfloat16))
+    big.backbone.load_state_dict(acc.backbone.state_dict())
+    _phase("accum: trainers + BN statistics", t)
+    result = {"micro": micro, "grad_accum": ACCUM, "batch": batch}
+
+    # the group of A and B against the big batch [A; B]
+    a = host[0]
+    _decisive_verb(acc, big)
+    _zero_counts()
+    got, got_norm = _group_grads(acc, [a, b])
+    torch.cuda.synchronize()
+    result["check_launches"] = _counts()
+    want, want_norm = _group_grads(big, [_cat(a, b)])
+    names = [n for n, _ in acc.head.named_parameters()]
+    rel = _grad_rel(got, want, names)
+    del got, want
+    result["grad_rel"] = rel
+    result["grad_rel_max"] = max(rel.values())
+    result["tol_grad_rel"] = ACCUM_GRAD_REL
+    result["preclip_norm"] = {"accum": got_norm, "batch": want_norm}
+    _log("[accum] a group of A and B vs one step on [A; B]: " + json.dumps(
+        {"grad_rel_max": result["grad_rel_max"], "tol": ACCUM_GRAD_REL,
+         "preclip_norm": result["preclip_norm"],
+         "launches": result["check_launches"]}))
+    if result["grad_rel_max"] > ACCUM_GRAD_REL:
+        raise SystemExit(f"the accumulated gradient differs from the big "
+                         f"batch's: {rel}")
+
+    # launches of one microbatch under each GGNN backward route
+    old_env = os.environ.get("SRTPU_GGNN_BWD")
+    per_micro = {}
+    try:
+        for route in ("xla", "pallas"):
+            os.environ["SRTPU_GGNN_BWD"] = route
+            args, _ = acc._upload(host[1])
+            torch.cuda.synchronize()
+            _zero_counts()
+            acc.accum_step(*args, first=True)
+            torch.cuda.synchronize()
+            per_micro[route] = _counts()
+    finally:
+        if old_env is None:
+            os.environ.pop("SRTPU_GGNN_BWD", None)
+        else:
+            os.environ["SRTPU_GGNN_BWD"] = old_env
+    result["launches_per_microbatch"] = per_micro
+    acc.optimizer.zero_grad(set_to_none=True)
+    for route, k23 in (("xla", 0), ("pallas", 2)):
+        if per_micro[route] != {"K1": 1, "K2": k23, "K3": k23}:
+            raise SystemExit(f"launches per microbatch under {route}: "
+                             f"{per_micro[route]}, want K1 1, K2/K3 {k23}")
+
+    # three microbatches end an epoch in two optimizer steps
+    steps0, count0 = acc.opt_steps, acc.step_count
+    _, _, losses = acc.train_epoch(host[1:4], 0)
+    result["three_micro"] = {"opt_steps": acc.opt_steps - steps0,
+                             "step_count": acc.step_count - count0,
+                             "losses": list(losses)}
+    if result["three_micro"]["opt_steps"] != 2 or \
+            result["three_micro"]["step_count"] != 3:
+        raise SystemExit(f"3 microbatches at grad_accum {ACCUM}: "
+                         f"{result['three_micro']}")
+    if not np.isfinite(losses).all():
+        raise SystemExit(f"non-finite accumulation losses {losses}")
+
+    # throughput with the reference's train-mode BN: grad_accum 2 at the
+    # microbatch against grad_accum 1 at the batch, the same rows; the
+    # steady optimizer step of each loop, and a profiled one's device time
+    for tr in (acc, big):
+        tr.config.frozen_backbone_bn = "train"
+    micros = [host[i % len(host)]
+              for i in range(ACCUM * ACCUM_TIMED_GROUPS)]
+    bigs = [_cat(*micros[ACCUM * i:ACCUM * (i + 1)])
+            for i in range(ACCUM_TIMED_GROUPS)]
+    acc.train_epoch(micros[:ACCUM], 0)                  # warm
+    big.train_epoch(bigs[:1], 0)
+    timed = {}
+    for name, tr, loader, unit in (("accum", acc, micros, ACCUM),
+                                   ("batch", big, bigs, 1)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        run = _steady_loop(tr, "accum_step",
+                           lambda: tr.train_epoch(loader, 1), ACCUM_FILL,
+                           unit)
+        launches = _counts()
+        step_ms = run["steady_ms"] * unit
+        prof = _profile(f"one optimizer step ({name})",
+                        lambda: tr.train_epoch(loader[:unit], 2),
+                        tag="accum", top=5)
+        timed[name] = {"ms_per_optimizer_step": step_ms,
+                       "img_per_s": batch * 1e3 / step_ms,
+                       "groups": run["steps"] // unit,
+                       "fill_ms": run["fill_ms"], "drain_ms": run["drain_ms"],
+                       "peak_mem_gb": torch.cuda.max_memory_allocated()
+                       / 1e9, "launches": launches,
+                       "device_ms": prof["device_ms"],
+                       "idle_share": (step_ms - prof["device_ms"]) / step_ms}
+    result["timed"] = timed
+    result["launches"] = timed["accum"]["launches"]
+    _log("[accum] " + json.dumps(result))
+    if result["launches"] != {"K1": ACCUM * ACCUM_TIMED_GROUPS, "K2": 0,
+                              "K3": 0}:
+        raise SystemExit(f"accumulation launches {result['launches']}")
+    _log(f"[accum] grad_accum {ACCUM} at {micro}, steady over "
+         f"{ACCUM_TIMED_GROUPS} groups less the fill: "
+         f"{timed['accum']['img_per_s']:.1f} img/s "
+         f"({timed['accum']['ms_per_optimizer_step']:.2f} ms an optimizer "
+         f"step, device {timed['accum']['device_ms']:.2f} ms, idle "
+         f"{100 * timed['accum']['idle_share']:.1f}%) against batch {batch}: "
+         f"{timed['batch']['img_per_s']:.1f} img/s "
+         f"({timed['batch']['ms_per_optimizer_step']:.2f} ms, device "
+         f"{timed['batch']['device_ms']:.2f} ms, idle "
+         f"{100 * timed['batch']['idle_share']:.1f}%)")
+    del acc, big
+    torch.cuda.empty_cache()
+    return result
+
+
+# ------------------------------------------------------- the other ResNets
+
+#: resnet18/34/50/101 at their published widths: the train steps and eval
+#: batches of one loop each (after a warm one), the leading ones that fill
+#: the pipeline left out of the steady step (``_steady_loop``)
+RESNETS = ("resnet18", "resnet34", "resnet50", "resnet101")
+RESNET_STEPS, RESNET_FILL = 20, 4
+
+
+def phase_resnets(enc, seed: int, batch: int) -> dict:
+    """Each of ``RESNETS`` at its published width and depth + FCGGNN
+    (head width 512 for the BasicBlock stacks, 2048 otherwise), bf16,
+    batch ``batch``, random weights from ``seed``: a warm train step, then
+    ``RESNET_STEPS`` train steps in one ``train_epoch``; a warm eval
+    batch, then ``RESNET_STEPS`` in one ``evaluate``.  Finite losses, K1
+    once a train step and 3 times an eval batch, train and eval img/s of
+    the steady loops, and the device time of a profiled train step and
+    eval batch beside them (the idle share)."""
+    import numpy as np
+    import torch
+
+    from situation_recognition_tpu_torch.cli import _default_hidden
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+
+    host = _train_batches(enc, seed + 11, batch, 2)
+    loader = [host[i % 2] for i in range(RESNET_STEPS)]
+    out = {}
+    for name in RESNETS:
+        t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(enc, TrainerConfig(
+            hidden=_default_hidden(name), batch_size=batch, backbone=name,
+            compute_dtype=torch.bfloat16, seed=seed), device=DEVICE)
+        if trainer.head.ggsnn.impl != "kernel":
+            raise SystemExit(f"the {name} trainer did not resolve to the "
+                             f"GGNN kernels")
+        row = {"hidden": trainer.config.hidden}
+        losses = {}
+        for kind, method, fn in (
+                ("train", "accum_step",
+                 lambda bs: trainer.train_epoch(bs, 1)[2]),
+                ("eval", "eval_step", lambda bs: trainer.evaluate(bs)[2])):
+            fn(loader[:1])                                  # warm
+            _zero_counts()
+
+            def run():
+                losses[kind] = fn(loader)
+
+            loop = _steady_loop(trainer, method, run, RESNET_FILL)
+            row[f"{kind}_launches"] = _counts()
+            row[f"{kind}_ms"] = loop["steady_ms"]
+            row[f"{kind}_img_per_s"] = batch * 1e3 / loop["steady_ms"]
+            prof = _profile(f"one {name} {kind} batch",
+                            lambda: fn(loader[:1]), tag="resnets", top=5)
+            row[f"{kind}_device_ms"] = prof["device_ms"]
+            row[f"{kind}_idle_share"] = \
+                (loop["steady_ms"] - prof["device_ms"]) / loop["steady_ms"]
+        row["losses"] = [list(losses["train"]),
+                         [float(v) for v in losses["eval"].values()]]
+        row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out[name] = row
+        _log(f"[resnets] {name} " + json.dumps(row))
+        _phase(f"resnets: {name}", t)
+        if not np.isfinite(np.asarray(row["losses"])).all():
+            raise SystemExit(f"non-finite {name} losses {row['losses']}")
+        if row["train_launches"] != {"K1": RESNET_STEPS, "K2": 0,
+                                     "K3": 0} or row["eval_launches"] != {
+                "K1": 3 * RESNET_STEPS, "K2": 0, "K3": 0}:
+            raise SystemExit(f"{name} launches: train "
+                             f"{row['train_launches']}, eval "
+                             f"{row['eval_launches']}")
+        del trainer
+        torch.cuda.empty_cache()
+    _log("[resnets] steady over " + f"{RESNET_STEPS} batches less "
+         f"{RESNET_FILL}: " + ", ".join(
+             f"{n} (d={r['hidden']}) train {r['train_img_per_s']:.1f} img/s"
+             f" (idle {100 * r['train_idle_share']:.1f}%), eval "
+             f"{r['eval_img_per_s']:.1f} img/s (idle "
+             f"{100 * r['eval_idle_share']:.1f}%)" for n, r in out.items()))
+    return out
 
 
 # ------------------------------------------------------------- the CLI path
@@ -1392,52 +1802,18 @@ def phase_cli(enc, seed: int, batch: int, card: str) -> dict:
         del ds, reader
 
         # the CLI trainer's step loop on in-memory batches (uploads through
-        # the pinned side stream, no snapshots): the steady step is the
-        # mean gap between step starts once CLI_LOOP_FILL steps have
-        # filled the pipeline; the fill (loop start to that step) and the
-        # drain (the last start to the loop's end) apart
+        # the pinned side stream, no snapshots), timed by _steady_loop
         trainer = trainers[-1]
         host = _train_batches(trainer.encoder, seed + 5, batch,
                               CLI_LOOP_BATCHES)
         loader = [host[i % len(host)] for i in range(CLI_LOOP_STEPS)]
         trainer.train_epoch(loader[:1], 99)            # warm
-        starts, dispatch = [], []
-
-        def timing(step):
-            def timed_step(*args):
-                t0 = time.perf_counter()
-                starts.append(t0)
-                out = step(*args)
-                dispatch.append(time.perf_counter() - t0)
-                return out
-            return timed_step
-
-        def loop(run, steps):
-            starts.clear()
-            dispatch.clear()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            k = CLI_LOOP_FILL
-            return {"steps": steps,
-                    "steady_ms": (starts[-1] - starts[k]) * 1e3
-                    / (steps - 1 - k),
-                    "fill_ms": (starts[k] - t0) * 1e3,
-                    "drain_ms": (t1 - starts[-1]) * 1e3,
-                    "whole_ms_per_step": (t1 - t0) * 1e3 / steps,
-                    "dispatch_ms": [x * 1e3 for x in dispatch]}
-
-        trainer.train_step = timing(trainer.train_step)
-        result["loop"] = loop(lambda: trainer.train_epoch(loader, 100),
-                              CLI_LOOP_STEPS)
-        del trainer.train_step
-        trainer.eval_step = timing(trainer.eval_step)
-        result["eval_loop"] = loop(
-            lambda: trainer.evaluate(loader[:CLI_EVAL_STEPS]),
-            CLI_EVAL_STEPS)
-        del trainer.eval_step
+        result["loop"] = _steady_loop(
+            trainer, "accum_step", lambda: trainer.train_epoch(loader, 100),
+            CLI_LOOP_FILL)
+        result["eval_loop"] = _steady_loop(
+            trainer, "eval_step",
+            lambda: trainer.evaluate(loader[:CLI_EVAL_STEPS]), CLI_LOOP_FILL)
         steady = result["loop"]["steady_ms"]
         result["loop_img_per_s"] = batch * 1e3 / steady
         result["eval_loop_img_per_s"] = \
@@ -1490,6 +1866,8 @@ def phase_cli(enc, seed: int, batch: int, card: str) -> dict:
         result["save_load_save"] = "bit-equal"
         del fresh, ck, back
         torch.cuda.empty_cache()
+        result.update(_cli_accum_and_inference(root, data, saving, common,
+                                               enc, batch))
     result["phase_s"] = time.perf_counter() - t_phase
     _log("[cli] " + json.dumps(result))
     run, ev, mem = result["loop"], result["eval_loop"], result["memory_gb"]
@@ -1521,6 +1899,184 @@ def phase_cli(enc, seed: int, batch: int, card: str) -> dict:
          f"{result['save_s']:.2f} s, load {result['load_s']:.2f} s; phase "
          f"{result['phase_s']:.1f} s")
     return result
+
+
+#: per-image latency: calls of single-image inference (predicted verb,
+#: then its nouns) timed after the CLI's inference runs, the first left out
+INFER_REPS = 10
+_PIL = re.compile(r"<PIL\.[\w.]+ image ")
+
+
+def _transcript_form(text: str) -> list:
+    """An inference transcript's form from its first ``&`` or "No ground
+    truth" line: numbers, addresses and image names masked, the verb and
+    role lines (whose count and names follow the weights) as markers."""
+    lines = text.splitlines()
+    start = next(i for i, x in enumerate(lines)
+                 if x.startswith(("&", "No ground truth")))
+    out = []
+    for x in lines[start:]:
+        x = re.sub(r"0x[0-9A-Fa-f]{6,}", "0xADDR", x)
+        x = re.sub(r"-?\d+\.\d+|\d+", "#", _PIL.sub("<PIL image ", x))
+        if x.startswith("Analizing: "):
+            x = "Analizing: NAME"
+        elif x.startswith("action"):
+            x = x.split(":")[0] + ": VERB"
+        elif re.fullmatch(r"\S+ \(#%\): \S.*", x):
+            x = "ROLES"
+        elif re.fullmatch(r"\S+ = \[.*\]", x):
+            x = "GROUND TRUTH ROLES"
+        if x in ("ROLES", "GROUND TRUTH ROLES") and out and out[-1] == x:
+            continue
+        out.append(x)
+    return out
+
+
+def _cli_accum_and_inference(root: str, data: dict, saving: str, common,
+                             enc, batch: int) -> dict:
+    """The CLI's ``--grad_accum 2`` training run (snapshots at group ends
+    only) and its inference modes on the trained checkpoint: ``--test_img``
+    without and with ``--verb``, ``--subset 2`` (K1 twice an image for a
+    predicted verb, once for a given one), each transcript in the form of
+    its golden (``tests/golden``); then the per-image latency of the
+    inference (``INFER_REPS`` calls on the last run's trainer)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from situation_recognition_tpu_torch import inference
+    from situation_recognition_tpu_torch import train as train_mod
+    from situation_recognition_tpu_torch.data.transforms import host_window
+    from situation_recognition_tpu_torch.utils.checkpoint import (
+        load_checkpoint)
+
+    out = {"launches_more": {}}
+    # imsitu_space.json, read from the working directory's imSitu/ (the
+    # reference's quirk): the glosses of every label, every verb's roles
+    with open(os.path.join(data["dataset"], "imsitu_space.json"),
+              "w") as f:
+        json.dump({"nouns": {lab: {"gloss": [lab + "_gloss"]}
+                             for lab in enc.label_list
+                             if lab not in ("", "UNK")},
+                   "verbs": {v: {"roles": {r: {} for r in roles}}
+                             for v, roles in enc.roles_per_verb.items()}},
+                  f)
+    image = os.path.join(root, "test.jpg")
+    Image.fromarray(np.random.default_rng(3).integers(
+        0, 256, (256, 256, 3), dtype=np.uint8)).save(image, quality=95)
+
+    def at(folder):
+        argv = list(common)
+        argv[argv.index("--saving_folder") + 1] = folder
+        return argv
+
+    # --grad_accum 2: microbatch batch/2, snapshots at group ends only
+    mids = []
+    real_save = train_mod.AsyncSaver.save
+
+    def save(self, path, state, *args, **kwargs):
+        if "mid" in state:
+            mids.append(state["mid"]["batch_in_epoch"])
+        return real_save(self, path, state, *args, **kwargs)
+
+    accum_folder = os.path.join(root, "accum")
+    t = time.perf_counter()
+    train_mod.AsyncSaver.save = save
+    try:
+        _zero_counts()
+        text = _run_cli(at(accum_folder) + ["--epochs", "1", "--save_steps",
+                                            "1", "--grad_accum", "2"])
+        torch.cuda.synchronize()
+        out["launches_more"]["grad_accum"] = _counts()
+    finally:
+        train_mod.AsyncSaver.save = real_save
+    _phase("cli: --grad_accum 2", t)
+    micro = batch // 2
+    sizes = {}
+    for split in ("train", "dev"):
+        with open(os.path.join(data["dataset"], split + ".json")) as f:
+            sizes[split] = len(json.load(f))
+    n_train, n_eval = sizes["train"], sizes["dev"]
+    micros = -(-n_train // micro)
+    ck = load_checkpoint(os.path.join(accum_folder, "sr"))
+    out["grad_accum_run"] = {
+        "snapshots_after": mids, "opt_steps": ck["opt_steps"],
+        "step_count": ck["step_count"],
+        "transcript": _check_transcript(text, "cli --grad_accum")}
+    del ck
+    want_mids = list(range(2, micros + 1, 2))
+    if mids != want_mids or out["grad_accum_run"]["opt_steps"] != \
+            -(-micros // 2) or out["grad_accum_run"]["step_count"] != micros:
+        raise SystemExit(f"the --grad_accum 2 run: {out['grad_accum_run']}"
+                         f", want snapshots after {want_mids}")
+    want_k1 = micros + 3 * -(-n_eval // micro)
+    if out["launches_more"]["grad_accum"] != {"K1": want_k1, "K2": 0,
+                                              "K3": 0}:
+        raise SystemExit(f"launches of the --grad_accum run "
+                         f"{out['launches_more']['grad_accum']}, want K1 "
+                         f"{want_k1}")
+
+    # the inference modes on the trained checkpoint, from the folder's
+    # root (imSitu/imsitu_space.json)
+    trainers = []
+    real_predict = inference._predict
+
+    def predict(trainer, window, verb_id=None):
+        trainers.append(trainer)
+        return real_predict(trainer, window, verb_id)
+
+    verb = enc.verb_list[int(np.argmax(enc.role_counts))]
+    modes = {"test_img": (["--test_img", image], "test_img_pred.txt", 2),
+             "test_img_verb": (["--test_img", image, "--verb", verb],
+                               "test_img_verb.txt", 1),
+             "subset": (["--subset", "2"], "subset.txt", 4)}
+    cwd = os.getcwd()
+    inference._predict = predict
+    os.chdir(root)
+    try:
+        for name, (flags, golden, k1) in modes.items():
+            t = time.perf_counter()
+            _zero_counts()
+            text = _run_cli(at(saving) + ["--resume_model", "sr"] + flags)
+            torch.cuda.synchronize()
+            out["launches_more"][name] = _counts()
+            out[name + "_s"] = time.perf_counter() - t
+            _phase(f"cli: {' '.join(flags)}", t)
+            with open(os.path.join(_REPO, "tests", "golden", golden)) as f:
+                want = _transcript_form(f.read())
+            got = _transcript_form(text)
+            if got != want:
+                raise SystemExit(f"the {name} transcript's form {got} is "
+                                 f"not the golden's {want}")
+            if out["launches_more"][name] != {"K1": k1, "K2": 0, "K3": 0}:
+                raise SystemExit(f"launches of {name}: "
+                                 f"{out['launches_more'][name]}, want K1 "
+                                 f"{k1}")
+    finally:
+        os.chdir(cwd)
+        inference._predict = real_predict
+
+    # per-image latency: window upload, the backbone at batch 1, K1 at
+    # M = 1 and M = 6, the logits back to the host
+    trainer = trainers[-1]
+    window = host_window(np.asarray(Image.open(image)), train=False)[None]
+    lat = []
+    for _ in range(INFER_REPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_predict(trainer, window)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    out["infer_ms_per_image"] = lat[1:]
+    del trainer, trainers
+    torch.cuda.empty_cache()
+    _log(f"[cli] --grad_accum 2: snapshots after microbatches {mids}; "
+         f"single-image inference {min(lat[1:]):.2f}-{max(lat[1:]):.2f} ms "
+         f"an image (predicted verb: 2 K1 launches); the inference runs "
+         f"{out['test_img_s']:.1f} / {out['test_img_verb_s']:.1f} / "
+         f"{out['subset_s']:.1f} s whole (trainer built, checkpoint "
+         f"loaded)")
+    return out
 
 
 # ----------------------------------------------------------------- the ViT
@@ -1803,9 +2359,10 @@ def _vit_row(name, shape, errs, ms, plain_ms, bound, library_ms=None,
     return row
 
 
-def _k1_rows_at(enc, gen, batch: int, d: int) -> list:
+def _k1_rows_at(enc, gen, batch: int, d: int, tag: str = "vit") -> list:
     """K1 against its twin at the noun and verb shapes of a head of width
-    ``d``, timed, with its bound."""
+    ``d``, timed, with its bound (batch 1: single-image inference's M = 6
+    and M = 1)."""
     import torch
 
     from situation_recognition_tpu_torch.ops import ggnn_kernel as tk
@@ -1832,7 +2389,7 @@ def _k1_rows_at(enc, gen, batch: int, d: int) -> list:
                "library_ms": _folded_library_ms(h, weights), "flop": flops,
                "bytes": nbytes, "tflops": flops / ms / 1e9,
                "tiles": tk.tile_plan(m, d, _sms())._asdict()}
-        _log("[vit] K1 " + json.dumps(row))
+        _log(f"[{tag}] K1 " + json.dumps(row))
         if err > KERNEL_MAX_TOL or mean_err > KERNEL_MEAN_TOL:
             raise SystemExit(f"GGNN kernel disagrees with its twin at "
                              f"{row['shape']}: max {err} mean {mean_err}")
@@ -2418,6 +2975,120 @@ def phase_vit_ft(enc, seed: int, batch: int) -> dict:
     return result
 
 
+#: the fine-tuning accumulation's timed loop: groups (steps of the batch
+#: trainer), and the leading calls left out as its fill
+VIT_FT_ACCUM_GROUPS, VIT_FT_ACCUM_FILL = 8, 2
+
+
+def phase_vit_ft_accum(enc, seed: int, batch: int) -> dict:
+    """Fine-tuning ViT-L/14 + FCGGNN with ``remat_backbone`` and
+    ``grad_accum`` 2 at microbatch batch/2 against one step at ``batch``
+    (dropout 0, bf16), each trainer alone on the card: a group of two
+    different microbatches A and B against a step on [A; B] — the mean
+    gradient of every head and backbone tensor as the clip receives it —
+    then a loop of ``VIT_FT_ACCUM_GROUPS`` groups (steps) with its launches
+    (K7 48 and K8 24 a microbatch), its steady optimizer step and its peak
+    memory.  ``--cache_device``'s reserve, probed for the accumulating
+    configuration, must cover what the accumulating trainer took."""
+    import numpy as np
+    import torch
+
+    from situation_recognition_tpu_torch.cli import _working_reserve
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+
+    micro = batch // ACCUM
+    a = _train_batches(enc, seed + 9, micro, 1)[0]
+    b = _train_batches(enc, seed + 10, micro, 1, verbs=a["verbs"])[0]
+    runs, grads = {}, {}
+    for name, size, accum, group in (("accum", micro, ACCUM, [a, b]),
+                                     ("batch", batch, 1, [_cat(a, b)])):
+        t = time.perf_counter()
+        cfg = TrainerConfig(
+            hidden=VIT_D, batch_size=size, backbone=VIT, image_size=VIT_IMAGE,
+            compute_dtype=torch.bfloat16, seed=seed, train_backbone=True,
+            remat_backbone=True, dropout_rate=0.0, grad_accum=accum)
+        reserve = None
+        if name == "accum":
+            reserve = _working_reserve(enc, cfg, torch.device(DEVICE), 256,
+                                       train=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(enc, cfg, device=DEVICE)
+        names = [f"head.{n}" for n, _ in trainer.head.named_parameters()] \
+            + [f"backbone.{n}" for n, _ in
+               trainer.backbone.named_parameters()]
+        _decisive_verb(trainer)
+        got, norm = _group_grads(trainer, group)
+        grads[name] = [g.to("cpu") for g in got]
+        del got
+        # the timed loop, its peak alone (without the check's copies)
+        loader = group * VIT_FT_ACCUM_GROUPS
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_vit_counts()
+        out = []
+        loop = _steady_loop(
+            trainer, "accum_step",
+            lambda: out.append(trainer.train_epoch(loader, 1)[2]),
+            VIT_FT_ACCUM_FILL, accum)
+        ms = loop["steady_ms"] * accum
+        launches = _vit_counts()
+        took = torch.cuda.max_memory_reserved() - base
+        runs[name] = {"batch": size, "grad_accum": accum,
+                      "ms_per_optimizer_step": ms,
+                      "img_per_s": batch * 1e3 / ms,
+                      "fill_ms": loop["fill_ms"],
+                      "drain_ms": loop["drain_ms"],
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "reserved_gb": took / 1e9,
+                      "reserve_gb": None if reserve is None else reserve / 1e9,
+                      "preclip_norm": norm,
+                      "launches": launches, "losses": list(out[0])}
+        _log(f"[vit ft accum] {name} " + json.dumps(runs[name]))
+        del trainer
+        torch.cuda.empty_cache()
+        _phase(f"vit ft accum: {name}", t)
+        if not np.isfinite(out[0]).all():
+            raise SystemExit(f"non-finite fine-tuning losses ({name})")
+        if reserve is not None and took > reserve:
+            raise SystemExit(f"--cache_device's reserve {reserve} B is below"
+                             f" what the accumulating fine-tuning trainer "
+                             f"took ({took} B)")
+    rel = _grad_rel(grads["accum"], grads["batch"], names)
+    del grads
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    result = {"micro": micro, "runs": runs, "grad_rel_max": worst[0][1],
+              "grad_rel_worst": dict(worst), "tol_grad_rel": ACCUM_GRAD_REL,
+              "tensors": len(rel), "launches": runs["accum"]["launches"]}
+    _log("[vit ft accum] " + json.dumps(result))
+    if result["grad_rel_max"] > ACCUM_GRAD_REL:
+        raise SystemExit(f"the accumulated fine-tuning gradient differs "
+                         f"from the big batch's: {dict(worst)}")
+    want = {"K1": ACCUM, "K4": 0, "K5": 0, "K6": 0,
+            "K7": 2 * VIT_DEPTH * ACCUM, "K8": VIT_DEPTH * ACCUM}
+    if result["launches"] != {
+            k: v * VIT_FT_ACCUM_GROUPS for k, v in want.items()}:
+        raise SystemExit(f"launches of {VIT_FT_ACCUM_GROUPS} accumulating "
+                         f"fine-tuning groups {result['launches']}, want "
+                         f"{want} a group")
+    _log(f"[vit ft accum] grad_accum {ACCUM} at {micro}, steady over "
+         f"{VIT_FT_ACCUM_GROUPS} groups less the fill: "
+         f"{runs['accum']['ms_per_optimizer_step']:.1f} ms an optimizer step"
+         f", peak {runs['accum']['peak_mem_gb']:.2f} GB (reserved "
+         f"{runs['accum']['reserved_gb']:.2f} GB, --cache_device's reserve "
+         f"{runs['accum']['reserve_gb']:.2f} GB); batch {batch}: "
+         f"{runs['batch']['ms_per_optimizer_step']:.1f} ms, peak "
+         f"{runs['batch']['peak_mem_gb']:.2f} GB; gradients within "
+         f"{result['grad_rel_max']:.2e} (relative Frobenius, "
+         f"{result['tensors']} tensors; pre-clip norms "
+         f"{runs['accum']['preclip_norm']:.3g} / "
+         f"{runs['batch']['preclip_norm']:.3g})")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2489,6 +3160,16 @@ def main(argv=None) -> int:
 
     torch.cuda.empty_cache()
     t = time.perf_counter()
+    accum = phase_accum(enc, args.seed, BATCH)
+    accum["card"] = smi
+    _phase("accum", t)
+
+    t = time.perf_counter()
+    resnets = phase_resnets(enc, args.seed, BATCH)
+    _phase("resnets", t)
+
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
     cli = phase_cli(enc, args.seed, BATCH, smi)
     cli_k1 = sum(c["K1"] for c in cli["launches"].values())
     _phase("cli", t)
@@ -2512,13 +3193,18 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     vit_ft = phase_vit_ft(enc, args.seed, BATCH)
     _phase("vit ft", t)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    vit_ft_accum = phase_vit_ft_accum(enc, args.seed, BATCH)
+    _phase("vit ft accum", t)
     vit_launches = {k: {path: c[k] for path, c in (
         ("serve_stream", vit_path["launches"]["stream"]),
         ("serve_block", vit_path["launches"]["block"]),
         ("batcher", vit_path["launches"]["batcher"]),
         ("train", vit_train["steps"][-1]["launches"]),
         ("ft_train", vit_ft["steps"][-1]["launches"]),
-        ("ft_eval", vit_ft["eval_launches"]))}
+        ("ft_eval", vit_ft["eval_launches"]),
+        ("ft_accum", vit_ft_accum["launches"]))}
         for k in ("K1", "K4", "K5", "K6", "K7", "K8")}
     for k, by_path in vit_launches.items():
         if not sum(by_path.values()):
@@ -2539,17 +3225,30 @@ def main(argv=None) -> int:
         ("ggnn_bwd_agg_kernel", "ggnn_bwd_prep_kernel"))
     print(json.dumps({"kernels": [
         _kernel_line("ggnn_folded", "ggnn_folded.cu", 217,
-                     kernel["shapes"] + vit_kernel["K1"],
+                     kernel["shapes"] + kernel["k1_more"] + vit_kernel["K1"],
                      {"serve": path["launches"],
-                      "train": train_launches["K1"], "cli": cli_k1,
+                      "train": train_launches["K1"],
+                      "accum": accum["launches"]["K1"],
+                      **{f"resnets_{n}": r["train_launches"]["K1"]
+                         + r["eval_launches"]["K1"]
+                         for n, r in resnets.items()},
+                      "cli": cli_k1,
+                      **{f"cli_{p}": c["K1"]
+                         for p, c in cli["launches_more"].items()},
                       **{f"vit_{p}": c
                          for p, c in vit_launches["K1"].items()}},
                      resources=res["ggnn_folded.cu"]),
         _kernel_line("ggnn_folded_res", "ggnn_folded.cu", 492,
-                     kernel["res_shapes"], {"train": train_launches["K2"]},
+                     kernel["res_shapes"],
+                     {"train": train_launches["K2"],
+                      "accum_pallas_microbatch": accum[
+                          "launches_per_microbatch"]["pallas"]["K2"]},
                      resources=res["ggnn_folded.cu"]),
         _kernel_line("ggnn_folded_bwd", "ggnn_folded_bwd.cu", 521,
-                     kernel["bwd_shapes"], {"train": train_launches["K3"]},
+                     kernel["bwd_shapes"],
+                     {"train": train_launches["K3"],
+                      "accum_pallas_microbatch": accum[
+                          "launches_per_microbatch"]["pallas"]["K3"]},
                      routes=kernel["routes"],
                      resources=res["ggnn_folded_bwd.cu"]),
         _kernel_line("vit_qkv", "vit_block.cu", 159, [vit_kernel["K4"]],

@@ -4,9 +4,12 @@ defaults, mode dispatch and stdout, and the JAX CLI's additions):
 
     python -m situation_recognition_tpu_torch.cli [flags]
 
-It trains (``fit``), resumes (``--resume_model``) and evaluates
-(``--evaluate_dev`` / ``--evaluate_test``) on the CUDA card, or on the CPU
-with ``--platform cpu``; without a card and without that flag it raises.
+It trains (``fit``, with ``--grad_accum`` microbatches per optimizer
+step), resumes (``--resume_model``), evaluates (``--evaluate_dev`` /
+``--evaluate_test``) and runs the reference's inference modes
+(``--test_img`` with or without ``--verb``, ``--subset N``;
+``inference.py``) on the CUDA card, or on the CPU with ``--platform cpu``;
+without a card and without that flag it raises.
 
 Reproduced behaviours:
 
@@ -22,11 +25,10 @@ Checkpoints are the reference's ``torch.save`` layout
 exported (``tools/export_torch.py``), resumes here, and this CLI's resumes
 in both.
 
-Flags whose features later slices bring are refused by name, with the
-ROADMAP §1 item that brings them: ``--grad_accum`` > 1 (item 3),
-``--test_img``, ``--verb`` and ``--subset`` (item 5), the resnet18/34/50/101
-backbones (item 7), ``--model_axis`` > 1 and ``--distributed`` /
-``--coordinator`` / ``--num_processes`` / ``--process_id`` (item 8).
+Flags whose features a later slice brings are refused by name, with the
+ROADMAP §1 item that brings them: ``--model_axis`` > 1 and
+``--distributed`` / ``--coordinator`` / ``--num_processes`` /
+``--process_id`` (item 8).
 """
 
 from __future__ import annotations
@@ -235,14 +237,16 @@ def _load_json(path):
         return json.load(f)
 
 
-_UNPORTED_RESNETS = ('resnet18', 'resnet34', 'resnet50', 'resnet101')
-
-
 def _default_hidden(backbone: str) -> int:
+    """The head's width for a backbone: its feature width (JAX
+    ``default_hidden``)."""
+    from situation_recognition_tpu_torch.models.resnet import BASIC_STACKS
     from situation_recognition_tpu_torch.models.vit import VIT_WIDTHS
 
     if backbone in VIT_WIDTHS:
         return VIT_WIDTHS[backbone]
+    if backbone in BASIC_STACKS:
+        return 512
     return 64 if backbone == 'mini' else 2048
 
 
@@ -250,11 +254,13 @@ def _working_reserve(encoder, cfg, device, window: int,
                      train: bool) -> int:
     """Device bytes the run needs beside ``--cache_device``'s window
     arrays, measured: a throw-away ``Trainer`` of the run's configuration
-    on a batch of zero windows of side ``window`` takes a train step, then
-    a second one while it holds two checkpoint snapshots (``fit`` keeps
-    the one being written and the next), or one eval batch when ``train``
-    is false; the reserve is the allocator's peak over that, plus the
-    batches that stage or run beside the probe's one
+    on a batch of zero windows of side ``window`` (the microbatch) takes a
+    train step, then a second one while it holds two checkpoint snapshots
+    (``fit`` keeps the one being written and the next), or one eval batch
+    when ``train`` is false.  Under ``grad_accum`` each step is a group of
+    two microbatches, so that a forward and backward run while ``.grad``
+    holds the first one's sum.  The reserve is the allocator's peak over
+    that, plus the batches that stage or run beside the probe's one
     (``Trainer.batches_on_device``), plus a tenth for the fragmentation of
     a card that also holds the window arrays.  0 on the CPU, where a
     window cache is the host array itself."""
@@ -278,9 +284,10 @@ def _working_reserve(encoder, cfg, device, window: int,
     torch.cuda.reset_peak_memory_stats(device)
     probe = Trainer(encoder, cfg, device=device)
     if train:
-        probe.train_epoch([batch], 0)
+        group = [batch] * min(cfg.grad_accum, 2)
+        probe.train_epoch(group, 0)
         snapshots = [probe.model_state_snapshot() for _ in range(2)]
-        probe.train_epoch([batch], 1)
+        probe.train_epoch(group, 1)
         del snapshots
     else:
         with contextlib.redirect_stderr(io.StringIO()):   # its img/s line
@@ -346,20 +353,7 @@ def _load_resume(trainer, path: str) -> dict:
 
 
 def _refuse_unported(parser, args) -> None:
-    """Flags of features that later slices port (ROADMAP §1)."""
-    if args.grad_accum > 1:
-        parser.error('--grad_accum > 1 (gradient accumulation) is not '
-                     'ported yet: ROADMAP §1 item 3')
-    for flag, on in (('--test_img', bool(args.test_img)),
-                     ('--verb', bool(args.verb)),
-                     ('--subset', args.subset > 0)):
-        if on:
-            parser.error(f'{flag} (single-image inference and subset '
-                         f'analysis) is not ported yet: ROADMAP §1 item 5')
-    if args.backbone in _UNPORTED_RESNETS:
-        parser.error(f'--backbone {args.backbone} is not ported yet: '
-                     f'ROADMAP §1 item 7 (resnet152, mini and the ViTs '
-                     f'are)')
+    """Flags of features that a later slice ports (ROADMAP §1)."""
     for flag, on in (('--model_axis', args.model_axis > 1),
                      ('--distributed', args.distributed),
                      ('--coordinator', bool(args.coordinator)),
@@ -427,6 +421,8 @@ def main(argv=None) -> None:
         ImsituDataset, ImsituLoader)
     from situation_recognition_tpu_torch.data.encoder import ImsituEncoder
     from situation_recognition_tpu_torch.device import resolve_device
+    from situation_recognition_tpu_torch.inference import (
+        analize_subset, print_results, results)
     from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
 
     # 'auto' is the card: without one this raises rather than carrying on
@@ -466,13 +462,22 @@ def main(argv=None) -> None:
         dtype = torch.bfloat16
     else:
         dtype = torch.float32
+    # the loaders and steps run at the microbatch; an optimizer step takes
+    # grad_accum of them, --batch_size rounded up to a multiple (one data
+    # shard: the port runs on one card)
     batch = args.batch_size
+    accum = max(1, args.grad_accum)
+    if batch % accum != 0:
+        batch = -(-batch // accum) * accum
+        print(f'[srtorch] batch_size rounded up to {batch} (divisible by '
+              f'data axis 1 x grad_accum {accum})', file=sys.stderr)
+    batch //= accum
     cfg = TrainerConfig(
         hidden=_default_hidden(args.backbone), lr=args.lr, batch_size=batch,
         epochs=args.epochs, backbone=args.backbone, compute_dtype=dtype,
         seed=args.seed, image_size=args.image_size,
         ggnn_impl='kernel' if args.ggnn == 'pallas' else args.ggnn,
-        frozen_backbone_bn=args.frozen_bn,
+        frozen_backbone_bn=args.frozen_bn, grad_accum=accum,
         train_backbone=args.train_backbone, backbone_lr=args.backbone_lr,
         remat_backbone=args.remat_backbone, lr_schedule=args.lr_schedule,
         warmup_steps=args.warmup_steps, total_steps=args.total_steps,
@@ -484,8 +489,14 @@ def main(argv=None) -> None:
         need = ('dev',)
     elif args.evaluate_test:
         need = ('test',)
+    elif args.test_img:
+        need = ()                  # one image, no split
+    elif args.subset > 0:
+        need = ('dev',)            # analize_subset indexes dev per image
     else:
         need = ('train', 'dev')
+    # the inference modes index images one by one: no window cache
+    per_image = bool(args.test_img) or args.subset > 0
     splits = {}
     if 'train' in need:
         splits['train'] = ImsituDataset(args.imgset_dir, train_json,
@@ -499,7 +510,7 @@ def main(argv=None) -> None:
     # windows would leave the run too little device memory streams (an
     # eval split caches the prefix that fits)
     budget = None
-    if args.cache_device:
+    if args.cache_device and splits and not per_image:
         reserve = _working_reserve(
             encoder, cfg, device,
             max(ds.window_size for ds in splits.values()),
@@ -515,7 +526,7 @@ def main(argv=None) -> None:
             dataset.enable_packed(args.packed_dir)
         elif args.cache_decoded:
             dataset.enable_decode_cache()
-        if not args.cache_device:
+        if budget is None:
             continue
         S = dataset.window_size
         row_bytes = S * S * 3
@@ -588,6 +599,12 @@ def main(argv=None) -> None:
     elif args.evaluate_test:
         print('=> evaluating model with test-set...')
         trainer.evaluate(test_loader, logging=True)
+    elif args.test_img:
+        print_results(args.test_img, *results(
+            trainer, args.test_img, encoder, args.verb,
+            preproc=args.preproc))
+    elif args.subset > 0:
+        analize_subset(trainer, splits['dev'], encoder, args.subset)
     else:
         print('Model training started!')
         # _load_resume restored the model and optimizer; fit takes only

@@ -3,8 +3,9 @@ this package's state dicts.
 
 The port's state dicts use the reference layout:
 
-* the backbone is a torchvision ResNet (``conv1.weight``,
-  ``layer3.17.bn2.running_var``, ``layer1.0.downsample.0.weight`` ...);
+* the backbone is a torchvision ResNet of Bottlenecks or BasicBlocks
+  (``conv1.weight``, ``layer3.17.bn2.running_var``,
+  ``layer1.0.downsample.0.weight`` ...);
 * the head is the reference FCGGNN without its backbones
   (``role_emb.weight``, ``verb_emb.weight``, ``ggsnn.W_p.weight`` ...,
   ``verb_classifier.1.weight``, ``nouns_classifier.1.bias``).
@@ -77,7 +78,9 @@ def resnet_state_from_jax(params: Mapping, stats: Mapping) -> OrderedDict:
     for (stage, block), key in blocks:
         bp, bs = params[key], stats[key]
         dst = f"layer{stage}.{block}"
-        for c in (1, 2, 3):
+        # a Bottleneck (resnet50/101/152) has conv1..3, a BasicBlock
+        # (resnet18/34) conv1..2
+        for c in (1, 2, 3) if "conv3" in bp else (1, 2):
             conv(f"{dst}.conv{c}", bp[f"conv{c}"])
             bn(f"{dst}.bn{c}", bp[f"bn{c}"], bs[f"bn{c}"])
         if "downsample_conv" in bp:

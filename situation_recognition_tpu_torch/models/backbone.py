@@ -20,12 +20,12 @@ def build_backbone(name: str, hidden: int, image_size: int = 224,
                    block_impl: str = "auto",
                    remat: bool = False) -> tuple[nn.Module, bool]:
     """name → (module, whether it has BatchNorm).  The head's hidden size
-    must equal the backbone's feature width (a ResNet's base width · 32, a
-    ViT's width).  A ViT keeps f32 parameters and computes in ``dtype``,
-    its position embedding sized for ``image_size`` and its blocks run as
-    ``block_impl`` says; a ResNet computes in its input's type.  ``remat``
-    checkpoints each residual or encoder block of a differentiated call
-    (fine-tuning)."""
+    must equal the backbone's feature width (a ResNet's base width · 32 for
+    Bottlenecks, · 8 for BasicBlocks; a ViT's width).  A ViT keeps f32
+    parameters and computes in ``dtype``, its position embedding sized for
+    ``image_size`` and its blocks run as ``block_impl`` says; a ResNet
+    computes in its input's type.  ``remat`` checkpoints each residual or
+    encoder block of a differentiated call (fine-tuning)."""
     if name in STAGE_SIZES:
         return build_resnet(name, hidden, remat), True
     if name in VIT_CONFIGS:

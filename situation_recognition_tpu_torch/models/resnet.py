@@ -1,11 +1,14 @@
 """ResNet v1.5 backbones in PyTorch, returning pooled features.
 
 Port of ``situation_recognition_tpu/models/resnet.py``: torchvision's
-Bottleneck (expansion 4, stride on the 3x3 conv, BN eps 1e-5) with no fc,
-so the output is the (B, base_width*32) pooled feature the FCGGNN head
-takes.  Module names are torchvision's (``layer3.17.conv2``,
-``downsample.0/1``), so a torchvision or reference state dict loads with
-``strict=True`` and the JAX trees convert mechanically (``convert.py``).
+Bottleneck (expansion 4, stride on the 3x3 conv, BN eps 1e-5; resnet50,
+101 and 152) and BasicBlock (two 3x3 convs, expansion 1, stride on the
+first; resnet18 and 34) with no fc, so the output is the pooled feature the
+FCGGNN head takes: (B, base_width*32) of a Bottleneck stack, (B,
+base_width*8) of a BasicBlock stack.  Module names are torchvision's
+(``layer3.17.conv2``, ``downsample.0/1``), so a torchvision or reference
+state dict loads with ``strict=True`` and the JAX trees convert
+mechanically (``convert.py``).
 
 The public boundary is NHWC, as in the JAX package; inside, the NHWC
 tensor is viewed as NCHW in channels-last memory, which is also the layout
@@ -16,7 +19,7 @@ cast their weights to the input's type at use, as flax's ``Conv(dtype=)``
 does, so a fine-tuned backbone keeps f32 weights and computes in bf16.
 
 ``remat`` (``--remat_backbone``, JAX ``ResNet.remat``) checkpoints each
-bottleneck of a differentiated call with ``torch.utils.checkpoint``: the
+residual block of a differentiated call with ``torch.utils.checkpoint``: the
 backward keeps only the block inputs and runs each block's forward again.
 The recomputed forward does not update the BN running statistics a second
 time (``_stats_frozen``), as flax's ``nn.remat`` updates them once.
@@ -33,9 +36,15 @@ from torch.utils.checkpoint import checkpoint
 
 #: stage sizes by backbone name (``mini`` is the test-sized stack)
 STAGE_SIZES = {
+    "resnet18": (2, 2, 2, 2),
+    "resnet34": (3, 4, 6, 3),
+    "resnet50": (3, 4, 6, 3),
+    "resnet101": (3, 4, 23, 3),
     "resnet152": (3, 8, 36, 3),
     "mini": (1, 1, 1, 1),
 }
+#: the stacks of BasicBlocks (the others are of Bottlenecks)
+BASIC_STACKS = ("resnet18", "resnet34")
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -130,14 +139,38 @@ class Bottleneck(nn.Module):
         return torch.relu(y + residual)
 
 
+class BasicBlock(nn.Module):
+    """torchvision-style basic block (two 3x3 convs, expansion 1, stride on
+    the first), the resnet18/34 block."""
+
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: nn.Module | None = None):
+        super().__init__()
+        self.conv1 = Conv2d(inplanes, planes, 3, stride=stride, padding=1,
+                            bias=False)
+        self.bn1 = BatchNorm(planes, eps=1e-5)
+        self.conv2 = Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.bn2 = BatchNorm(planes, eps=1e-5)
+        self.downsample = downsample
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return torch.relu(y + residual)
+
+
 class ResNet(nn.Module):
-    """ResNet v1.5 (Bottleneck stacks) → pooled features (B, base_width*32).
+    """ResNet v1.5 → pooled features (B, out_features): base_width*32 of
+    Bottleneck stacks, base_width*8 of BasicBlock stacks (``basic``).
 
     ``forward`` takes NHWC images, like the JAX module; ``remat``
-    checkpoints each bottleneck of a differentiated call."""
+    checkpoints each residual block of a differentiated call."""
 
     def __init__(self, stage_sizes: Sequence[int], base_width: int = 64,
-                 remat: bool = False):
+                 remat: bool = False, basic: bool = False):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
         self.remat = remat
@@ -145,17 +178,22 @@ class ResNet(nn.Module):
                             bias=False)
         self.bn1 = BatchNorm(base_width, eps=1e-5)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        block = BasicBlock if basic else Bottleneck
         inplanes, planes = base_width, base_width
         for i, blocks in enumerate(self.stage_sizes):
             stride = 1 if i == 0 else 2
-            # every stage's first block changes the channel count
-            downsample = nn.Sequential(
-                Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
-                BatchNorm(planes * 4, eps=1e-5))
-            layers = [Bottleneck(inplanes, planes, stride, downsample)]
-            inplanes = planes * 4
-            layers += [Bottleneck(inplanes, planes)
-                       for _ in range(1, blocks)]
+            out = planes * block.expansion
+            # torchvision's rule: a downsample where the stride or the
+            # channel count changes — every stage's first Bottleneck, but
+            # not the first stage's BasicBlock (64 → 64 at stride 1)
+            downsample = None
+            if stride != 1 or inplanes != out:
+                downsample = nn.Sequential(
+                    Conv2d(inplanes, out, 1, stride=stride, bias=False),
+                    BatchNorm(out, eps=1e-5))
+            layers = [block(inplanes, planes, stride, downsample)]
+            inplanes = out
+            layers += [block(inplanes, planes) for _ in range(1, blocks)]
             setattr(self, f"layer{i + 1}", nn.Sequential(*layers))
             planes *= 2
         self.out_features = inplanes
@@ -194,13 +232,18 @@ class ResNet(nn.Module):
 
 def build_resnet(name: str, hidden: int, remat: bool = False) -> ResNet:
     """Backbone by name, with the stem width tied to the head's hidden
-    size (``hidden = base_width * 32``) as the JAX trainer does."""
+    size as the JAX trainer does: ``hidden = base_width * 32`` for a
+    Bottleneck stack, ``base_width * 8`` for a BasicBlock stack."""
     if name not in STAGE_SIZES:
         raise ValueError(f"unknown backbone {name!r}; one of "
                          f"{sorted(STAGE_SIZES)}")
-    if hidden % 32 != 0:
-        raise ValueError("hidden must be a multiple of 32 for ResNets")
-    return ResNet(STAGE_SIZES[name], base_width=hidden // 32, remat=remat)
+    basic = name in BASIC_STACKS
+    mult = 8 if basic else 32
+    if hidden % mult != 0:
+        raise ValueError(f"hidden must be a multiple of {mult} for "
+                         f"{name}")
+    return ResNet(STAGE_SIZES[name], base_width=hidden // mult, remat=remat,
+                  basic=basic)
 
 
 def resnet152() -> ResNet:

@@ -33,6 +33,14 @@ A train step does what the JAX step does:
    (``_scale_subtree``);
 6. top-5 indices by iterative argmax (ties to the lower index).
 
+With ``grad_accum`` = N (JAX ``grad_accum_step`` / ``grad_accum_final_step``
+and their ft pair) steps 1–4 run per microbatch (``accum_step``), the
+backward summing into ``.grad``, which a group's first microbatch clears;
+the group's last takes step 5 on the mean (``apply_step``).  BN statistics
+and the dropout streams' step count advance per microbatch, the rate per
+optimizer step.  ``infer_verb`` / ``infer_nouns`` are the single-image
+inference of JAX ``train.py:943-980`` (eval-mode BN, no flip).
+
 Differentiated GGNN propagates take autograd over the masked-sum math, or
 with ``SRTPU_GGNN_BWD=pallas`` the K2/K3 autograd Function
 (``models/fcggnn.GGNN``).  Dropout draws from ``torch.Generator``s seeded
@@ -113,7 +121,8 @@ class TrainerConfig:
     batch_size: int = 6144
     num_ggnn_steps: int = 4
     dropout_rate: float = 0.5
-    # resnet152 | mini | vit_l14 | vit_l14_clip | vit_b16 | vit_tiny
+    # resnet18|34|50|101|152 | mini | vit_l14 | vit_l14_clip | vit_b16
+    # | vit_tiny
     backbone: str = "resnet152"
     # the device transform's output side; a ViT needs a multiple of its
     # patch, and its position embedding is sized for it
@@ -139,6 +148,12 @@ class TrainerConfig:
     # running statistics updated — the reference's) or "eval" (running
     # statistics only; JAX ``frozen_backbone_bn``)
     frozen_backbone_bn: str = "train"
+    # gradient accumulation (JAX ``grad_accum``): each optimizer step takes
+    # the mean of the gradients of ``grad_accum`` microbatches of
+    # ``batch_size`` rows — the big batch's gradient when the microbatches
+    # are balanced; train-mode BN takes each microbatch's statistics and
+    # updates its running ones once per microbatch (DIVERGENCES #17)
+    grad_accum: int = 1
 
 
 def make_lr_fn(config: TrainerConfig):
@@ -494,10 +509,22 @@ class Trainer:
         verb, nouns, gt nouns; top-k (pred_verb top-5, pred_nouns top-5,
         gt_nouns top-1)).  With ``train_backbone`` the backbone is in the
         backward, the clip and the update."""
+        out = self.accum_step(images, flip, verbs, labels, valid, first=True)
+        self.apply_step(1)
+        return out
+
+    def accum_step(self, images, flip, verbs, labels, valid,
+                   first: bool):
+        """A train step up to the optimizer (JAX ``grad_accum_step``):
+        the backward sums this batch's gradients into ``.grad``, which
+        ``first`` (a group's first microbatch) clears beforehand; BN
+        updates its running statistics.  Returns what ``train_step``
+        returns."""
         feats = self._features(images, flip, True, grad=self._ft)
         head = self.head
         n_labels = self.encoder.get_num_labels()
-        self.optimizer.zero_grad(set_to_none=True)
+        if first:
+            self.optimizer.zero_grad(set_to_none=True)
         pred_verb, pred_nouns = head.predict_train(
             feats, self.role_ids, self.role_mask, train=True,
             generator=self._generator(0))
@@ -509,13 +536,23 @@ class Trainer:
                 feats.detach(), verbs, self.role_ids, self.role_mask,
                 train=True, generator=self._generator(1))
             gloss = nouns_loss_masked(gt_pred_nouns, labels, n_labels, valid)
+        losses = torch.stack([vloss.detach(), nloss.detach(), gloss])
+        return losses, self._topk((pred_verb.detach(), pred_nouns.detach(),
+                                   gt_pred_nouns))
+
+    def apply_step(self, count: int) -> None:
+        """The optimizer step on the gradients that ``count`` microbatches
+        summed into ``.grad`` (JAX ``grad_accum_final_step`` /
+        ``apply_accum_step``): their mean, one global-norm-1 clip over
+        every trainable parameter, the rate of this optimizer step and
+        Adamax; the schedule's count ticks once.  No host sync."""
+        if count > 1:
+            grads = [p.grad for p in self._trainable if p.grad is not None]
+            torch._foreach_div_(grads, float(count))
         torch.nn.utils.clip_grad_norm_(self._trainable, 1.0)
         self._set_lr()
         self.optimizer.step()
         self.opt_steps += 1
-        losses = torch.stack([vloss.detach(), nloss.detach(), gloss])
-        return losses, self._topk((pred_verb.detach(), pred_nouns.detach(),
-                                   gt_pred_nouns))
 
     def eval_step(self, images, verbs, labels, valid):
         """All three branches forward-only with eval-mode BN → (losses,
@@ -524,6 +561,32 @@ class Trainer:
         with torch.no_grad():
             outs = self.head(feats, verbs, self.role_ids, self.role_mask)
             return self._losses(outs, verbs, labels, valid), self._topk(outs)
+
+    # ------------------------------------------------------------ inference
+
+    def _infer_features(self, images_u8) -> torch.Tensor:
+        """(B, S, S, 3) uint8 windows (numpy or a tensor) → features (B,
+        D) f32: the device transform without flip at ``image_size`` and
+        the backbone with eval-mode BN, as ``eval_step``'s."""
+        if not torch.is_tensor(images_u8):
+            images_u8 = torch.tensor(np.asarray(images_u8),
+                                     dtype=torch.uint8)
+        return self._features(images_u8.to(self.device), None, False)
+
+    def infer_verb(self, images_u8) -> torch.Tensor:
+        """(B, S, S, 3) uint8 → verb logits (B, V) f32 on the trainer's
+        device (JAX ``Trainer.infer_verb``)."""
+        with torch.no_grad():
+            return self.head.predict_verb(self._infer_features(images_u8))
+
+    def infer_nouns(self, images_u8, verb_ids) -> torch.Tensor:
+        """(B, S, S, 3) uint8 and verb ids (B,) → noun logits (B, R, L)
+        f32 on the trainer's device (JAX ``Trainer.infer_nouns``)."""
+        with torch.no_grad():
+            ids = torch.as_tensor(np.asarray(verb_ids), dtype=torch.long)
+            return self.head.predict_nouns(
+                self._infer_features(images_u8), ids.to(self.device),
+                self.role_ids, self.role_mask)
 
     # ------------------------------------------------------------- batching
 
@@ -709,15 +772,19 @@ class Trainer:
                     mid_state: Optional[dict] = None,
                     save_every: Optional[int] = None,
                     save_callback=None, preempt=None):
-        """One pass over ``loader`` (a train step per batch) → (top1,
-        top5 scorers, mean (verb, nouns, gt) losses).
+        """One pass over ``loader`` (a train step per batch, or with
+        ``grad_accum`` = N a microbatch per batch and an optimizer step
+        per N of them) → (top1, top5 scorers, mean (verb, nouns, gt)
+        losses).  An epoch that ends inside a group steps on the
+        microbatches it has (JAX ``_apply_pending``).
 
         ``save_every``: ``save_callback(mid)`` every N batches with a
         resumable snapshot of the epoch's accumulators; passed back as
         ``mid_state`` it continues the epoch at the next batch.
         ``preempt`` (a ``threading.Event``): once set, the loop calls
         ``save_callback`` at the next step boundary and raises
-        ``Preempted``."""
+        ``Preempted``.  Under accumulation both wait for a group's end:
+        a snapshot inside a group would lose its summed gradients."""
         if hasattr(loader, "set_epoch"):
             loader.set_epoch(epoch)
         top1 = ImsituScorer(self.encoder, 1, 3)
@@ -736,6 +803,8 @@ class Trainer:
         if start_batch:
             loader.start_batch = start_batch
         batch_idx = start_batch
+        accum = max(1, int(self.config.grad_accum))
+        micros = 0
         inflight: deque = deque()
 
         def consume_one():
@@ -756,7 +825,11 @@ class Trainer:
                     "num_batches": num_batches}
 
         for args, batch, n in self._device_batches(loader):
-            losses, topk = self.train_step(*args)
+            losses, topk = self.accum_step(*args, first=micros == 0)
+            micros += 1
+            if micros == accum:
+                self.apply_step(accum)
+                micros = 0
             # the sidecars are taken now: the in-flight window keeps
             # nothing else of the host batch
             inflight.append((losses, topk, np.asarray(batch["verbs"])[:n],
@@ -767,8 +840,10 @@ class Trainer:
                 consume_one()
             dispatched = num_batches + len(inflight)
             want_save = bool(save_every and save_callback
-                             and dispatched % save_every == 0)
-            want_stop = preempt is not None and preempt.is_set()
+                             and dispatched % save_every == 0
+                             and micros == 0)
+            want_stop = (preempt is not None and micros == 0
+                         and preempt.is_set())
             if want_save or want_stop:
                 # a snapshot's scores cover exactly batch_in_epoch batches
                 while inflight:
@@ -780,6 +855,8 @@ class Trainer:
                                     saved=save_callback is not None)
         while inflight:
             consume_one()
+        if micros:
+            self.apply_step(micros)
         return top1, top5, tuple(sums / max(num_batches, 1))
 
     def evaluate(self, loader, logging: bool = False, preempt=None):

@@ -99,7 +99,9 @@ def _check_folded(weights, h, mask, r, plan=None):
 # K1/K2's tile edges: examples of r=6 and single rows (r=1) around the
 # 64-row tiles of one consumer warpgroup and the 128-row tiles of two, at
 # widths of one gate column group (64), three (192; only 64-column
-# candidate tiles), the ViT head (1024) and the ResNet head (2048); ragged
+# candidate tiles), the resnet18/34 head (512), the ViT head (1024) and
+# the ResNet-50/101/152 head (2048); one example of each (M = 6, M = 1)
+# is single-image inference's noun and verb shape; ragged
 # masks for r=6, and mask 0 (the verb branch: E = I) for r=1 and for some
 # r=6 batches
 FOLDED_EDGE_CASES = ([(b, 6, False) for b in (1, 10, 11, 21, 22, 43, 256)]
@@ -108,7 +110,7 @@ FOLDED_EDGE_CASES = ([(b, 6, False) for b in (1, 10, 11, 21, 22, 43, 256)]
                                                256)])
 
 
-@pytest.mark.parametrize("d", (64, 192, 1024, 2048))
+@pytest.mark.parametrize("d", (64, 192, 512, 1024, 2048))
 @pytest.mark.parametrize("b,r,verb", FOLDED_EDGE_CASES)
 def test_folded_forward_tile_edges(cuda_device, b, r, verb, d):
     weights, h, mask = _card_case(b, r, d, b * r + d, cuda_device, verb)
@@ -250,7 +252,7 @@ def _check_bwd(weights, h, mask, r, plan=None, seed=0):
                                                             diff.mean())
 
 
-@pytest.mark.parametrize("d", (64, 192, 1024, 2048))
+@pytest.mark.parametrize("d", (64, 192, 512, 1024, 2048))
 @pytest.mark.parametrize("b,r,verb", FOLDED_EDGE_CASES)
 def test_folded_backward_tile_edges(cuda_device, b, r, verb, d):
     """K3 at K1/K2's tile edges: examples of r=6 and single rows around
@@ -833,9 +835,10 @@ def _mini_trainer(device, dtype, **kw):
     from situation_recognition_tpu_torch.data.encoder import ImsituEncoder
     from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
 
-    return Trainer(ImsituEncoder.synthetic_full(0), TrainerConfig(
-        hidden=64, batch_size=8, backbone="mini", compute_dtype=dtype,
-        **kw), device=device)
+    cfg = dict(hidden=64, batch_size=8, backbone="mini", compute_dtype=dtype)
+    cfg.update(kw)
+    return Trainer(ImsituEncoder.synthetic_full(0), TrainerConfig(**cfg),
+                   device=device)
 
 
 def _host_batches(enc, sizes, seed):
@@ -923,6 +926,42 @@ def test_cache_device_reserve_covers_a_fit_run(cuda_device, tmp_path,
     assert took <= reserve, (took, reserve)
 
 
+@pytest.mark.parametrize("train_backbone", [False, True])
+def test_cache_device_reserve_covers_an_accumulating_fit_run(cuda_device,
+                                                             tmp_path,
+                                                             capsys,
+                                                             train_backbone):
+    """With ``grad_accum`` 2 the probe takes groups of two microbatches at
+    the microbatch (the CLI's ``batch_size``), and its reserve covers a
+    ``fit`` of that configuration: 2 groups and a part group, a snapshot
+    at each group's end, the dev eval.  (The mini backbone's gradients
+    are small: chip_smoke.py's vit ft accum phase makes the same check
+    for ViT-L/14 fine-tuned.)"""
+    from situation_recognition_tpu_torch import cli
+    from situation_recognition_tpu_torch.data.encoder import ImsituEncoder
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+
+    enc = ImsituEncoder.synthetic_full(0)
+    cfg = TrainerConfig(hidden=64, batch_size=32, backbone="mini",
+                        compute_dtype=torch.bfloat16, epochs=1, grad_accum=2,
+                        train_backbone=train_backbone)
+    reserve = cli._working_reserve(enc, cfg, cuda_device, 256, train=True)
+    assert reserve > 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(enc, cfg, device=cuda_device)
+    tr.fit(_host_batches(enc, (32, 32, 32, 32, 20), 6),
+           _host_batches(enc, (32, 32), 7), "sr", folder=str(tmp_path),
+           plot=False, save_every_steps=1, async_save=True)
+    torch.cuda.synchronize()
+    took = torch.cuda.max_memory_reserved() - base
+    capsys.readouterr()
+    assert tr.opt_steps == 3 and tr.step_count == 5
+    assert took <= reserve, (took, reserve)
+
+
 @pytest.mark.parametrize("depth", ["1", "3"])
 def test_uploader_batches_equal_the_host_batches(cuda_device, monkeypatch,
                                                  depth):
@@ -990,3 +1029,67 @@ def test_window_cache_gathers_equal_streamed_batches(cuda_device, tmp_path):
                 assert "indices" in cb and "images" in sb and sn == cn
                 for a, b in zip(streamed, cached):
                     assert torch.equal(a, b)
+
+
+# ------------------------------------------------ accumulation, inference
+
+# logits through the kernel against the plain masked path, bf16 (the
+# served-logits bound of chip_smoke.py)
+LOGIT_TOL = 0.1
+
+
+@pytest.mark.parametrize("train_backbone", [False, True])
+def test_grad_accum_group_equals_the_big_batch_on_the_card(cuda_device,
+                                                           train_backbone):
+    """``grad_accum`` 2 at microbatch 8 on batches A and B against one step
+    at batch 16 on [A; B] (dropout 0, eval-mode BN), bf16 on the card: the
+    mean gradient of every trainable tensor (the backbone's too when
+    fine-tuned) as the clip receives it, within chip_smoke.py's
+    ACCUM_GRAD_REL (whose reasoning stands beside it), after its
+    ``_decisive_verb``; the clip's global norms agree, and K1 launches
+    once per microbatch.  Every role of ``_host_batches`` is labelled, so
+    the noun losses' denominators of A and B agree."""
+    from chip_smoke import (ACCUM_GRAD_REL, _cat, _decisive_verb,
+                            _group_grads)
+    from situation_recognition_tpu_torch.data.encoder import ImsituEncoder
+
+    enc = ImsituEncoder.synthetic_full(0)
+    kw = dict(dropout_rate=0.0, frozen_backbone_bn="eval",
+              train_backbone=train_backbone)
+    acc = _mini_trainer(cuda_device, torch.bfloat16, grad_accum=2, **kw)
+    big = _mini_trainer(cuda_device, torch.bfloat16, batch_size=16, **kw)
+    a, b = _host_batches(enc, (8, 8), seed=21)
+    _decisive_verb(acc, big)
+    before = tk.folded_rows.launches
+    got, got_norm = _group_grads(acc, [a, b])
+    torch.cuda.synchronize()
+    assert tk.folded_rows.launches - before == 2
+    want, want_norm = _group_grads(big, [_cat(a, b)])
+    assert acc.opt_steps == big.opt_steps == 1
+    assert abs(got_norm - want_norm) <= ACCUM_GRAD_REL * want_norm
+    for g, w in zip(got, want):
+        rel = ((g - w).norm() / (w.norm() + 1e-30)).item()
+        assert rel <= ACCUM_GRAD_REL, (tuple(w.shape), rel)
+
+
+def test_infer_matches_the_plain_masked_path_on_the_card(cuda_device):
+    """``infer_verb`` / ``infer_nouns`` of one window (K1 at M = 1 and
+    M = 6) against the same trainer through the plain masked GGNN: f32
+    logits on the card within LOGIT_TOL, one launch each."""
+    tr = _mini_trainer(cuda_device, torch.bfloat16)
+    assert tr.head.ggsnn.impl == "kernel"
+    window = np.random.default_rng(3).integers(0, 256, (1, 256, 256, 3),
+                                               dtype=np.uint8)
+    before = tk.folded_rows.launches
+    verb = tr.infer_verb(window)
+    ids = verb.argmax(dim=1).cpu().numpy()
+    nouns = tr.infer_nouns(window, ids)
+    torch.cuda.synchronize()
+    assert tk.folded_rows.launches - before == 2
+    assert verb.is_cuda and verb.dtype == nouns.dtype == torch.float32
+    assert verb.shape == (1, 504) and nouns.shape == (1, 6, 2001)
+    tr.head.ggsnn.impl = "masked"
+    for got, want in ((verb, tr.infer_verb(window)),
+                      (nouns, tr.infer_nouns(window, ids))):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= LOGIT_TOL
