@@ -146,6 +146,28 @@ Phases, each printing its seconds:
              the step's; ``--cache_device``'s reserve, probed for the
              accumulating run, covers what that trainer took.
 
+9. export  — the serving artifact's exported programs at full width.  The
+             flagship (ResNet-152 + FCGGNN, d=2048, bf16, ``--seed``
+             weights, BN statistics from one batch) through
+             ``export_serving.export_model`` in f32, bf16 and int8 for
+             ``cuda`` (the programs call K1 as a custom op) and f32
+             ``portable``; then ViT-L/14's CLIP tower at 336² from a
+             CLIP-layout state dict at the 224 grid through the CLI's
+             ``_load_backbone`` (its position embedding resampled, 257 →
+             577 tokens), exported f32 and int8 for ``cuda`` (K1, K4, K7
+             and K6 as custom ops).  Each artifact is loaded with
+             ``load_inference`` and serves batch 256 (a warm call, 3 timed)
+             beside the eager model rebuilt from the same artifact
+             (``rebuild=True``) on the same images: bytes, export and load
+             seconds, img/s of both, the kernels' launches per served
+             batch from the program (counted from 0 around the timed
+             calls), the program within ``LOGIT_TOL`` of the eager model
+             and of the plain paths (the masked GGNN and plain ViT blocks
+             rebuilt from the same artifact) with equal verb ids where the
+             plain paths' top-2 margin is decisive, each decoded weight
+             within its encoding's rounding, and the bf16 / int8 logits
+             beside the f32 artifact's as a share of its max |logit|.
+
 Then a ``kernels`` JSON line (the entries of K1–K3 and of the ViT kernels
 with the registers, spills and shared memory that ``-Xptxas -v``
 reported, and for the GEMMs of K1–K3 and K4/K6 the ``setmaxnreg`` split,
@@ -813,6 +835,8 @@ def phase_path(enc, seed: int, batch: int, card: str) -> dict:
     tmp = tempfile.mkdtemp(prefix="srtorch_artifact_")
     try:
         t = time.perf_counter()
+        # the default artifact (portable programs): on the card its bf16
+        # model is served rebuilt, through K1 (fn.model)
         export_inference(model, tmp, batch_size=n_req)
         del model
         fn = load_inference(tmp, device="cuda")
@@ -2634,6 +2658,8 @@ def phase_vit_path(enc, seed: int, batch: int, card: str) -> dict:
     model = _random_vit_model(enc, seed)
     tmp = tempfile.mkdtemp(prefix="srtorch_vit_artifact_")
     try:
+        # the default artifact (portable programs): on the card its bf16
+        # model is served rebuilt, through the kernels (fn.model)
         export_inference(model, tmp, batch_size=n_req)
         del model
         fn = load_inference(tmp, device="cuda")
@@ -3089,6 +3115,321 @@ def phase_vit_ft_accum(enc, seed: int, batch: int) -> dict:
     return result
 
 
+# ------------------------------------------------------------- the export
+
+# timed calls of each served artifact after a warm one
+EXPORT_REPS = 3
+# bf16 / int8 artifacts against the f32 one, as a share of the f32 max
+# |logit|: the JAX package's bounds for its encodings
+# (tests/test_serving.py::test_quantized_weight_exports), which the CPU
+# tests hold the port to at mini size.  Printed here, not enforced: a
+# random 152-layer network is not a trained one, and carries a weight's
+# rounding far along (int8 shares of 0.27-0.34 there on an H100, 0.02 for
+# ViT-L/14);
+# what is enforced is each decoded weight within its encoding's rounding
+# (``_check_decoded``) and the program on those weights against the eager
+# model on the same ones
+ENCODING_TOL = {"bf16": 0.01, "int8": 0.03}
+# the flagship's artifacts (encoding, target) and the ViT's
+FLAGSHIP_EXPORTS = (("f32", "cuda"), ("bf16", "cuda"), ("int8", "cuda"),
+                    ("f32", "portable"))
+CLIP_VIT, CLIP_IMAGE = "vit_l14_clip", 336
+CLIP_N = (CLIP_IMAGE // 14) ** 2 + 1          # 577 tokens
+CLIP_EXPORTS = (("f32", "cuda"), ("int8", "cuda"))
+
+
+def _clip_state(seed: int) -> dict:
+    """A CLIP visual tower's state dict at the published 224 grid (keys
+    under ``visual.``, ``proj`` included) with random weights from
+    ``seed``: the port's ``vit_l14_clip`` written in CLIP's layout."""
+    import torch
+
+    from situation_recognition_tpu_torch.models.vit import build_vit
+
+    vit = build_vit(CLIP_VIT, image_size=VIT_IMAGE)
+    gen = torch.Generator().manual_seed(seed)
+    vit.reset_parameters(gen)
+    sd = vit.state_dict()
+    out = {"visual.class_embedding": sd["class_token"].reshape(VIT_D),
+           "visual.positional_embedding": sd["encoder.pos_embedding"][0],
+           "visual.conv1.weight": sd["conv_proj.weight"],
+           "visual.proj": torch.randn(VIT_D, 768, generator=gen) * 0.02}
+    for ours, theirs in (("ln_pre", "ln_pre"), ("encoder.ln", "ln_post")):
+        for p in ("weight", "bias"):
+            out[f"visual.{theirs}.{p}"] = sd[f"{ours}.{p}"]
+    names = (("ln_1", "ln_1"), ("self_attention.in_proj_weight",
+                                "attn.in_proj_weight"),
+             ("self_attention.in_proj_bias", "attn.in_proj_bias"),
+             ("self_attention.out_proj", "attn.out_proj"),
+             ("ln_2", "ln_2"), ("mlp.0", "mlp.c_fc"), ("mlp.3", "mlp.c_proj"))
+    for k, v in sd.items():
+        if not k.startswith("encoder.layers."):
+            continue
+        layer, rest = k[len("encoder.layers.encoder_layer_"):].split(".", 1)
+        for ours, theirs in names:
+            if rest.startswith(ours):
+                out[f"visual.transformer.resblocks.{layer}."
+                    f"{theirs}{rest[len(ours):]}"] = v
+                break
+    return out
+
+
+def _served(fn, images, reps: int) -> tuple:
+    """A warm call, then ``reps`` timed calls of ``fn`` (host clock around
+    a synchronised call) → (the last outputs, ms per call, launches per
+    call of K1 and the ViT kernels, counted from 0 over the timed
+    calls)."""
+    import torch
+
+    fn(images)
+    torch.cuda.synchronize()
+    _zero_vit_counts()
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(images)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = _vit_counts()
+    return out, ms, {k: v / reps for k, v in counts.items()}
+
+
+def _encoding_errors(got, f32, tol: float) -> dict:
+    """Max |d logits| of an encoded artifact against the f32 one as a
+    share of the f32 max |logit| (verb logits; noun logits of the rows
+    whose argmax verbs agree, the others being another verb's nouns), and
+    whether the verb ids agree wherever the f32 top-2 margin exceeds
+    2·tol·max."""
+    (vl, vi, nl), (fv, fi, fn_) = got, f32
+    top2 = fv.float().topk(2, dim=1).values
+    stable = (top2[:, 0] - top2[:, 1]) > 2 * tol * fv.abs().max()
+    same = vi == fi
+    noun = ((nl[same] - fn_[same]).abs().max() / fn_.abs().max()).item() \
+        if same.any() else 0.0
+    return {"verb_share": ((vl - fv).abs().max() / fv.abs().max()).item(),
+            "noun_share": noun, "verb_ids_agree": same.float().mean().item(),
+            "stable_rows": int(stable.sum()),
+            "verb_ids_agree_where_stable": bool(same[stable].all()),
+            "tol": tol}
+
+
+def _check_decoded(tag: str, model, path: str, weights: str) -> dict:
+    """Every decoded weight of the artifact at ``path`` against the
+    model's f32 one: bf16 within bf16 rounding of each element (2^-8 of
+    it), int8 within half a step of its channel's scale, which is at most
+    max |w| / 254 of the tensor (+1e-4 of a step for the f32 rounding of
+    w / scale and q · scale); an f32 artifact exact.  → the largest error
+    of each kind."""
+    import torch
+
+    from situation_recognition_tpu_torch.serving import (
+        _state_dicts, decode_weights)
+
+    want = _state_dicts(model)
+    worst = {"f32": 0.0, "bf16_rel": 0.0, "int8_steps": 0.0}
+    for got_sd, want_sd in zip(decode_weights(path), want):
+        if set(got_sd) != set(want_sd):
+            raise SystemExit(f"[{tag}] {weights}: decoded names differ")
+        for k, w in want_sd.items():
+            g = got_sd[k].to(w.dtype)
+            if k.endswith("num_batches_tracked"):
+                continue                  # unused in eval; JAX keeps none
+            if not w.is_floating_point():
+                if not torch.equal(g, w):
+                    raise SystemExit(f"[{tag}] {weights}: {k} changed")
+                continue
+            err = (g - w).abs()
+            if weights == "f32":
+                worst["f32"] = max(worst["f32"], err.max().item())
+            elif weights == "bf16":
+                rel = (err / w.abs().clamp_min(1e-30)).max().item()
+                worst["bf16_rel"] = max(worst["bf16_rel"], rel)
+            else:
+                step = w.abs().max().item() / 127.0
+                if step > 0:
+                    worst["int8_steps"] = max(worst["int8_steps"],
+                                              err.max().item() / step)
+    if worst["f32"] > 0 or worst["bf16_rel"] > 2 ** -8 \
+            or worst["int8_steps"] > 0.5 + 1e-4:
+        raise SystemExit(f"[{tag}] {weights}: decoded weights beyond their "
+                         f"encoding's rounding: {worst}")
+    return worst
+
+
+def _export_case(tag: str, model, images, specs, want_launches: dict,
+                 card: str) -> dict:
+    """Each (encoding, target) of ``specs``: ``export_serving.export_model``
+    into a temporary directory, ``load_inference`` on the card, and the
+    program beside the eager model rebuilt from the same artifact
+    (``rebuild=True``; the plain paths for a portable artifact), on the
+    same batch: bytes, export and load seconds, img/s, launches per batch
+    (``want_launches`` by target), the program against the eager model
+    within ``LOGIT_TOL`` and, for a ``cuda`` program, whose eager model
+    runs the same kernels, also against the plain paths rebuilt from the
+    artifact (the masked GGNN, plain ViT blocks; untimed), its decoded
+    weights within their encoding's rounding (``_check_decoded``), and an
+    encoded artifact's logits beside the f32 one's (``_encoding_errors``,
+    printed)."""
+    import torch
+
+    from situation_recognition_tpu_torch.export_serving import export_model
+    from situation_recognition_tpu_torch.serving import load_inference
+
+    batch = images.shape[0]
+    rows, outs = {}, {}
+    for weights, target in specs:
+        name = f"{weights}_{target}"
+        tmp = tempfile.mkdtemp(prefix="srtorch_export_")
+        try:
+            t0 = time.perf_counter()
+            nbytes = export_model(model, tmp, batch_size=batch,
+                                  weights=weights, target=target)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            # the programs, also the portable ones of this bf16 model
+            # (which the default would serve rebuilt, through K1)
+            fn = load_inference(tmp, device="cuda", rebuild=False)
+            load_s = time.perf_counter() - t0
+            plain = {"ggnn_impl": "masked", "block_impl": "plain"}
+            eager = load_inference(tmp, device="cuda", rebuild=True,
+                                   **({} if target == "cuda" else plain))
+            decoded = _check_decoded(tag, model, tmp, weights)
+            if set(fn.meta["platforms"]) != ({"cuda"} if target == "cuda"
+                                             else {"cpu", "cuda"}):
+                raise SystemExit(f"[{tag}] {name}: platforms "
+                                 f"{fn.meta['platforms']}")
+            got, ms, launches = _served(fn, images, EXPORT_REPS)
+            want, eager_ms, _ = _served(eager, images, EXPORT_REPS)
+            del fn, eager
+            torch.cuda.empty_cache()
+            vs_plain = None
+            if target == "cuda":
+                ref = load_inference(tmp, device="cuda", rebuild=True,
+                                     **plain)
+                vs_plain = _logit_errors(got, ref(images))
+                del ref
+                torch.cuda.empty_cache()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        for out in got[0], got[2]:
+            if out.shape[0] != batch or not torch.isfinite(out).all():
+                raise SystemExit(f"[{tag}] {name}: bad logits")
+        expect = want_launches[target]
+        if {k: launches[k] for k in expect} != expect or any(
+                launches[k] for k in launches if k not in expect):
+            raise SystemExit(f"[{tag}] {name}: launches per batch "
+                             f"{launches}, want {expect}")
+        errs = _logit_errors(got, want)
+        for against, e in (("the eager model", errs),
+                           ("the plain paths", vs_plain)):
+            if e is not None and (max(e["verb"], e["noun"]) > LOGIT_TOL
+                                  or not e["verb_ids_agree_where_decided"]):
+                raise SystemExit(f"[{tag}] {name}: the program disagrees "
+                                 f"with {against}: {e}")
+        row = {"bytes": nbytes, "export_s": export_s, "load_s": load_s,
+               "ms": ms, "img_per_s": batch / (min(ms) / 1e3),
+               "eager_ms": eager_ms,
+               "eager_img_per_s": batch / (min(eager_ms) / 1e3),
+               "launches_per_batch": launches, "vs_eager": errs,
+               "vs_plain": vs_plain, "decoded": decoded, "card": card}
+        if weights != "f32":
+            row["vs_f32"] = _encoding_errors(got, outs[f"f32_{target}"],
+                                             ENCODING_TOL[weights])
+        outs[name] = got
+        rows[name] = row
+        _log(f"[{tag}] {name}: {nbytes} bytes, export {export_s:.2f} s, "
+             f"load {load_s:.2f} s; program {row['img_per_s']:.1f} img/s "
+             f"(ms {[round(x, 2) for x in ms]}) beside the eager model "
+             f"{row['eager_img_per_s']:.1f} img/s (ms "
+             f"{[round(x, 2) for x in eager_ms]}) at batch {batch}; "
+             f"launches per batch {launches}; decoded weights "
+             f"{json.dumps(decoded)}; vs eager {json.dumps(errs)}"
+             + (f"; vs plain {json.dumps(vs_plain)}" if vs_plain else "")
+             + (f"; vs f32 {json.dumps(row['vs_f32'])}"
+                if "vs_f32" in row else "") + f" ({card})")
+    return rows
+
+
+def phase_export(enc, seed: int, batch: int, card: str) -> dict:
+    """The serving artifact's programs at full width: the flagship
+    (ResNet-152 + FCGGNN, d=2048, bf16, random weights from ``--seed``, BN
+    statistics from one batch) exported f32 / bf16 / int8 for ``cuda`` and
+    f32 ``portable``; then ViT-L/14's CLIP tower at 336² from a CLIP-layout
+    state dict at the 224 grid through the CLI's ``_load_backbone`` (257 →
+    577 tokens), exported f32 and int8 for ``cuda``.  Each artifact is
+    loaded and serves a batch of ``batch`` (``_export_case``)."""
+    import numpy as np
+    import torch
+
+    from situation_recognition_tpu_torch import convert
+    from situation_recognition_tpu_torch.cli import _load_backbone
+    from situation_recognition_tpu_torch.serving import SituationModel
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+
+    rng = np.random.default_rng(seed + 21)
+    images = torch.from_numpy(rng.integers(0, 256, (batch, 256, 256, 3),
+                                           dtype=np.uint8)).cuda()
+    none = {"K1": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0, "K8": 0}
+    t = time.perf_counter()
+    model = _random_model(enc, seed).to(DEVICE)
+    flagship = _export_case(
+        "export", model, images, FLAGSHIP_EXPORTS,
+        {"cuda": {**none, "K1": 2}, "portable": none}, card)
+    del model
+    torch.cuda.empty_cache()
+    _phase("export: the flagship", t)
+
+    t = time.perf_counter()
+    state = _clip_state(seed)
+    tmp = tempfile.mkdtemp(prefix="srtorch_clip_")
+    try:
+        ckpt = os.path.join(tmp, "clip_visual.pth")
+        torch.save(state, ckpt)
+        trainer = Trainer(enc, TrainerConfig(
+            hidden=VIT_D, batch_size=batch, backbone=CLIP_VIT,
+            image_size=CLIP_IMAGE, compute_dtype=torch.bfloat16,
+            seed=seed), device=DEVICE)
+        _load_backbone(trainer, ckpt)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    loaded = trainer._backbone_source()
+    pos = loaded["encoder.pos_embedding"]
+    want_pos = convert.interpolate_pos_embed(
+        state["visual.positional_embedding"][None], CLIP_N)
+    if tuple(pos.shape) != (1, CLIP_N, VIT_D) or not torch.equal(
+            pos.cpu(), want_pos):
+        raise SystemExit(f"the CLIP tower's position embedding was not "
+                         f"resampled to {CLIP_N} tokens: "
+                         f"{tuple(pos.shape)}")
+    last = VIT_DEPTH - 1
+    if not torch.equal(
+            loaded[f"encoder.layers.encoder_layer_{last}.mlp.3.weight"].cpu(),
+            state[f"visual.transformer.resblocks.{last}.mlp.c_proj.weight"]):
+        raise SystemExit("the CLIP tower's weights did not load")
+    model = SituationModel(enc, backbone=CLIP_VIT, hidden=VIT_D,
+                           image_size=CLIP_IMAGE, dtype=torch.bfloat16)
+    model.backbone.load_state_dict(
+        {k: v.float() if v.is_floating_point() else v
+         for k, v in loaded.items()}, strict=True)
+    model.head.load_state_dict(trainer.head.state_dict(), strict=True)
+    del trainer, loaded, state
+    model.eval().to(DEVICE)
+    vit = _export_case(
+        "export vit", model, images, CLIP_EXPORTS,
+        {"cuda": {**none, "K1": 2, "K4": VIT_DEPTH, "K6": VIT_DEPTH,
+                  "K7": VIT_DEPTH}}, card)
+    del model
+    torch.cuda.empty_cache()
+    _phase("export: ViT-L/14 CLIP at 336", t)
+    return {"flagship": flagship, "vit": vit, "card": card,
+            "launches": {
+                tag: {k: round(EXPORT_REPS * sum(
+                    r["launches_per_batch"][k] for r in rows.values()))
+                    for k in none}
+                for tag, rows in (("flagship", flagship), ("vit", vit))}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3197,7 +3538,12 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     vit_ft_accum = phase_vit_ft_accum(enc, args.seed, BATCH)
     _phase("vit ft accum", t)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    export = phase_export(enc, args.seed, BATCH, smi)
+    _phase("export", t)
     vit_launches = {k: {path: c[k] for path, c in (
+        ("export_program", export["launches"]["vit"]),
         ("serve_stream", vit_path["launches"]["stream"]),
         ("serve_block", vit_path["launches"]["block"]),
         ("batcher", vit_path["launches"]["batcher"]),
@@ -3233,6 +3579,7 @@ def main(argv=None) -> int:
                          + r["eval_launches"]["K1"]
                          for n, r in resnets.items()},
                       "cli": cli_k1,
+                      "export_program": export["launches"]["flagship"]["K1"],
                       **{f"cli_{p}": c["K1"]
                          for p, c in cli["launches_more"].items()},
                       **{f"vit_{p}": c

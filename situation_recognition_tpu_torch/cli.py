@@ -21,9 +21,17 @@ Reproduced behaviours:
 * a resume saves under the resumed name.
 
 Checkpoints are the reference's ``torch.save`` layout
-(``utils/checkpoint.py``): a reference checkpoint, or one the JAX package
-exported (``tools/export_torch.py``), resumes here, and this CLI's resumes
-in both.
+(``utils/checkpoint.py``): a reference checkpoint, one the JAX package
+exported (``tools/export_torch.py``), or the JAX package's own msgpack
+checkpoint (read by ``utils/msgpack.py`` and converted by
+``convert.export_reference_checkpoint``, with no JAX installed) resumes
+here, and this CLI's resumes in the reference and the JAX package.
+
+``--backbone_ckpt`` (and a ``backbone_<size>.msgpack`` / ``backbone.pth``
+dropped in ``--saving_folder``) is read as the JAX CLI reads it: a flax
+msgpack backbone, a torchvision ViT or CLIP visual tower (its position
+embedding resampled to ``--image_size``), a reference checkpoint or a
+torchvision ResNet; a ViT grid that still does not fit raises.
 
 Flags whose features a later slice brings are refused by name, with the
 ROADMAP §1 item that brings them: ``--model_axis`` > 1 and
@@ -103,9 +111,9 @@ def build_parser() -> ArgumentParser:
                         help='Model-axis size (classifier tensor '
                              'parallelism; only 1 is ported)')
     parser.add_argument('--backbone_ckpt', type=str, default='',
-                        help='Pretrained backbone weights: a '
-                             'torchvision-layout .pth, or a reference '
-                             'checkpoint (its convnet_verbs)')
+                        help='Pretrained backbone weights (.msgpack or '
+                             'torch .pth: torchvision ResNet or ViT, CLIP '
+                             'visual tower, reference checkpoint)')
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--ggnn', type=str, default='auto',
                         choices=['auto', 'masked', 'pallas'],
@@ -319,32 +327,87 @@ def _is_torch_checkpoint(path: str) -> bool:
 
 
 def _load_backbone(trainer, path: str) -> None:
-    """Backbone weights from a torchvision-layout state dict (its ``fc``
-    ignored) or from a reference checkpoint (its ``convnet_verbs``)."""
+    """Backbone weights from a flax msgpack file (``params`` and
+    ``batch_stats`` as the JAX package writes them) or a torch ``.pth``,
+    whose flavour is sniffed as the JAX CLI sniffs it: a torchvision ViT
+    (``conv_proj.weight``), a CLIP visual tower (``ln_pre.weight``), a
+    reference checkpoint (its ``convnet_nouns``, else ``convnet_verbs``)
+    or a torchvision ResNet.  A ViT's position embedding is resampled to
+    the trainer's ``image_size``; a grid that still differs raises.  The
+    load is then tolerant by name (``Trainer.load_backbone_state``)."""
     import torch
 
-    from situation_recognition_tpu_torch.convert import from_reference
+    from situation_recognition_tpu_torch import convert
+    from situation_recognition_tpu_torch.utils import msgpack
 
-    sd = torch.load(path, map_location='cpu', weights_only=True)
-    if isinstance(sd, dict) and 'model_state_dict' in sd:
-        sd = sd['model_state_dict']
-    if any(k.startswith('convnet_verbs.') for k in sd):
-        sd = from_reference(sd)[0]
+    size = trainer.config.image_size
+    if path.endswith('.msgpack'):
+        tree = msgpack.read(path)
+        params = tree['params']
+        if 'cls_token' in params:
+            sd = convert.vit_state_from_jax(params)
+        else:
+            sd = convert.resnet_state_from_jax(params,
+                                               tree.get('batch_stats') or {})
+    else:
+        sd = torch.load(path, map_location='cpu', weights_only=True)
+        if isinstance(sd, dict) and 'model_state_dict' in sd:
+            sd = sd['model_state_dict']
+        if 'conv_proj.weight' in sd:                       # torchvision ViT
+            sd = convert.convert_vit(sd, image_size=size)
+        elif any(k.endswith('ln_pre.weight') for k in sd):  # CLIP visual
+            sd = convert.convert_clip_vit(sd, image_size=size)
+        else:
+            for twin in ('convnet_nouns.model.', 'convnet_verbs.model.'):
+                if any(k.startswith(twin) for k in sd):
+                    sd = {k[len(twin):]: v for k, v in sd.items()
+                          if k.startswith(twin)}
+                    break
+    pos = sd.get('encoder.pos_embedding')
+    want = trainer.backbone.state_dict().get('encoder.pos_embedding')
+    if want is not None and (pos is None
+                             or tuple(pos.shape) != tuple(want.shape)):
+        got = None if pos is None else tuple(pos.shape)
+        raise ValueError(
+            f'backbone pos_embed grid {got} does not match '
+            f'--image_size {size} (expects {tuple(want.shape)}). A cached '
+            f'backbone.msgpack converted at another --image_size cannot be '
+            f'reused — delete it (the .pth auto-converts per size) or pass '
+            f'the matching size.')
     trainer.load_backbone_state(sd)
 
 
+def _save_backbone_msgpack(trainer, path: str) -> None:
+    """The trainer's (converted) backbone as the flax msgpack file that
+    ``_load_backbone`` and the JAX CLI read: ``params`` and
+    ``batch_stats`` in the JAX layout."""
+    from situation_recognition_tpu_torch import convert
+    from situation_recognition_tpu_torch.utils import msgpack
+
+    state = trainer._backbone_source()
+    if 'encoder.pos_embedding' in state:
+        tree = {'params': convert.vit_params_to_jax(
+            state, trainer.backbone.heads), 'batch_stats': {}}
+    else:
+        tree = {'params': convert.resnet_params_to_jax(state),
+                'batch_stats': convert.resnet_stats_to_jax(state)}
+    msgpack.write(path, tree)
+
+
 def _load_resume(trainer, path: str) -> dict:
-    """A resume checkpoint (this package's, the reference's, or a JAX
-    export) → its dict, the model and optimizer state already restored."""
+    """A resume checkpoint (this package's, the reference's, a JAX export,
+    or the JAX package's msgpack checkpoint, converted by
+    ``convert.export_reference_checkpoint``) → its dict, the model and
+    optimizer state already restored."""
+    from situation_recognition_tpu_torch import convert
+    from situation_recognition_tpu_torch.utils import msgpack
     from situation_recognition_tpu_torch.utils.checkpoint import (
         load_checkpoint)
 
-    if not _is_torch_checkpoint(path):
-        raise SystemExit(
-            f'{path} is not a torch checkpoint (a JAX package msgpack '
-            f'checkpoint?): convert it with `python tools/export_torch.py '
-            f'checkpoint {path} <out>.pth` and resume from that')
-    ckpt = load_checkpoint(path)
+    if _is_torch_checkpoint(path):
+        ckpt = load_checkpoint(path)
+    else:
+        ckpt = convert.export_reference_checkpoint(msgpack.read(path))
     if not (ckpt.get('optimizer_state_dict') or {}).get('param_groups'):
         print('[srtorch] checkpoint has no optimizer state; starting with '
               'a fresh Adamax state', file=sys.stderr)
@@ -572,14 +635,23 @@ def main(argv=None) -> None:
         _load_backbone(trainer, args.backbone_ckpt)
     else:
         # the reference starts from pretrained features; with no network,
-        # a torchvision .pth dropped at <saving_folder>/backbone.pth is
-        # picked up
-        default_bb = next((p for p in (pjoin(args.saving_folder,
-                                             'backbone' + ext)
-                                       for ext in ('.pth', '.pt'))
+        # a checkpoint dropped at <saving_folder>/backbone.{msgpack,pth,pt}
+        # is picked up, the converted msgpack first (per --image_size, as
+        # the JAX CLI names it); a .pth is converted and cached as that
+        # msgpack for the next run
+        cache_name = ('backbone.msgpack' if args.image_size == 224
+                      else f'backbone_{args.image_size}.msgpack')
+        default_bb = next((p for p in [pjoin(args.saving_folder, cache_name)]
+                           + [pjoin(args.saving_folder, 'backbone' + ext)
+                              for ext in ('.pth', '.pt')]
                            if pisfile(p)), None)
         if default_bb is not None:
             _load_backbone(trainer, default_bb)
+            if not default_bb.endswith('.msgpack'):
+                cache = pjoin(args.saving_folder, cache_name)
+                _save_backbone_msgpack(trainer, cache)
+                print(f'[srtorch] converted {default_bb} -> {cache} '
+                      '(picked up automatically next run)', file=sys.stderr)
         elif len(args.resume_model) <= 1:
             print('[srtorch] no pretrained backbone found (drop a '
                   'torchvision .pth at '

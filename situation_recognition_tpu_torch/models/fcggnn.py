@@ -17,7 +17,8 @@ head's order: verb, predicted-verb nouns, gt-verb nouns.
 
 GGNN implementations (``resolve_ggnn_impl``): ``kernel`` runs forward-only
 propagates through the folded multi-step kernel K1 (``ops/ggnn_kernel.py``,
-bf16 inside) and differentiated ones as the JAX package does
+bf16 inside; from a serving program's ``operands`` instead of folding
+the weights) and differentiated ones as the JAX package does
 (``ops/ggnn_train.py``): autograd over the masked-sum math by default, or,
 with ``SRTPU_GGNN_BWD=pallas``, the K2/K3 autograd Function.  ``masked``
 runs the masked-sum math of ``ops/ggnn.py`` in ``dtype`` everywhere.
@@ -38,7 +39,7 @@ from torch import nn
 from situation_recognition_tpu_torch.ops.ggnn import (
     GGNNParams, ggnn_propagate, ggnn_propagate_verb)
 from situation_recognition_tpu_torch.ops.ggnn_kernel import (
-    fold_gate_weights, ggnn_propagate_folded)
+    fold_gate_weights, ggnn_propagate_folded, ggnn_propagate_prepared)
 from situation_recognition_tpu_torch.ops.ggnn_train import (
     ggnn_propagate_train, resolve_ggnn_bwd)
 
@@ -90,6 +91,9 @@ class GGNN(nn.Module):
         self.dtype = dtype
         self.impl = impl
         self._folded = {}
+        # a serving program's K1 operands (``serving.kernel_operands``): a
+        # module of buffers while it is traced, else None
+        self.register_module("operands", None)
 
     def params(self) -> GGNNParams:
         """(D_in, D_out) views in the compute type (JAX layout)."""
@@ -121,6 +125,14 @@ class GGNN(nn.Module):
                                "it under torch.no_grad() or "
                                "torch.inference_mode()")
         r = hidden.shape[1]
+        ops = self.operands
+        if ops is not None:
+            # a serving program: K1's operands are its arguments, prepared
+            # once at load (``serving.kernel_operands``)
+            return ggnn_propagate_prepared(
+                hidden, mask, self.num_steps,
+                (ops.w_zr, ops.u_zr, ops.w_h, ops.u_h),
+                getattr(ops, f"ba_{r}"))
         return ggnn_propagate_folded(None, hidden, mask, self.num_steps,
                                      weights=self.folded(float(r)))
 

@@ -158,6 +158,9 @@ class EncoderLayer(nn.Module):
                                  nn.Identity(), nn.Identity(),
                                  nn.Linear(width * mlp_ratio, width))
         self._kernel_weights = None
+        # a serving program's bf16 matrices (``serving.kernel_operands``):
+        # a module of buffers while it is traced, else None
+        self.register_module("operands", None)
 
     def weights(self) -> BlockWeights:
         a = self.self_attention
@@ -169,7 +172,14 @@ class EncoderLayer(nn.Module):
 
     def kernel_weights(self) -> BlockWeights:
         """``vit_kernel.kernel_weights`` of this block, kept until a
-        parameter is replaced or written in place."""
+        parameter is replaced or written in place; in a serving program
+        (``operands`` set) its bf16 matrices are the program's arguments,
+        prepared once at load (``serving.kernel_operands``)."""
+        ops = self.operands
+        if ops is not None:
+            w = self.weights()
+            return w._replace(in_w=ops.in_w, out_w=ops.out_w,
+                              fc1_w=ops.fc1_w, fc2_w=ops.fc2_w)
         key = tuple((p.data_ptr(), p._version) for p in self.parameters())
         hit = self._kernel_weights
         if hit is None or hit[0] != key:

@@ -29,6 +29,13 @@ gates in f32 and h kept in bf16 between steps — the TPU kernel's numerics.
   ``csrc/ggnn_folded.cu`` (K1, K2) or ``csrc/ggnn_folded_bwd.cu`` (K3),
   built by ``nvcc`` at first use and bound with ``ctypes``, or raises.
   There is no fallback.  Each wrapper's ``launches`` counts its launches.
+* ``torch.ops.srtorch.ggnn_folded`` — K1 as a ``torch.library`` custom
+  op over the prepared operands (``kernel_weights``) and the bias, so that
+  ``torch.export`` can trace a program through it (a ctypes launch cannot
+  be traced); its fake implementation gives the shape only.
+  ``folded_rows`` launches through it on the card, and a serving program
+  calls it with operands prepared once at load (``folded_rows_prepared``,
+  ``ggnn_propagate_prepared``).  On CPU tensors the op runs the twin.
 * ``folded_operands`` — K1/K2's weights in the layout their GEMMs read
   (``kernel_weights``), kept until the folded weights are written in
   place or freed; ``tile_plan`` — their tiles for (M, d); ``bwd_tile_plan``
@@ -367,13 +374,26 @@ def _forward_args(h, mask_rows, weights, r: int, plan):
     updates in place, then mask, the prepared weights, ba and the scratch
     (agg, z, rh), and the tiles."""
     _check_cuda_args(h, mask_rows, weights, r)
-    m, d = h.shape
+    return _prepared_args(h, mask_rows, folded_operands(weights), weights[3],
+                          r, plan)
+
+
+def _prepared_args(h, mask_rows, operands, ba, r: int, plan):
+    """``_forward_args`` from operands prepared already (``kernel_weights``)
+    and the bias ba (1, 3d) f32, checked here."""
+    m, d = _check_rows(h, mask_rows, r)
+    bf, f32 = torch.bfloat16, torch.float32
+    w_zr, u_zr, w_h, u_h = operands
+    _check_tensors(h.device, {
+        "h": (h, (m, d), bf), "mask": (mask_rows, (m,), f32),
+        "w_zr": (w_zr, (2 * d, d), bf), "u_zr": (u_zr, (2 * d, d), bf),
+        "w_h": (w_h, (d, d), bf), "u_h": (u_h, (d, d), bf),
+        "ba": (ba, (1, 3 * d), f32)})
     if plan is None:
         sms = torch.cuda.get_device_properties(h.device).multi_processor_count
         plan = tile_plan(m, d, sms)
     out = h.clone()
-    bf, f32 = torch.bfloat16, torch.float32
-    keep = [mask_rows, *folded_operands(weights), weights[3],
+    keep = [mask_rows, *operands, ba,
             torch.empty((m, d), dtype=bf, device=h.device),
             torch.empty((m, d), dtype=f32, device=h.device),
             torch.empty((m, d), dtype=bf, device=h.device)]
@@ -383,7 +403,15 @@ def _forward_args(h, mask_rows, weights, r: int, plan):
 def _launch(h, mask_rows, weights, r: int, steps: int, plan=None):
     """K1 on the card; ``plan``: a ``TilePlan`` in place of
     ``tile_plan``'s."""
-    out, keep, plan = _forward_args(h, mask_rows, weights, r, plan)
+    _check_cuda_args(h, mask_rows, weights, r)
+    return _launch_prepared(h, mask_rows, folded_operands(weights),
+                            weights[3], r, steps, plan)
+
+
+def _launch_prepared(h, mask_rows, operands, ba, r: int, steps: int,
+                     plan=None):
+    """K1 on the card from prepared operands (``_prepared_args``)."""
+    out, keep, plan = _prepared_args(h, mask_rows, operands, ba, r, plan)
     m, d = h.shape
     lib = _lib("ggnn_folded.cu", "ggnn_folded_forward")
     with torch.cuda.device(h.device):
@@ -395,6 +423,42 @@ def _launch(h, mask_rows, weights, r: int, steps: int, plan=None):
                            f"error {rc}")
     folded_rows.launches += 1
     return out
+
+
+def unprepare(operands, ba):
+    """``kernel_weights`` inverted: the prepared operands and the bias →
+    ``fold_gate_weights``' (wa, uzr, uh, ba).  Exact (a permutation)."""
+    w_zr, u_zr, w_h, u_h = operands
+    d = w_h.shape[0]
+    groups = d // D_MULTIPLE
+
+    def zr_ungroup(w):
+        return (w.reshape(groups, 2, D_MULTIPLE, d).transpose(0, 1)
+                .reshape(2 * d, d).t())
+
+    return (torch.cat([zr_ungroup(w_zr), w_h.t()], dim=1).contiguous(),
+            zr_ungroup(u_zr).contiguous(), u_h.t().contiguous(), ba)
+
+
+@torch.library.custom_op("srtorch::ggnn_folded", mutates_args=())
+def _ggnn_folded_op(h: torch.Tensor, mask_rows: torch.Tensor,
+                    w_zr: torch.Tensor, u_zr: torch.Tensor,
+                    w_h: torch.Tensor, u_h: torch.Tensor, ba: torch.Tensor,
+                    r: int, steps: int) -> torch.Tensor:
+    """K1 over prepared operands: CUDA tensors launch the kernel (or
+    raise), CPU tensors run the twin."""
+    operands = (w_zr, u_zr, w_h, u_h)
+    if h.device.type == "cuda":
+        return _launch_prepared(h, mask_rows, operands, ba, r, steps)
+    if h.device.type == "cpu":
+        return folded_reference(h, mask_rows, unprepare(operands, ba), r,
+                                steps)
+    raise ValueError(f"no GGNN kernel for device {h.device}")
+
+
+@_ggnn_folded_op.register_fake
+def _(h, mask_rows, w_zr, u_zr, w_h, u_h, ba, r, steps):
+    return torch.empty_like(h)
 
 
 def _launch_res(h, mask_rows, weights, r: int, steps: int, plan=None):
@@ -461,11 +525,25 @@ def folded_rows(h: torch.Tensor, mask_rows: torch.Tensor, weights,
     if h.device.type == "cpu":
         return folded_reference(h, mask_rows, weights, r, steps)
     if h.device.type == "cuda":
-        return _launch(h, mask_rows, weights, r, steps)
+        _check_cuda_args(h, mask_rows, weights, r)
+        return torch.ops.srtorch.ggnn_folded(
+            h, mask_rows, *folded_operands(weights), weights[3], r, steps)
     raise ValueError(f"no GGNN kernel for device {h.device}")
 
 
 folded_rows.launches = 0
+
+
+def folded_rows_prepared(h: torch.Tensor, mask_rows: torch.Tensor, operands,
+                         ba: torch.Tensor, r: int, steps: int
+                         ) -> torch.Tensor:
+    """K1 as ``folded_rows``, from operands prepared once by the caller
+    (``kernel_weights`` of ``fold_gate_weights``) and the bias: always
+    through the custom op, so that a traced program calls it with its
+    arguments (no fold, no lookup in ``folded_operands``' cache).  On the
+    CPU the op runs the twin."""
+    return torch.ops.srtorch.ggnn_folded(h, mask_rows, *operands, ba, r,
+                                         steps)
 
 
 def folded_rows_res(h: torch.Tensor, mask_rows: torch.Tensor, weights,
@@ -512,4 +590,17 @@ def ggnn_propagate_folded(params: GGNNParams, hidden: torch.Tensor,
     h = hidden.reshape(b * r, d).to(torch.bfloat16).contiguous()
     mask_rows = mask.reshape(b * r).to(torch.float32).contiguous()
     out = folded_rows(h, mask_rows, weights, r, num_steps)
+    return out.reshape(b, r, d).to(hidden.dtype)
+
+
+def ggnn_propagate_prepared(hidden: torch.Tensor, mask: torch.Tensor,
+                            num_steps: int, operands, ba: torch.Tensor
+                            ) -> torch.Tensor:
+    """``ggnn_propagate_folded`` through ``folded_rows_prepared``: hidden
+    (B, R, D), mask (B, R), the prepared operands and the bias of
+    ``fold_gate_weights(params, R)`` → (B, R, D) in hidden's dtype."""
+    b, r, d = hidden.shape
+    h = hidden.reshape(b * r, d).to(torch.bfloat16).contiguous()
+    mask_rows = mask.reshape(b * r).to(torch.float32).contiguous()
+    out = folded_rows_prepared(h, mask_rows, operands, ba, r, num_steps)
     return out.reshape(b, r, d).to(hidden.dtype)

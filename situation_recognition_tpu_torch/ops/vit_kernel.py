@@ -22,7 +22,12 @@ and the backward kernel of the fine-tuning path:
 
 A CPU tensor runs the twin of ``ops/vit.py``; a CUDA tensor launches the
 kernel, built by ``nvcc`` at first use and bound with ``ctypes``, or
-raises.  There is no fallback.  Before a launch every operand is checked
+raises.  There is no fallback.  The forward kernels launch through
+``torch.library`` custom ops (``torch.ops.srtorch.vit_qkv``,
+``vit_attention``, ``vit_out_mlp``), so that ``torch.export`` can trace a
+serving program through them (a ctypes launch cannot be traced); their
+fake implementations give shapes and types only, and on CPU tensors the
+ops run the twins.  Before a launch every operand is checked
 to be contiguous and 16-byte aligned (``_check_tensors``): the GEMMs read
 through TMA tensor maps, which need both.  Each wrapper's ``launches``
 counts its calls that launched.
@@ -114,7 +119,7 @@ def _rows(x: torch.Tensor) -> tuple:
 
 def _check_weights(x: torch.Tensor, w: BlockWeights, names) -> None:
     d = x.shape[1]
-    hid = w.fc1_w.shape[0]
+    hid = None if w.fc1_w is None else w.fc1_w.shape[0]
     shapes = {"ln1_w": (d,), "ln1_b": (d,), "in_w": (3 * d, d),
               "in_b": (3 * d,), "out_w": (d, d), "out_b": (d,),
               "ln2_w": (d,), "ln2_b": (d,), "fc1_w": (hid, d),
@@ -152,14 +157,35 @@ def _launch_qkv(x, w: BlockWeights, eps: float):
     return q, k, v
 
 
+@torch.library.custom_op("srtorch::vit_qkv", mutates_args=())
+def _qkv_op(x: torch.Tensor, ln1_w: torch.Tensor, ln1_b: torch.Tensor,
+            in_w: torch.Tensor, in_b: torch.Tensor, eps: float
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 as an op: CUDA tensors launch the kernel, CPU tensors run the
+    twin."""
+    w = BlockWeights(ln1_w, ln1_b, in_w, in_b, *(None,) * 8)
+    if x.device.type == "cuda":
+        return _launch_qkv(x, w, eps)
+    if x.device.type == "cpu":
+        return tuple(t.clone(memory_format=torch.contiguous_format)
+                     for t in qkv_reference(x, w, eps))
+    raise ValueError(f"no ViT kernel for device {x.device}")
+
+
+@_qkv_op.register_fake
+def _(x, ln1_w, ln1_b, in_w, in_b, eps):
+    return tuple(torch.empty_like(x) for _ in range(3))
+
+
 def vit_qkv_forward(x: torch.Tensor, w: BlockWeights, eps: float):
     """K4: the stream x (M, D) bf16 → (q, k, v), each (M, D): LN1 in f32,
     the packed projection, the f32 bias.  CPU tensors run the twin; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernel (through the op) or raise."""
     if x.device.type == "cpu":
         return qkv_reference(x, w, eps)
     if x.device.type == "cuda":
-        return _launch_qkv(x, w, eps)
+        return torch.ops.srtorch.vit_qkv(x, w.ln1_w, w.ln1_b, w.in_w,
+                                         w.in_b, float(eps))
     raise ValueError(f"no ViT kernel for device {x.device}")
 
 
@@ -192,14 +218,10 @@ def _attention_rows(q, heads: int, row_stride: int, n_valid: int,
     return m, d, b
 
 
-def _attention(q, k, v, heads: int, folded: bool, row_stride: int,
-               n_valid: int):
-    """The attention core over (B·row_stride, D) q, k, v → (context,
-    whether the kernel was launched)."""
+def _launch_attention(q, k, v, heads: int, folded: bool, row_stride: int,
+                      n_valid: int) -> torch.Tensor:
+    """The attention core over (B·row_stride, D) q, k, v on the card."""
     scale = 1.0 / math.sqrt(q.shape[1] // heads)
-    if q.device.type == "cpu":
-        return attn_core_reference(q, k, v, heads, scale, folded, row_stride,
-                                   n_valid), False
     _, d, b = _attention_rows(q, heads, row_stride, n_valid,
                               {"q": q, "k": k, "v": v})
     out = torch.empty_like(q)
@@ -210,7 +232,46 @@ def _attention(q, k, v, heads: int, folded: bool, row_stride: int,
             row_stride, n_valid, d, heads, float(scale * LOG2E),
             float(scale), int(folded), _stream(q))
     _raise_on(rc, "vit_attention_forward")
-    return out, True
+    return out
+
+
+@torch.library.custom_op("srtorch::vit_attention", mutates_args=())
+def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  heads: int, folded: bool, row_stride: int, n_valid: int,
+                  stream: bool) -> torch.Tensor:
+    """K5 (``stream`` false) / K7 (true), one kernel, as an op: CUDA
+    tensors launch it and count the launch under the wrapper ``stream``
+    names, CPU tensors run the twin."""
+    if q.device.type == "cpu":
+        scale = 1.0 / math.sqrt(q.shape[1] // heads)
+        return attn_core_reference(q, k, v, heads, scale, folded, row_stride,
+                                   n_valid).clone(
+            memory_format=torch.contiguous_format)
+    out = _launch_attention(q, k, v, heads, folded, row_stride, n_valid)
+    if stream:
+        vit_attention_stream_forward.launches += 1
+    else:
+        vit_attention_forward.launches += 1
+    return out
+
+
+@_attention_op.register_fake
+def _(q, k, v, heads, folded, row_stride, n_valid, stream):
+    return torch.empty_like(q)
+
+
+def _attention(q, k, v, heads: int, folded: bool, row_stride: int,
+               n_valid: int, stream: bool):
+    """The attention core over (B·row_stride, D) q, k, v: the twin on the
+    CPU, the op on the card."""
+    if q.device.type == "cpu":
+        scale = 1.0 / math.sqrt(q.shape[1] // heads)
+        return attn_core_reference(q, k, v, heads, scale, folded, row_stride,
+                                   n_valid)
+    if q.device.type == "cuda":
+        return torch.ops.srtorch.vit_attention(q, k, v, heads, folded,
+                                               row_stride, n_valid, stream)
+    raise ValueError(f"no ViT kernel for device {q.device}")
 
 
 def vit_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -219,10 +280,8 @@ def vit_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, N, D), all N rows real.  CPU tensors run the twin; CUDA tensors
     launch ``csrc/vit_attention.cu`` or raise."""
     b, n, d = q.shape
-    out, launched = _attention(q.reshape(b * n, d), k.reshape(b * n, d),
-                               v.reshape(b * n, d), heads, folded, n, n)
-    if launched:
-        vit_attention_forward.launches += 1
+    out = _attention(q.reshape(b * n, d), k.reshape(b * n, d),
+                     v.reshape(b * n, d), heads, folded, n, n, False)
     return out.reshape(b, n, d)
 
 
@@ -237,10 +296,7 @@ def vit_attention_stream_forward(q: torch.Tensor, k: torch.Tensor,
     ``n_valid`` real rows per example → context (B·row_stride, D) with the
     pad rows zero.  The same kernel as K5.  CPU tensors run the twin; CUDA
     tensors launch the kernel or raise."""
-    out, launched = _attention(q, k, v, heads, folded, row_stride, n_valid)
-    if launched:
-        vit_attention_stream_forward.launches += 1
-    return out
+    return _attention(q, k, v, heads, folded, row_stride, n_valid, True)
 
 
 vit_attention_stream_forward.launches = 0
@@ -312,16 +368,45 @@ def _launch_out_mlp(x, ctx, w: BlockWeights, eps: float, quick: bool):
     return out
 
 
+_MLP_FIELDS = ("out_w", "out_b", "ln2_w", "ln2_b", "fc1_w", "fc1_b",
+               "fc2_w", "fc2_b")
+
+
+@torch.library.custom_op("srtorch::vit_out_mlp", mutates_args=())
+def _out_mlp_op(x: torch.Tensor, ctx: torch.Tensor, out_w: torch.Tensor,
+                out_b: torch.Tensor, ln2_w: torch.Tensor, ln2_b: torch.Tensor,
+                fc1_w: torch.Tensor, fc1_b: torch.Tensor, fc2_w: torch.Tensor,
+                fc2_b: torch.Tensor, eps: float, quick: bool) -> torch.Tensor:
+    """K6 as an op: CUDA tensors launch the kernels, CPU tensors run the
+    twin."""
+    w = BlockWeights(None, None, None, None, out_w, out_b, ln2_w, ln2_b,
+                     fc1_w, fc1_b, fc2_w, fc2_b)
+    if x.device.type == "cuda":
+        return _launch_out_mlp(x, ctx, w, eps, quick)
+    if x.device.type == "cpu":
+        return out_mlp_reference(x, ctx, w, eps, quick).clone(
+            memory_format=torch.contiguous_format)
+    raise ValueError(f"no ViT kernel for device {x.device}")
+
+
+@_out_mlp_op.register_fake
+def _(x, ctx, out_w, out_b, ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, eps,
+      quick):
+    return torch.empty_like(x)
+
+
 def vit_out_mlp_forward(x: torch.Tensor, ctx: torch.Tensor, w: BlockWeights,
                         eps: float, quick: bool) -> torch.Tensor:
     """K6: the stream x and the context ctx, (M, D) bf16 → the block's
     output (M, D): out-projection and residual in f32, LN2, fc1 + GELU
     (QuickGELU with ``quick``), fc2 and the residual.  CPU tensors run the
-    twin; CUDA tensors launch the kernels or raise."""
+    twin; CUDA tensors launch the kernels (through the op) or raise."""
     if x.device.type == "cpu":
         return out_mlp_reference(x, ctx, w, eps, quick)
     if x.device.type == "cuda":
-        return _launch_out_mlp(x, ctx, w, eps, quick)
+        return torch.ops.srtorch.vit_out_mlp(
+            x, ctx, *(getattr(w, f) for f in _MLP_FIELDS), float(eps),
+            bool(quick))
     raise ValueError(f"no ViT kernel for device {x.device}")
 
 

@@ -2,7 +2,10 @@
 artifact.
 
 Port of ``situation_recognition_tpu/server.py`` over this package's
-``serving.load_inference``.
+``serving.load_inference``: either kind of artifact, exported programs
+(any weight encoding; ``cuda`` ones on the card) or an older one rebuilt
+from its weights.  ``/meta`` reports the artifact's ``weights`` and
+``platforms``, and ``/admin/reload`` takes either kind.
 
 * :class:`DynamicBatcher` — each :meth:`submit` enqueues ONE example and
   returns a ``concurrent.futures.Future``; a dispatcher thread coalesces

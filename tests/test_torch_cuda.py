@@ -1093,3 +1093,109 @@ def test_infer_matches_the_plain_masked_path_on_the_card(cuda_device):
                       (nouns, tr.infer_nouns(window, ids))):
         assert torch.isfinite(got).all()
         assert (got - want).abs().max().item() <= LOGIT_TOL
+
+
+# ------------------------------------------- custom ops and cuda programs
+
+
+def test_custom_ops_match_their_twins(cuda_device):
+    """Each kernel's torch.library op against its twin under the kernel
+    tolerances (K1: KERNEL_ATOL; K4, K5/K7, K6: VIT_MAX_REL / VIT_MEAN_REL
+    of the largest element), its launch counted under its wrapper, and
+    ``opcheck`` (fake shapes and types against the real ones)."""
+    from situation_recognition_tpu_torch.ops import vit as tv
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+
+    params, h, mask = _case(24, 6, 256, seed=5)
+    weights = [w.to(cuda_device) for w in tk.fold_gate_weights(params, 6.0)]
+    h, mask = h.to(cuda_device), mask.to(cuda_device)
+    ops = tk.kernel_weights(weights)
+    before = tk.folded_rows.launches
+    got = torch.ops.srtorch.ggnn_folded(h, mask, *ops, weights[3], 6, 4)
+    torch.cuda.synchronize()
+    assert tk.folded_rows.launches == before + 1
+    want = tk.folded_reference(h, mask, weights, 6, 4)
+    assert (got.float() - want.float()).abs().max().item() <= KERNEL_ATOL
+    torch.library.opcheck(torch.ops.srtorch.ggnn_folded,
+                          (h, mask, *ops, weights[3], 6, 4))
+
+    d, n, b, heads = 128, 65, 3, 2
+    w = tv.BlockWeights(*(t.to(cuda_device) for t in vk.kernel_weights(
+        _vit_weights(d, 4 * d, 9))))
+    x = torch.randn(b * n, d, generator=torch.Generator().manual_seed(9)).to(
+        torch.bfloat16).to(cuda_device)
+    counts = (vk.vit_qkv_forward.launches, vk.vit_attention_forward.launches,
+              vk.vit_attention_stream_forward.launches,
+              vk.vit_out_mlp_forward.launches)
+    q, k, v = torch.ops.srtorch.vit_qkv(x, *w[:4], 1e-6)
+    for g, t in zip((q, k, v), tv.qkv_reference(x, w, 1e-6)):
+        _assert_close_rel(g, t)
+    for stream in (False, True):
+        ctx = torch.ops.srtorch.vit_attention(q, k, v, heads, True, n, n,
+                                              stream)
+        _assert_close_rel(ctx, tv.attn_core_reference(
+            q, k, v, heads, 0.125, True, n, n))
+    out = torch.ops.srtorch.vit_out_mlp(x, ctx, *w[4:], 1e-6, False)
+    _assert_close_rel(out, tv.out_mlp_reference(x, ctx, w, 1e-6, False))
+    torch.cuda.synchronize()
+    assert (vk.vit_qkv_forward.launches, vk.vit_attention_forward.launches,
+            vk.vit_attention_stream_forward.launches,
+            vk.vit_out_mlp_forward.launches) == tuple(
+                c + 1 for c in counts)
+    torch.library.opcheck(torch.ops.srtorch.vit_qkv, (x, *w[:4], 1e-6))
+    torch.library.opcheck(torch.ops.srtorch.vit_attention,
+                          (q, k, v, heads, True, n, n, True))
+    torch.library.opcheck(torch.ops.srtorch.vit_out_mlp,
+                          (x, ctx, *w[4:], 1e-6, False))
+
+
+@pytest.mark.parametrize("backbone,hidden,size", [("mini", 128, 224),
+                                                  ("vit_b16", 768, 64)])
+def test_cuda_program_matches_the_eager_model(cuda_device, tmp_path,
+                                              backbone, hidden, size):
+    """A ``cuda`` artifact's programs launch the kernels (K1 twice an
+    argmax batch, once a gt batch; a ViT's K4, K7 and K6 once a block) on
+    the current stream, and agree with the eager model rebuilt from the
+    same artifact; the artifact refuses the CPU."""
+    from situation_recognition_tpu_torch.data.encoder import ImsituEncoder
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+    from situation_recognition_tpu_torch.serving import (
+        SituationModel, export_inference, load_inference)
+
+    enc = ImsituEncoder.synthetic_full(0)
+    model = SituationModel(enc, backbone=backbone, hidden=hidden,
+                           image_size=size, dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(4)
+    model.backbone.reset_parameters(g)
+    model.head.reset_parameters(g)
+    path = str(tmp_path / "art")
+    export_inference(model.to(cuda_device), path, batch_size=4,
+                     platform="cuda")
+    fn = load_inference(path)
+    eager = load_inference(path, rebuild=True)
+    with pytest.raises(RuntimeError, match="exported for platforms"):
+        load_inference(path, device="cpu")
+    images = np.random.default_rng(1).integers(0, 256, (4, 256, 256, 3),
+                                               dtype=np.uint8)
+    depth = 12 if backbone == "vit_b16" else 0
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        before = (tk.folded_rows.launches, vk.vit_qkv_forward.launches,
+                  vk.vit_attention_stream_forward.launches,
+                  vk.vit_out_mlp_forward.launches)
+        got = fn(images)
+        gt = fn.gt(images, np.array([1, 2, 3, 4]))
+        after = (tk.folded_rows.launches, vk.vit_qkv_forward.launches,
+                 vk.vit_attention_stream_forward.launches,
+                 vk.vit_out_mlp_forward.launches)
+    side.synchronize()
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        3, 2 * depth, 2 * depth, 2 * depth)
+    want = eager(images)
+    top2 = want[0].topk(2, dim=1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 0.1
+    assert torch.equal(got[1][decided], want[1][decided])
+    for a, b in ((got[0], want[0]), (got[2], want[2]),
+                 (gt, eager.gt(images, np.array([1, 2, 3, 4])))):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= 0.1

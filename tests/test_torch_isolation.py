@@ -12,7 +12,8 @@ import torch
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = os.path.join(_REPO, "situation_recognition_tpu_torch")
-_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "situation_recognition_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
+              "situation_recognition_tpu")
 
 
 def _port_files():

@@ -220,7 +220,7 @@ def test_served_bf16_resnet_keeps_batchnorm_in_f32(tmp_path):
                 t.copy_(torch.from_numpy(draw))
     path = str(tmp_path / "art")
     export_inference(model, path, batch_size=2)
-    fn = load_inference(path, device="cpu")
+    fn = load_inference(path, device="cpu", rebuild=True)
     served = [m for m in fn.model.backbone.modules()
               if isinstance(m, torch.nn.BatchNorm2d)]
     assert len(served) == len(bns)

@@ -80,7 +80,7 @@ def test_vit_artifact_round_trip_matches_jax(jax_model, tmp_path):
         meta = json.load(f)
     assert (meta["backbone"], meta["hidden"], meta["image_size"]) == (
         "vit_tiny", HIDDEN, 224)
-    fn = load_inference(path, device="cpu")
+    fn = load_inference(path, device="cpu", rebuild=True)
     assert fn.model.backbone.resolved_impl("cpu") == "plain"
     images = np.random.default_rng(3).integers(0, 256, (3, 256, 256, 3),
                                                dtype=np.uint8)

@@ -23,7 +23,7 @@ trap 'kill $SMI 2>/dev/null' EXIT
 for tag in parent change change2 parent2; do
   case $tag in parent*) dir=$PARENT ;; *) dir=$ROOT ;; esac
   start=$(date +%s)
-  (cd "$dir" && timeout 420 python3 chip_smoke.py > "$OUT/smoke_$tag.log" 2>&1)
+  (cd "$dir" && timeout 600 python3 chip_smoke.py > "$OUT/smoke_$tag.log" 2>&1)
   echo "$tag rc=$? $(( $(date +%s) - start )) s"
   tail -n 2 "$OUT/smoke_$tag.log"
 done
