@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card (H100).
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--phase dist]
+
+(``--phase dist`` runs the dist phase alone, after the device and its
+kernel's build.)
 
 Phases, each printing its seconds:
 
@@ -146,6 +149,37 @@ Phases, each printing its seconds:
              the step's; ``--cache_device``'s reserve, probed for the
              accumulating run, covers what that trainer took.
 
+6b. dist   — multi-process data parallelism at the flagship width
+             (ResNet-152 + FCGGNN, d=2048, bf16, batch 256).  (a) A NCCL
+             world of one through the CLI (``--distributed --coordinator
+             127.0.0.1:<port> --num_processes 1 --process_id 0``) on a
+             synthetic imSitu folder as the cli phase's: one epoch and the
+             dev eval, against the same command without ``--distributed``
+             (losses within ``ROUTE_LOSS_REL``, scores in [0, 100], K1 once
+             a train step and 3 times an eval batch); then both CLI
+             trainers' steady step over ``DIST_STEPS`` in-memory steps
+             (the fill left out; plain, dist, dist, plain), the
+             collectives a step (``parallel.distributed.COUNTS``: one
+             all-reduce per BatchNorm and one gradient all-reduce), and a
+             profiled step of each (device time, NCCL kernels, the
+             profiler's collective events); the host µs of one all-reduce
+             and of one BN layer, global against native; a fine-tuned
+             step (remat) on the world of one against one process (first
+             losses, steady step, device time, host operators, BN
+             all-reduces of the forward, the recomputation and the
+             backward).  (b) A world of two ranks on
+             this one card over gloo on CUDA tensors (this script, one
+             process a rank), global batch 256 (128 a rank), 2 train
+             steps, against one process at 256 (``DIST_MODES``): per-step
+             losses, the first step's summed head gradients, the head
+             after the steps and the BN running statistics — bf16 with
+             eval-mode BN (not the statistics) and with train-mode BN
+             (losses and statistics) within ``ACCUM_GRAD_REL``, f32 with
+             train-mode BN within ``DIST_F32_REL`` (the head within
+             ``ACCUM_GRAD_REL``).  (c)
+             Where the machine has 2 or more cards: a NCCL world of up to
+             4, held as (b), and its steady step; else a line says why it
+             did not run.
 9. export  — the serving artifact's exported programs at full width.  The
              flagship (ResNet-152 + FCGGNN, d=2048, bf16, ``--seed``
              weights, BN statistics from one batch) through
@@ -969,9 +1003,13 @@ def _fixed_verb_grads(trainer, batch) -> dict:
     return {"grad_rel": rel, "verb_argmax_agree": agree}
 
 
-def _profile(label: str, fn, tag: str = "train", top: int = 15) -> dict:
+def _profile(label: str, fn, tag: str = "train", top: int = 15,
+             host_top: int = 0) -> dict:
     """Device time of ``fn()`` by kernel name (torch.profiler); the
-    ``top`` kernels are logged."""
+    ``top`` kernels are logged.  Also the device time of NCCL's kernels and
+    the host-side events of collectives by name (``nccl:all_reduce``,
+    ``c10d::allreduce_`` ...), and with ``host_top`` that many host
+    operators by their own host time (logged and returned)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -980,11 +1018,15 @@ def _profile(label: str, fn, tag: str = "train", top: int = 15) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = []
+    rows, collectives, host = [], {}, []
     for ev in prof.key_averages():
         # kernels and copies only: an operator's device time is that of
         # the kernels it launched, which are listed too
         if ev.device_type != torch.autograd.DeviceType.CUDA:
+            if "allreduce" in ev.key.lower().replace("_", ""):
+                collectives[ev.key] = ev.count
+            host.append((ev.self_cpu_time_total / 1e3, ev.count,
+                         ev.key[:60]))
             continue
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
@@ -996,7 +1038,19 @@ def _profile(label: str, fn, tag: str = "train", top: int = 15) -> dict:
          f"{len(rows)} kernel names; top {top}:")
     for ms, count, key in rows[:top]:
         _log(f"[{tag}]   {ms:9.3f} ms  x{count:<5d} {key}")
+    host.sort(reverse=True)
+    if host_top:
+        _log(f"[{tag}] host time of {label} by operator (own time; the "
+             f"profiler's own cost included): top {host_top} of "
+             f"{sum(r[0] for r in host):.1f} ms")
+        for ms, count, key in host[:host_top]:
+            _log(f"[{tag}]   host {ms:9.3f} ms  x{count:<5d} {key}")
     return {"device_ms": total,
+            "host_top": [{"ms": ms, "count": c, "op": k}
+                         for ms, c, k in host[:host_top]],
+            "nccl_device_ms": sum(r[0] for r in rows
+                                  if "nccl" in r[2].lower()),
+            "collectives": collectives,
             "top": [{"ms": ms, "count": c, "kernel": k}
                     for ms, c, k in rows[:25]]}
 
@@ -3430,9 +3484,587 @@ def phase_export(enc, seed: int, batch: int, card: str) -> dict:
                 for tag, rows in (("flagship", flagship), ("vit", vit))}}
 
 
+# ------------------------------------------------------------- the dist phase
+
+#: the dist phase's steady loops (as the cli phase's) and its world of two
+#: on one card: train steps compared with one process
+DIST_STEPS, DIST_FILL, DIST_CHECK_STEPS = 20, 4, 2
+#: part (a)'s fine-tuning steps a timed loop (ResNet-152 fine-tuned under
+#: remat) and the loop's fill
+DIST_FT_STEPS, DIST_FT_FILL = 6, 2
+#: the world of two's checks by BN mode: (BN mode, compute type).  bf16
+#: eval-mode BN holds losses, gradients and head; bf16 train-mode BN only
+#: the losses and the statistics (the global statistics' f32 sums in
+#: another order flip bf16 roundings that a random ResNet-152 amplifies
+#: layer by layer, to 0.2 of a gradient); train-mode BN in f32 (TF32 off)
+#: holds all of them: losses, gradients and statistics at
+#: ``DIST_F32_REL``, the head at ``ACCUM_GRAD_REL`` as in eval mode
+DIST_MODES = {"eval": ("eval", "bf16"), "train": ("train", "bf16"),
+              "train_f32": ("train", "f32")}
+#: the f32 train-mode check's bound for what scales with the rounding
+#: (losses, gradients, statistics): a tenth of ``ACCUM_GRAD_REL``.  A
+#: split that took per-rank statistics instead of global ones would move
+#: a statistic by ~1/sqrt(128) of itself, far above it.  The head after
+#: Adamax's steps does not scale so: its first step is about lr times the
+#: sign of each gradient element, so an element whose gradient is near 0
+#: in either run moves the other way at any precision; it keeps the bf16
+#: head's bound
+DIST_F32_REL = ACCUM_GRAD_REL / 10
+#: the most ranks of part (c)
+DIST_MAX_CARDS = 4
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dist_spec(seed: int, batch: int, world: int, backend: str) -> dict:
+    """What a rank of part (b) or (c) builds: this run's width, batch and
+    device (``_dist_rank``)."""
+    return {"seed": seed, "batch": batch, "world": world,
+            "backend": backend, "backbone": BACKBONE, "hidden": D,
+            "device": DEVICE, "steps": DIST_CHECK_STEPS}
+
+
+def _dist_trainer(enc, spec: dict, device, mesh=None, mode: str = "train"):
+    """The flagship trainer of a dist check in ``mode`` (``DIST_MODES``:
+    bf16 or f32 on the card, f32 in a CPU rehearsal), its verb decisive
+    (``_decisive_verb``).  Eval-mode BN has its running statistics set
+    from one batch of 64 windows by the one-batch path (the same bytes in
+    every process)."""
+    import torch
+
+    from situation_recognition_tpu_torch.data.transforms import (
+        eval_transform)
+    from situation_recognition_tpu_torch.models.resnet import set_stats_group
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+
+    bn, compute = DIST_MODES[mode]
+    dtype = torch.bfloat16 if spec["device"] == "cuda" \
+        and compute == "bf16" else torch.float32
+    tr = Trainer(enc, TrainerConfig(
+        hidden=spec["hidden"], batch_size=spec["batch"],
+        backbone=spec["backbone"], compute_dtype=dtype, seed=spec["seed"],
+        frozen_backbone_bn=bn), device=device, mesh=mesh)
+    if bn == "eval":
+        images = _train_batches(enc, spec["seed"] + 8, 64, 1)[0]["images"]
+        set_stats_group(tr.backbone, None)
+        _set_bn_statistics(tr.backbone, eval_transform(
+            torch.from_numpy(images).to(device), dtype=dtype))
+        set_stats_group(tr.backbone, tr._data_group)
+    _decisive_verb(tr)
+    return tr
+
+
+def _dist_steps(tr, enc, spec: dict, timed: int = 0) -> dict:
+    """``spec["steps"]`` train steps on the global batches of the check
+    (each rank cuts its rows), the first step's summed gradients as the
+    clip receives them, then the head and the BN running statistics; with
+    ``timed``, the steady step of that many more (the fill left out)."""
+    import numpy as np
+    import torch
+
+    from situation_recognition_tpu_torch.models.resnet import BatchNorm
+
+    seen = []
+    real_clip = tr._clip
+
+    def clip():
+        if not seen:
+            seen.append({n: p.grad.detach().float().cpu() for n, p in
+                         tr.head.named_parameters()})
+        real_clip()
+
+    tr._clip = clip
+    batches = _train_batches(enc, spec["seed"] + 9, spec["batch"],
+                             spec["steps"])
+    losses = []
+    _zero_counts()
+    for b in batches:
+        args, _ = tr._upload(b)
+        losses.append(tr.train_step(*args)[0].float().cpu().numpy())
+        tr.step_count += 1
+    out = {"losses": np.stack(losses).tolist(), "launches": _counts(),
+           "grads": seen[0],
+           "head": {n: p.detach().float().cpu()
+                    for n, p in tr.head.named_parameters()},
+           "stats": torch.cat([b.reshape(-1).float().cpu() for m in
+                               tr.backbone.modules()
+                               if isinstance(m, BatchNorm)
+                               for b in (m.running_mean, m.running_var)])}
+    if timed:
+        loader = [batches[i % len(batches)] for i in range(timed)]
+        run = _steady_loop(tr, "accum_step",
+                           lambda: tr.train_epoch(loader, 7), DIST_FILL)
+        out["steady_ms"] = run["steady_ms"]
+    return out
+
+
+def _dist_host_costs(group) -> dict:
+    """Host µs a call, queued without a sync between calls: an all-reduce
+    of 512 floats over ``group`` (200 calls), and a train-mode BN layer
+    of 256 x 256 x 56 x 56 bf16 channels-last windows (ResNet-152's first
+    stage) with its statistics over ``group`` against the layer's
+    ``native_batch_norm`` path (50 calls each, no gradient)."""
+    import torch
+
+    from situation_recognition_tpu_torch.models.resnet import BatchNorm
+    from situation_recognition_tpu_torch.parallel import distributed
+
+    def host_us(fn, n):
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    dtype = torch.bfloat16 if DEVICE == "cuda" else torch.float32
+    t = torch.zeros(512, device=DEVICE)
+    out = {"all_reduce_us": host_us(
+        lambda: distributed.all_reduce(t, group, "probe"), 200)}
+    x = torch.randn(256 if DEVICE == "cuda" else 4, 256, 56, 56,
+                    device=DEVICE, dtype=dtype).contiguous(
+        memory_format=torch.channels_last)
+    for name, grp in (("global", group), ("native", None)):
+        bn = BatchNorm(256, eps=1e-5).to(DEVICE).train()
+        bn.stats_group = grp
+        with torch.no_grad():
+            out[f"bn_layer_{name}_us"] = host_us(lambda: bn(x), 50)
+    _log("[dist] (a) host costs " + json.dumps(out))
+    return out
+
+
+def _dist_ft(enc, seed: int, batch: int) -> dict:
+    """Part (a)'s fine-tuning step: ResNet-152 + FCGGNN fine-tuned under
+    ``remat_backbone`` (JAX's recipe at the flagship width), bf16, batch
+    ``batch``, on the world of one (its backward runs the card's global
+    BN backward) against one process, from the same seeded weights: the
+    first step's losses within ``ROUTE_LOSS_REL``, the steady step in turns
+    (dist, plain) over ``DIST_FT_STEPS`` with ``DIST_FT_FILL`` left out, a
+    profiled step of each and the collectives a step (BN: the forward,
+    the recomputed forward of every residual block and the backward)."""
+    import numpy as np
+    import torch
+
+    from situation_recognition_tpu_torch.parallel import (
+        distributed, make_mesh)
+    from situation_recognition_tpu_torch.train import (
+        GRAD_BUCKET_BYTES, Trainer, TrainerConfig)
+
+    cfg = TrainerConfig(hidden=D, batch_size=batch, backbone=BACKBONE,
+                        compute_dtype=torch.bfloat16 if DEVICE == "cuda"
+                        else torch.float32, seed=seed, train_backbone=True,
+                        remat_backbone=True)
+    plain = Trainer(enc, cfg, device=DEVICE)
+    trainers = {"dist": Trainer(enc, cfg, device=DEVICE, mesh=make_mesh(),
+                                backbone_state=plain.backbone.state_dict(),
+                                head_state=plain.head.state_dict()),
+                "plain": plain}
+    host = _train_batches(enc, seed + 6, batch, DIST_FT_STEPS)
+    first = {}
+    for name, tr in trainers.items():
+        args, _ = tr._upload(host[0])
+        first[name] = tr.train_step(*args)[0].float().cpu().numpy()
+        tr.step_count += 1
+    rel = float(np.max(np.abs(first["dist"] - first["plain"])
+                       / np.maximum(np.abs(first["plain"]), 1e-6)))
+    out = {"first_losses": {n: v.tolist() for n, v in first.items()},
+           "loss_rel": rel, "tol": ROUTE_LOSS_REL, "steady_ms": {},
+           "collectives_per_step": {}}
+    if not (rel <= ROUTE_LOSS_REL and all(np.isfinite(v).all()
+                                          for v in first.values())):
+        raise SystemExit(f"dist (a) fine-tuning: the world of one's first "
+                         f"losses differ from one process's: {out}")
+    for name in ("dist", "plain"):
+        tr = trainers[name]
+        distributed.COUNTS.clear()
+        run = _steady_loop(tr, "accum_step",
+                           lambda: tr.train_epoch(host, 102), DIST_FT_FILL)
+        out["steady_ms"][name] = run["steady_ms"]
+        out["collectives_per_step"][name] = {
+            k: v / DIST_FT_STEPS for k, v in distributed.COUNTS.items()}
+    out["host_ms"] = out["steady_ms"]
+    profiles = {n: _profile(f"one {n} fine-tuning step",
+                            lambda tr=tr: tr.train_epoch(host[:1], 103),
+                            tag="dist", top=25, host_top=12)
+                for n, tr in trainers.items()}
+    out["device_ms"] = {n: p["device_ms"] for n, p in profiles.items()}
+    out["profile_top"] = {n: {"device": p["top"], "host": p["host_top"]}
+                          for n, p in profiles.items()}
+    out["idle_share"] = {n: (out["host_ms"][n] - out["device_ms"][n])
+                         / out["host_ms"][n] for n in trainers}
+    tr = trainers["dist"]
+    buckets = -(-sum(p.numel() * 4 for p in tr._trainable)
+                // GRAD_BUCKET_BYTES)
+    bb = tr.backbone
+    n_bn = sum(isinstance(m, torch.nn.BatchNorm2d) for m in bb.modules())
+    in_blocks = sum(isinstance(m, torch.nn.BatchNorm2d) for name, m in
+                    bb.named_modules() if name.startswith("layer"))
+    want = 2 * n_bn + in_blocks
+    out["bn_all_reduces_want"] = want
+    _log("[dist] (a) fine-tuning " + json.dumps(out))
+    got = out["collectives_per_step"]
+    if got["plain"] or got["dist"].get("bn") != want \
+            or got["dist"].get("grad") != buckets:
+        raise SystemExit(f"dist (a) fine-tuning: collectives a step {got}, "
+                         f"want none plain and {want} BN all-reduces and "
+                         f"{buckets} gradient all-reduces (one a bucket of "
+                         f"{GRAD_BUCKET_BYTES} bytes) in the world of one")
+    return out
+
+
+def _dist_rank(spec: dict, rank: int, port: int, out: str) -> int:
+    """One rank of part (b) or (c), in its own process: join the world,
+    train the check's steps on this rank's rows, write what it saw."""
+    import torch
+
+    from situation_recognition_tpu_torch.data.encoder import ImsituEncoder
+    from situation_recognition_tpu_torch.parallel import (
+        destroy, init_distributed, make_mesh)
+    from situation_recognition_tpu_torch.parallel import distributed
+
+    if spec["device"] == "cuda":
+        # part (b) shares card 0 between the ranks, part (c) takes one each
+        device = ("cuda:0" if spec["backend"] == "gloo"
+                  else f"cuda:{rank}")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        device = "cpu"
+    device = init_distributed(f"127.0.0.1:{port}", spec["world"], rank,
+                              backend=spec["backend"], device=device)
+    try:
+        enc = ImsituEncoder.synthetic_full(spec["seed"])
+        mesh = make_mesh()
+        res = {}
+        for bn in DIST_MODES:
+            tr = _dist_trainer(enc, spec, device, mesh, bn)
+            distributed.COUNTS.clear()
+            res[bn] = _dist_steps(tr, enc, spec, timed=spec.get("timed", 0)
+                                  if bn == "train" else 0)
+            res[bn]["collectives"] = dict(distributed.COUNTS)
+            if rank != 0:
+                res[bn] = {k: res[bn][k] for k in (
+                    "losses", "launches", "collectives", "steady_ms")
+                    if k in res[bn]}
+            del tr
+            if spec["device"] == "cuda":
+                torch.cuda.empty_cache()
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        destroy()
+    return 0
+
+
+def _run_world(spec: dict, tag: str) -> list:
+    """Start ``spec["world"]`` ranks (this script, one process each),
+    wait for all with a time limit, → their results; a rank's failure
+    fails the phase with its output."""
+    import torch
+
+    port = _free_port()
+    with tempfile.TemporaryDirectory(prefix="srtorch_dist_") as out:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-rank",
+             str(r), "--dist-port", str(port), "--dist-out", out,
+             "--dist-spec", json.dumps(spec)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(spec["world"])]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, text) in enumerate(zip(procs, outs)):
+            for line in text.splitlines()[-40:]:
+                _log(f"[dist] {tag} rank {r} | {line}")
+            if p.returncode != 0:
+                raise SystemExit(f"dist {tag}: rank {r} exited "
+                                 f"{p.returncode}")
+        return [torch.load(os.path.join(out, f"rank{r}.pt"),
+                           weights_only=False)
+                for r in range(spec["world"])]
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).norm()
+                 / (want.float().norm() + 1e-30))
+
+
+def _compare(r0: dict, one: dict) -> dict:
+    import numpy as np
+
+    got_l, want_l = np.asarray(r0["losses"]), np.asarray(one["losses"])
+    return {"loss_rel": float(np.max(np.abs(got_l - want_l)
+                                     / np.abs(want_l))),
+            "grad_rel_by_tensor": {n: _rel(r0["grads"][n], g)
+                                   for n, g in one["grads"].items()},
+            "head_rel_by_tensor": {n: _rel(r0["head"][n], p)
+                                   for n, p in one["head"].items()},
+            "stats_rel": _rel(r0["stats"], one["stats"]),
+            "losses": r0["losses"], "one_losses": one["losses"],
+            "collectives": r0["collectives"], "launches": r0["launches"]}
+
+
+def _hold_world(tag: str, ranks: list, one: dict) -> dict:
+    """A world's results against one process's, relative (per tensor for
+    gradients and the head), by ``DIST_MODES``: with bf16 eval-mode BN
+    (running statistics set by the same bytes everywhere, so the features
+    are the one process's) per-step losses, the first step's summed head
+    gradients and the head after the steps within ``ACCUM_GRAD_REL``; with
+    bf16 train-mode BN the losses and the BN running statistics within it
+    (its gradients and head are printed); with f32 train-mode BN the
+    losses, gradients and statistics within ``DIST_F32_REL`` and the head
+    within ``ACCUM_GRAD_REL``.  Every rank's losses equal rank 0's; K1
+    launches once a step at bf16 (f32 takes the masked GGNN)."""
+    res = {bn: _compare(ranks[0][bn], one[bn]) for bn in DIST_MODES}
+    for part in res.values():
+        part["grad_rel"] = max(part["grad_rel_by_tensor"].values())
+        part["head_rel"] = max(part["head_rel_by_tensor"].values())
+    tols = {"bf16": ACCUM_GRAD_REL, "f32": DIST_F32_REL}
+    _log(f"[dist] {tag}: " + json.dumps({**res, "tol": tols}))
+    for bn, (_, compute) in DIST_MODES.items():
+        for r in ranks[1:]:
+            if r[bn]["losses"] != ranks[0][bn]["losses"]:
+                raise SystemExit(f"dist {tag}: the ranks' losses differ: "
+                                 f"{[x[bn]['losses'] for x in ranks]}")
+        want = DIST_CHECK_STEPS if compute == "bf16" else 0
+        if res[bn]["launches"]["K1"] != want and DEVICE == "cuda":
+            raise SystemExit(f"dist {tag}: K1 launches {res[bn]}")
+    held = [("eval", "loss_rel"), ("eval", "grad_rel"), ("eval", "head_rel"),
+            ("train", "loss_rel"), ("train", "stats_rel")] + [
+        ("train_f32", k) for k in ("loss_rel", "grad_rel", "head_rel",
+                                   "stats_rel")]
+    for bn, key in held:
+        tol = tols["bf16" if key == "head_rel" else DIST_MODES[bn][1]]
+        if not res[bn][key] <= tol:
+            raise SystemExit(f"dist {tag}: {bn} {key} {res[bn][key]:.3e} "
+                             f"above {tol}")
+    res["tol"] = tols
+    return res
+
+
+def phase_dist(enc, seed: int, batch: int, card: str) -> dict:
+    """Multi-process data parallelism on the card (see the module
+    docstring): (a) a NCCL world of one through the CLI against the CLI
+    without ``--distributed``, (b) a gloo world of two on this card
+    against one process, (c) a NCCL world of the cards, where there are
+    two or more."""
+    import numpy as np
+    import torch
+
+    from situation_recognition_tpu_torch import cli
+    from situation_recognition_tpu_torch.parallel import (
+        destroy, distributed, init_distributed)
+    from situation_recognition_tpu_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    result = {"card": card, "batch": batch}
+    n_train = CLI_TRAIN * batch // BATCH
+    n_eval = CLI_EVAL * batch // BATCH
+    want_k1 = -(-n_train // batch) + 3 * -(-n_eval // batch)
+    trainers = {}
+    real_fit = Trainer.fit
+
+    # (a) the CLI on a NCCL world of one, and without --distributed
+    with tempfile.TemporaryDirectory(prefix="srtorch_dist_") as root:
+        data = _synthetic_imsitu(root, enc, seed, n_train, n_eval)
+        common = ["--backbone", BACKBONE, "--batch_size", str(batch),
+                  "--dataset_folder", data["dataset"],
+                  "--imgset_dir", os.path.join(root, "unused"),
+                  "--packed_dir", data["packed"], "--seed", str(seed),
+                  "--num_workers", "4", "--epochs", "1"]
+        if DEVICE == "cpu":
+            common += ["--platform", "cpu"]
+        port = _free_port()
+        runs = {"plain": common + ["--saving_folder",
+                                   os.path.join(root, "plain")],
+                "dist": common + ["--saving_folder",
+                                  os.path.join(root, "dist"),
+                                  "--distributed", "--coordinator",
+                                  f"127.0.0.1:{port}", "--num_processes",
+                                  "1", "--process_id", "0"]}
+        texts, launches, collectives = {}, {}, {}
+        try:
+            # the world outlives the CLI run, for the timing below
+            init_distributed(f"127.0.0.1:{port}", 1, 0,
+                             device="cpu" if DEVICE == "cpu" else "cuda:0")
+            backend = torch.distributed.get_backend()
+            result["backend"] = backend
+            if DEVICE == "cuda" and backend != "nccl":
+                raise SystemExit(f"the world of one is {backend}, not nccl")
+            for name, argv in runs.items():
+                def keep(self, *args, _name=name, **kwargs):
+                    trainers[_name] = self
+                    return real_fit(self, *args, **kwargs)
+
+                Trainer.fit = keep
+                t = time.perf_counter()
+                _zero_counts()
+                distributed.COUNTS.clear()
+                texts[name] = _run_cli(argv)
+                torch.cuda.synchronize()
+                launches[name] = _counts()
+                collectives[name] = dict(distributed.COUNTS)
+                _phase(f"dist: cli {name}", t)
+            Trainer.fit = real_fit
+            checks = {n: _check_transcript(x, f"dist cli {n}")
+                      for n, x in texts.items()}
+            a = np.asarray(checks["dist"]["losses"])
+            b = np.asarray(checks["plain"]["losses"])
+            rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-6)))
+            result["cli"] = {"losses": checks, "loss_rel": rel,
+                             "tol": ROUTE_LOSS_REL, "launches": launches,
+                             "collectives": collectives}
+            _log("[dist] (a) cli " + json.dumps(result["cli"]))
+            if not rel <= ROUTE_LOSS_REL:
+                raise SystemExit(f"dist (a): the world of one's losses "
+                                 f"differ from the plain CLI's by {rel:.3e}")
+            for name, count in launches.items():
+                if count != {"K1": want_k1, "K2": 0, "K3": 0} \
+                        and DEVICE == "cuda":
+                    raise SystemExit(f"dist (a) {name}: launches {count}, "
+                                     f"want K1 {want_k1}")
+
+            # the steady step of each CLI trainer, in turns (plain, dist,
+            # dist, plain), and a profiled one
+            host = _train_batches(trainers["dist"].encoder, seed + 5, batch,
+                                  CLI_LOOP_BATCHES)
+            loader = [host[i % len(host)] for i in range(DIST_STEPS)]
+            timed = {n: [] for n in trainers}
+            per_step = {}
+            for tr in trainers.values():
+                tr.train_epoch(loader[:1], 99)                 # warm
+            for name in ("plain", "dist", "dist", "plain"):
+                tr = trainers[name]
+                distributed.COUNTS.clear()
+                run = _steady_loop(tr, "accum_step",
+                                   lambda: tr.train_epoch(loader, 100),
+                                   DIST_FILL)
+                timed[name].append(run["steady_ms"])
+                per_step[name] = {k: v / DIST_STEPS for k, v in
+                                  distributed.COUNTS.items()}
+            profiles = {n: _profile(
+                f"one {n} CLI-trainer step",
+                lambda tr=tr: tr.train_epoch(loader[:1], 101), tag="dist",
+                top=5) for n, tr in trainers.items()}
+            host_ms = {n: float(np.mean(v)) for n, v in timed.items()}
+            result["timing"] = {
+                "steady_ms": timed, "host_ms_per_step": host_ms,
+                "device_ms": {n: p["device_ms"] for n, p in
+                              profiles.items()},
+                "nccl_device_ms": profiles["dist"]["nccl_device_ms"],
+                "profiler_collectives": profiles["dist"]["collectives"],
+                "collectives_per_step": per_step,
+                "added_host_ms": host_ms["dist"] - host_ms["plain"],
+                "added_device_ms": profiles["dist"]["device_ms"]
+                - profiles["plain"]["device_ms"]}
+            for n in trainers:
+                result["timing"].setdefault("idle_share", {})[n] = (
+                    host_ms[n] - profiles[n]["device_ms"]) / host_ms[n]
+            _log("[dist] (a) timing " + json.dumps(result["timing"]))
+            n_bn = sum(isinstance(m, torch.nn.BatchNorm2d) for m in
+                       trainers["dist"].backbone.modules())
+            if per_step["plain"] or per_step["dist"].get("bn") != n_bn \
+                    or per_step["dist"].get("grad") != 1:
+                raise SystemExit(f"collectives a step: {per_step}, want "
+                                 f"none plain and {n_bn} BN all-reduces "
+                                 f"and one gradient all-reduce in the "
+                                 f"world of one")
+            trainers.clear()
+            torch.cuda.empty_cache()
+            result["host_costs"] = _dist_host_costs(
+                torch.distributed.group.WORLD)
+            t = time.perf_counter()
+            result["ft"] = _dist_ft(enc, seed, batch)
+            _phase("dist: (a) fine-tuning", t)
+        finally:
+            Trainer.fit = real_fit
+            trainers.clear()
+            destroy()
+    torch.cuda.empty_cache()
+
+    # (b) two ranks on this card over gloo, against one process
+    t = time.perf_counter()
+    spec = _dist_spec(seed, batch, 2, "gloo")
+    ranks = _run_world(spec, "(b)")
+    _phase("dist: (b) world of two", t)
+    one = {}
+    for bn in DIST_MODES:
+        one_tr = _dist_trainer(enc, spec, DEVICE, mode=bn)
+        one[bn] = _dist_steps(one_tr, enc, spec)
+        del one_tr
+        torch.cuda.empty_cache()
+    result["gloo_two_ranks"] = _hold_world("(b) gloo, 2 ranks, 1 card",
+                                           ranks, one)
+
+    # (c) a NCCL world of the cards
+    cards = torch.cuda.device_count() if DEVICE == "cuda" else 0
+    if cards >= 2:
+        world = min(cards, DIST_MAX_CARDS)
+        spec = dict(_dist_spec(seed, batch, world, "nccl"),
+                    timed=DIST_STEPS)
+        ranks = _run_world(spec, "(c)")
+        result["nccl_cards"] = _hold_world(f"(c) nccl, {world} cards",
+                                           ranks, one)
+        result["nccl_cards"]["steady_ms"] = ranks[0]["train"]["steady_ms"]
+    else:
+        result["nccl_cards"] = None
+        _log(f"[dist] (c) did not run: it needs 2 or more cards, and this "
+             f"machine has {cards}")
+    result["phase_s"] = time.perf_counter() - t_phase
+    tm, gw = result["timing"], result["gloo_two_ranks"]
+    gf, ft = gw["train_f32"], result["ft"]
+    _log(f"[dist] {card}: world of one over NCCL through the CLI: "
+         f"{tm['host_ms_per_step']['dist']:.2f} ms a step against "
+         f"{tm['host_ms_per_step']['plain']:.2f} plain (host, steady over "
+         f"{DIST_STEPS - DIST_FILL} steps, +{tm['added_host_ms']:.2f} ms), "
+         f"device {tm['device_ms']['dist']:.2f} against "
+         f"{tm['device_ms']['plain']:.2f} ms (+{tm['added_device_ms']:.2f});"
+         f" collectives a step {tm['collectives_per_step']['dist']}; gloo "
+         f"world of two on one card, eval-mode BN: loss rel "
+         f"{gw['eval']['loss_rel']:.2e}, grad rel "
+         f"{gw['eval']['grad_rel']:.2e}, head rel "
+         f"{gw['eval']['head_rel']:.2e}; train-mode BN: loss rel "
+         f"{gw['train']['loss_rel']:.2e}, BN statistics rel "
+         f"{gw['train']['stats_rel']:.2e} (tol {ACCUM_GRAD_REL}); f32 "
+         f"train-mode BN: loss rel {gf['loss_rel']:.2e}, grad rel "
+         f"{gf['grad_rel']:.2e}, BN statistics rel {gf['stats_rel']:.2e} "
+         f"(tol {DIST_F32_REL}), head rel {gf['head_rel']:.2e} (tol "
+         f"{ACCUM_GRAD_REL}); "
+         f"fine-tuning (remat) a step {ft['host_ms']['dist']:.2f} ms "
+         f"against {ft['host_ms']['plain']:.2f} plain, device "
+         f"{ft['device_ms']['dist']:.2f} against "
+         f"{ft['device_ms']['plain']:.2f} ms, collectives a step "
+         f"{ft['collectives_per_step']}; phase {result['phase_s']:.1f} s")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phase", choices=("dist",), default=None,
+                    help="run this phase alone, after the device phase and "
+                         "the build of the kernels it runs, and print its "
+                         "result as the last line (not the smoke's)")
+    # a rank of the dist phase's worlds (the phase starts them)
+    ap.add_argument("--dist-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dist-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-out", help=argparse.SUPPRESS)
+    ap.add_argument("--dist-spec", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     sys.path.insert(0, _REPO)
@@ -3445,6 +4077,14 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port is not importable from {_REPO}: {e}",
               file=sys.stderr)
         return 2
+
+    if args.dist_rank is not None:
+        spec = json.loads(args.dist_spec)
+        global BACKBONE, D, DEVICE
+        BACKBONE, D, DEVICE = spec["backbone"], spec["hidden"], \
+            spec["device"]
+        return _dist_rank(spec, args.dist_rank, args.dist_port,
+                          args.dist_out)
 
     t = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3463,8 +4103,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t = time.perf_counter()
-    _build.build(SOURCES)
-    for src in SOURCES:
+    sources = ("ggnn_folded.cu",) if args.phase == "dist" else SOURCES
+    _build.build(sources)
+    for src in sources:
         _build.load(src)
         _log(f"[build] {src}:\n" + "\n".join(
             line for line in _build.build_log(src).splitlines()
@@ -3472,6 +4113,12 @@ def main(argv=None) -> int:
     _phase("build", t)
 
     enc = ImsituEncoder.synthetic_full(args.seed)
+    if args.phase == "dist":
+        t = time.perf_counter()
+        dist = phase_dist(enc, args.seed, BATCH, smi)
+        _phase("dist", t)
+        print(json.dumps(dist, default=str), flush=True)
+        return 0
     t = time.perf_counter()
     kernel = phase_kernel(enc, args.seed, BATCH)
     _phase("kernel", t)
@@ -3514,6 +4161,11 @@ def main(argv=None) -> int:
     cli = phase_cli(enc, args.seed, BATCH, smi)
     cli_k1 = sum(c["K1"] for c in cli["launches"].values())
     _phase("cli", t)
+
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    dist = phase_dist(enc, args.seed, BATCH, smi)
+    _phase("dist", t)
 
     t = time.perf_counter()
     vit_kernel = phase_vit_kernel(enc, args.seed, BATCH)
@@ -3579,6 +4231,11 @@ def main(argv=None) -> int:
                          + r["eval_launches"]["K1"]
                          for n, r in resnets.items()},
                       "cli": cli_k1,
+                      "dist_cli": sum(c["K1"] for c in
+                                      dist["cli"]["launches"].values()),
+                      "dist_gloo_rank0": sum(
+                          dist["gloo_two_ranks"][bn]["launches"]["K1"]
+                          for bn in DIST_MODES),
                       "export_program": export["launches"]["flagship"]["K1"],
                       **{f"cli_{p}": c["K1"]
                          for p, c in cli["launches_more"].items()},

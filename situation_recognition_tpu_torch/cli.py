@@ -33,15 +33,27 @@ msgpack backbone, a torchvision ViT or CLIP visual tower (its position
 embedding resampled to ``--image_size``), a reference checkpoint or a
 torchvision ResNet; a ViT grid that still does not fit raises.
 
-Flags whose features a later slice brings are refused by name, with the
-ROADMAP §1 item that brings them: ``--model_axis`` > 1 and
-``--distributed`` / ``--coordinator`` / ``--num_processes`` /
-``--process_id`` (item 8).
+Several cards: one process per card, started by ``torchrun``
+
+    torchrun --nproc_per_node N -m situation_recognition_tpu_torch.cli \
+        --distributed [flags]
+
+or one command per process with the JAX CLI's ``--distributed
+--coordinator host:port --num_processes N --process_id r`` (NCCL between
+the cards; with ``--platform cpu``, gloo).  Each rank loads its block of
+every global batch (``ImsituLoader(shard=...)``), ``--batch_size`` rounds
+up to a multiple of the data axis (JAX's stderr line), ``--model_axis M``
+splits the classifiers over groups of M ranks, ranks other than 0 send
+their stdout to ``/dev/null``, and only rank 0 writes the encoder, the
+backbone cache and the checkpoints (``parallel/``, ``train.py``).  Without
+``--distributed`` the CLI drives one card, where the JAX CLI takes every
+local chip (README, divergences).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import random
 import sys
@@ -109,7 +121,8 @@ def build_parser() -> ArgumentParser:
                              'pretrained ViT pos-embeds to match)')
     parser.add_argument('--model_axis', type=int, default=1,
                         help='Model-axis size (classifier tensor '
-                             'parallelism; only 1 is ported)')
+                             'parallelism over groups of this many ranks; '
+                             'needs --distributed)')
     parser.add_argument('--backbone_ckpt', type=str, default='',
                         help='Pretrained backbone weights (.msgpack or '
                              'torch .pth: torchvision ResNet or ViT, CLIP '
@@ -227,8 +240,11 @@ def build_parser() -> ArgumentParser:
                              'metric-parity runs; slower host path). '
                              'Training always uses the window pipeline.')
     parser.add_argument('--distributed', action='store_true',
-                        help='Multi-process data parallelism (not '
-                             'ported yet)')
+                        help='Multi-process data parallelism, one process '
+                             'per card: run under torchrun, or pass '
+                             '--coordinator/--num_processes/--process_id '
+                             'to every process; each loads only its shard '
+                             'of every batch (parallel/distributed.py)')
     parser.add_argument('--coordinator', type=str, default='',
                         help='host:port of process 0')
     parser.add_argument('--num_processes', type=int, default=0,
@@ -415,16 +431,43 @@ def _load_resume(trainer, path: str) -> dict:
     return ckpt
 
 
-def _refuse_unported(parser, args) -> None:
-    """Flags of features that a later slice ports (ROADMAP §1)."""
-    for flag, on in (('--model_axis', args.model_axis > 1),
-                     ('--distributed', args.distributed),
-                     ('--coordinator', bool(args.coordinator)),
-                     ('--num_processes', args.num_processes != 0),
-                     ('--process_id', args.process_id != -1)):
-        if on:
-            parser.error(f'{flag} (multi-GPU) is not ported yet: ROADMAP '
-                         f'§1 item 8')
+def _check_distributed(parser, args) -> None:
+    """The JAX CLI's usage checks of ``--distributed``, and the port's: the
+    world's flags need ``--distributed``, go together, or torchrun's
+    environment stands in for them."""
+    from situation_recognition_tpu_torch.parallel.distributed import (
+        ENV_VARS)
+
+    world = (('--coordinator', bool(args.coordinator)),
+             ('--num_processes', args.num_processes != 0),
+             ('--process_id', args.process_id != -1))
+    if args.model_axis < 1:
+        parser.error('--model_axis must be >= 1')
+    if not args.distributed:
+        for flag, on in world:
+            if on:
+                parser.error(f'{flag} needs --distributed')
+        if args.model_axis > 1:
+            parser.error(f'--model_axis {args.model_axis} needs '
+                         f'--distributed: without it the CLI drives one '
+                         f'card')
+        return
+    if args.test_img or args.subset > 0:
+        parser.error('--distributed applies to the batch-iterated '
+                     'modes (train / evaluate_dev / evaluate_test); '
+                     'single-image inference runs on one process')
+    if args.cache_device:
+        parser.error('--distributed does not compose with '
+                     '--cache_device (single-process HBM-resident '
+                     'batching)')
+    given = [on for _, on in world]
+    if any(given) and not all(given):
+        parser.error('--coordinator, --num_processes and --process_id go '
+                     'together')
+    if not any(given) and not all(v in os.environ for v in ENV_VARS):
+        parser.error(f'--distributed needs torchrun\'s environment '
+                     f'({", ".join(ENV_VARS)}) or --coordinator, '
+                     f'--num_processes and --process_id')
 
 
 def _check_usage(parser, args) -> None:
@@ -474,9 +517,19 @@ def _check_usage(parser, args) -> None:
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    _refuse_unported(parser, args)
+    _check_distributed(parser, args)
     _check_usage(parser, args)
     random.seed(args.seed)
+    stdout = sys.stdout
+    try:
+        _main(args)
+    finally:
+        if sys.stdout is not stdout:
+            sys.stdout.close()
+            sys.stdout = stdout
+
+
+def _main(args) -> None:
 
     import torch
 
@@ -491,6 +544,25 @@ def main(argv=None) -> None:
     # 'auto' is the card: without one this raises rather than carrying on
     # on the CPU
     device = resolve_device('cpu' if args.platform == 'cpu' else 'cuda')
+    mesh = None
+    if args.distributed:
+        from situation_recognition_tpu_torch.parallel import (
+            init_distributed, make_mesh)
+
+        # cuda → this rank's card (LOCAL_RANK); NCCL on the card, gloo on
+        # the CPU
+        device = init_distributed(
+            args.coordinator or None, args.num_processes or None,
+            args.process_id if args.process_id >= 0 else None,
+            device=device)
+        mesh = make_mesh(model=args.model_axis)
+        if mesh.rank != 0:
+            # one rank speaks: the reference's stdout from rank 0 (every
+            # rank computes the same metrics); stderr stays live
+            sys.stdout = open(os.devnull, 'w')
+    # only rank 0 writes the encoder and the backbone cache (concurrent
+    # writes to one path would corrupt them)
+    is_main = mesh is None or mesh.rank == 0
 
     Path(args.saving_folder).mkdir(exist_ok=True)
     checkpoint = None
@@ -506,7 +578,8 @@ def main(argv=None) -> None:
     encoder_path = pjoin(args.saving_folder, 'encoder')
     if not pisfile(encoder_path):
         encoder = ImsituEncoder(encoder_json)
-        encoder.save(encoder_path)
+        if is_main:
+            encoder.save(encoder_path)
     else:
         print("Loading encoder file")
         if _is_torch_checkpoint(encoder_path):
@@ -526,14 +599,19 @@ def main(argv=None) -> None:
     else:
         dtype = torch.float32
     # the loaders and steps run at the microbatch; an optimizer step takes
-    # grad_accum of them, --batch_size rounded up to a multiple (one data
-    # shard: the port runs on one card)
+    # grad_accum of them, --batch_size rounded up to a multiple of the data
+    # axis (and of the world: each rank loads an equal block) x grad_accum
     batch = args.batch_size
     accum = max(1, args.grad_accum)
-    if batch % accum != 0:
-        batch = -(-batch // accum) * accum
+    world = 1 if mesh is None else mesh.world
+    ndata = 1 if mesh is None else mesh.data
+    quantum = math.lcm(ndata, world) * accum
+    if batch % quantum != 0:
+        batch = -(-batch // quantum) * quantum
         print(f'[srtorch] batch_size rounded up to {batch} (divisible by '
-              f'data axis 1 x grad_accum {accum})', file=sys.stderr)
+              f'data axis {ndata} x grad_accum {accum}'
+              + (f' x world {world}' if world > 1 else '') + ')',
+              file=sys.stderr)
     batch //= accum
     cfg = TrainerConfig(
         hidden=_default_hidden(args.backbone), lr=args.lr, batch_size=batch,
@@ -544,7 +622,7 @@ def main(argv=None) -> None:
         train_backbone=args.train_backbone, backbone_lr=args.backbone_lr,
         remat_backbone=args.remat_backbone, lr_schedule=args.lr_schedule,
         warmup_steps=args.warmup_steps, total_steps=args.total_steps,
-        min_lr=args.min_lr)
+        min_lr=args.min_lr, model_axis=args.model_axis)
 
     # only the splits the mode reads are built (construction encodes every
     # annotation, and --cache_device decodes and uploads the split)
@@ -614,22 +692,25 @@ def main(argv=None) -> None:
                   f'GB after the working reserve) — streaming it',
                   file=sys.stderr)
 
+    # each rank loads its data block of every global batch
+    shard = None if mesh is None else (mesh.data_index, mesh.data)
     train_loader = dev_loader = test_loader = None
     if 'train' in splits:
         train_loader = ImsituLoader(splits['train'], batch_size=batch,
                                     shuffle=True, seed=args.seed,
-                                    num_workers=args.num_workers)
+                                    num_workers=args.num_workers,
+                                    shard=shard)
     if 'dev' in splits:
         dev_loader = ImsituLoader(splits['dev'], batch_size=batch,
                                   shuffle=False,
-                                  num_workers=args.num_workers)
+                                  num_workers=args.num_workers, shard=shard)
     if 'test' in splits:
         # shuffled, as the reference's test loader
         test_loader = ImsituLoader(splits['test'], batch_size=batch,
                                    shuffle=True, seed=args.seed,
-                                   num_workers=args.num_workers)
+                                   num_workers=args.num_workers, shard=shard)
 
-    trainer = Trainer(encoder, cfg, device=device)
+    trainer = Trainer(encoder, cfg, device=device, mesh=mesh)
 
     if args.backbone_ckpt:
         _load_backbone(trainer, args.backbone_ckpt)
@@ -647,7 +728,7 @@ def main(argv=None) -> None:
                            if pisfile(p)), None)
         if default_bb is not None:
             _load_backbone(trainer, default_bb)
-            if not default_bb.endswith('.msgpack'):
+            if not default_bb.endswith('.msgpack') and is_main:
                 cache = pjoin(args.saving_folder, cache_name)
                 _save_backbone_msgpack(trainer, cache)
                 print(f'[srtorch] converted {default_bb} -> {cache} '

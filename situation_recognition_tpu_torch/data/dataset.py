@@ -20,8 +20,14 @@ from a window cache, ``indices`` (B,) int32 rows into it), ``verbs`` (B,)
 int32, ``labels`` (B, 3, R) int32, ``flip`` (B,) bool.  The last partial
 batch is yielded at its true size; the trainer wraps it.
 
-Multi-process sharding (JAX ``shard=``) is not ported yet (ROADMAP §1 item
-8) and is refused.
+``shard=(rank, world)`` (multi-process data parallelism, JAX ``shard=``):
+the loader makes only block ``rank`` of ``batch_size / world`` rows of
+every global batch.  The epoch order, the wrap of the last partial batch
+and the crop and flip draws are taken at the global level first, so the
+blocks of every rank together are the unsharded loader's batch, wrapped as
+the trainer wraps it, bit for bit.  A sharded batch also carries
+``global_n`` (the real rows of the global batch), ``shard``, and the whole
+batch's ``verbs_global`` / ``labels_global`` for scoring.
 """
 
 from __future__ import annotations
@@ -228,11 +234,18 @@ class ImsituLoader:
                  decoder: str = "auto", shard=None):
         """``decoder``: 'native' (libjpeg batch decode), 'python' (PIL per
         image) or 'auto' (native when it builds, else python).  The two
-        draw their crops and flips from different streams."""
+        draw their crops and flips from different streams.  ``shard``:
+        ``(rank, world)``, this rank's block of every global batch (see
+        the module docstring)."""
         if shard is not None:
-            raise ValueError(
-                "sharded loading (multi-process data parallelism) is not "
-                "ported yet: ROADMAP §1 item 8 (multi-GPU)")
+            rank, world = shard
+            if world < 1 or not 0 <= rank < world:
+                raise ValueError(f"bad shard {shard}: need 0 <= rank < "
+                                 f"world")
+            if batch_size % world != 0:
+                raise ValueError(f"global batch {batch_size} not divisible "
+                                 f"by world size {world}")
+        self.shard = shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -330,6 +343,25 @@ class ImsituLoader:
                 "labels": ds.labels[indices],
                 "flip": flip}
 
+    def _make(self, gidx: np.ndarray) -> Dict:
+        """The batch of global indices ``gidx``, or with ``shard`` this
+        rank's block of it: the partial last batch wrapped at the index
+        level (``arange(B) % n``, the trainer's wrap), then the block."""
+        if self.shard is None:
+            return self._make_batch(gidx)
+        rank, world = self.shard
+        n = len(gidx)
+        if n < self.batch_size:
+            gidx = gidx[np.arange(self.batch_size) % n]
+        per = self.batch_size // world
+        b = self._make_batch(gidx[rank * per:(rank + 1) * per])
+        b["global_n"] = n
+        b["shard"] = self.shard
+        # scoring reads every row's annotations; only pixels are sharded
+        b["verbs_global"] = self.dataset.verbs[gidx]
+        b["labels_global"] = self.dataset.labels[gidx]
+        return b
+
     def _make_batch_indices(self, indices: np.ndarray) -> Dict:
         """A batch of a window-cached split: row ``indices``, no pixels.
         The flips replay the python path's per-example stream: the
@@ -380,6 +412,11 @@ class ImsituLoader:
         if self.start_batch:
             index_batches = index_batches[self.start_batch:]
             self.start_batch = 0
+        if self.shard is not None and self.dataset.window_cached:
+            raise ValueError(
+                "sharded loading does not compose with the device window "
+                "cache (one process's device-resident batches); disable "
+                "one")
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -388,8 +425,7 @@ class ImsituLoader:
         def producer():
             try:
                 for idxs in index_batches:
-                    if not put_until_stopped(q, self._make_batch(idxs),
-                                             stop):
+                    if not put_until_stopped(q, self._make(idxs), stop):
                         return
                 put_until_stopped(q, end, stop)
             except BaseException as e:    # raised again by the consumer

@@ -25,6 +25,15 @@ runs the masked-sum math of ``ops/ggnn.py`` in ``dtype`` everywhere.
 ``auto`` picks the kernel on a CUDA device at bf16, as the JAX trainer
 picks its Pallas kernel on a TPU at bf16.
 
+In a world of processes (``parallel/``) the trainer sets two attributes:
+``dropout_rows`` = (start, global batch) makes each dropout draw the global
+batch's mask from the generator and keep this rank's rows, so that a world
+equals one process at the global batch, dropout included; ``tp`` = (model
+group, column block) splits the classifiers over the model axis: this rank
+holds its block of their input columns, and a classifier is the partial
+product, one all-reduce over the model group, then the bias
+(``_ClassifierShard``, whose backward gathers dx the same way).
+
 The losses are the JAX package's (``models/fcggnn.py:218-298``), in f32.
 """
 
@@ -42,6 +51,7 @@ from situation_recognition_tpu_torch.ops.ggnn_kernel import (
     fold_gate_weights, ggnn_propagate_folded, ggnn_propagate_prepared)
 from situation_recognition_tpu_torch.ops.ggnn_train import (
     ggnn_propagate_train, resolve_ggnn_bwd)
+from situation_recognition_tpu_torch.parallel import distributed
 
 GGSNN_NAMES = ("W_p", "W_z", "U_z", "W_r", "U_r", "W_h", "U_h")
 
@@ -61,17 +71,47 @@ def resolve_ggnn_impl(impl: str, dtype: torch.dtype,
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator | None) -> torch.Tensor:
+            generator: torch.Generator | None,
+            rows: tuple | None = None) -> torch.Tensor:
     """flax ``nn.Dropout`` in train mode: keep each element with
     probability 1 - rate and scale the kept ones by 1 / (1 - rate); the
-    masks come from ``generator`` (on x's device)."""
+    masks come from ``generator`` (on x's device).  ``rows`` = (start,
+    total): x is rows start... of a batch of ``total``, whose whole mask
+    is drawn."""
     if rate == 0.0:
         return x
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+    shape = x.shape if rows is None else (rows[1],) + tuple(x.shape[1:])
+    keep = torch.rand(shape, generator=generator, device=x.device) \
         < keep_prob
+    if rows is not None:
+        keep = keep[rows[0]:rows[0] + x.shape[0]]
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
+
+
+class _ClassifierShard(torch.autograd.Function):
+    """x (N, d) @ w[:, cols]ᵀ summed over the model group → (N, out) f32,
+    from this rank's column block ``w`` (out, d/M) of the kernel.  The
+    backward: dw from this rank's block of x, and dx's blocks of every
+    rank gathered by one all-reduce."""
+
+    @staticmethod
+    def forward(ctx, x, w, cols, group):
+        out = F.linear(x[:, cols], w).float()
+        distributed.all_reduce(out, group, "tp")
+        ctx.save_for_backward(x, w)
+        ctx.cols, ctx.group = cols, group
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(w.dtype)
+        dx = torch.zeros_like(x)
+        dx[:, ctx.cols] = g @ w
+        distributed.all_reduce(dx, ctx.group, "tp")
+        return dx, g.t() @ x[:, ctx.cols], None, None
 
 
 def _uniform_(t: torch.Tensor, bound: float, g: torch.Generator) -> None:
@@ -201,14 +241,24 @@ class FCGGNNHead(nn.Module):
             nn.Dropout(dropout_rate), nn.Linear(hidden, num_verbs))
         self.nouns_classifier = nn.Sequential(
             nn.Dropout(dropout_rate), nn.Linear(hidden, num_labels))
+        #: (start, global batch) of this rank's rows (see the docstring)
+        self.dropout_rows = None
+        #: (model group, column slice) of the split classifiers
+        self.tp = None
 
     def _classify(self, seq: nn.Sequential, x: torch.Tensor, train: bool,
                   generator) -> torch.Tensor:
         lin = seq[1]
         if train:
-            x = dropout(x, seq[0].p, generator)
-        return F.linear(x, lin.weight.to(self.dtype),
-                        lin.bias.to(self.dtype)).float()
+            x = dropout(x, seq[0].p, generator, self.dropout_rows)
+        if self.tp is None:
+            return F.linear(x, lin.weight.to(self.dtype),
+                            lin.bias.to(self.dtype)).float()
+        group, cols = self.tp
+        out = _ClassifierShard.apply(x.reshape(-1, x.shape[-1]),
+                                     lin.weight.to(self.dtype), cols, group)
+        out = out + lin.bias.to(self.dtype).float()
+        return out.reshape(x.shape[:-1] + (out.shape[-1],))
 
     def predict_verb(self, features: torch.Tensor, train: bool = False,
                      generator: torch.Generator | None = None

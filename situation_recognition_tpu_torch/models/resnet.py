@@ -18,6 +18,19 @@ cuDNN prefers.  In eval mode BN normalises with the running statistics
 cast their weights to the input's type at use, as flax's ``Conv(dtype=)``
 does, so a fine-tuned backbone keeps f32 weights and computes in bf16.
 
+In a world of processes (``parallel/``) train-mode BN takes its statistics
+over the global batch, as JAX's jit step does over its mesh (flax's E[x²] -
+E[x]² over every shard): each BatchNorm's ``stats_group`` is the data
+axis's process group, and the layer all-reduces this rank's per-channel
+E[x] and E[x²] (one vector of 2C floats; the shards are of equal size),
+normalises with the global statistics in one pass, and in its backward
+all-reduces the two per-channel sums Σdy and Σdy·(x - mean) as
+SyncBatchNorm does (``_GlobalBatchNorm``).  On the card both passes run on
+SyncBatchNorm's primitives (``forward_cuda``, ``backward_cuda``: no f32
+copy of x or dy); the CPU runs the same arithmetic in plain torch ops on
+the f32 view (``forward_shared``, ``backward_shared``), the form the card
+tests hold the card's against.
+
 ``remat`` (``--remat_backbone``, JAX ``ResNet.remat``) checkpoints each
 residual block of a differentiated call with ``torch.utils.checkpoint``: the
 backward keeps only the block inputs and runs each block's forward again.
@@ -31,8 +44,11 @@ import contextlib
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from situation_recognition_tpu_torch.parallel import distributed
 
 #: stage sizes by backbone name (``mini`` is the test-sized stack)
 STAGE_SIZES = {
@@ -45,6 +61,118 @@ STAGE_SIZES = {
 }
 #: the stacks of BasicBlocks (the others are of Bottlenecks)
 BASIC_STACKS = ("resnet18", "resnet34")
+
+
+def _reduce_moments(stats: torch.Tensor, group):
+    """This rank's per-channel (E[x], E[x²]), one vector of 2C floats →
+    the group's (mean, var) by one all-reduce (the shards are of equal
+    size), var = E[x²] - E[x]² floored at 0 (flax's form)."""
+    distributed.all_reduce(stats, group, "bn")
+    stats.div_(distributed.group_size(group))
+    mean, ex2 = stats.chunk(2)
+    return mean, torch.addcmul(ex2, mean, mean, value=-1).clamp_min_(0.0)
+
+
+def forward_shared(x, weight, bias, eps: float, group):
+    """Train-mode BN over every rank of ``group`` in plain torch ops, on
+    any device (the CPU's form, which the card's is held against): the
+    moments of x's f32 view, then ``F.batch_norm`` with the global
+    statistics → (y, mean, var)."""
+    xf = x.float()
+    mean, var = _reduce_moments(torch.cat(
+        [xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))]), group)
+    return (F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps),
+            mean, var)
+
+
+def forward_cuda(x, weight, bias, eps: float, group):
+    """``forward_shared`` on SyncBatchNorm's primitives: the local moments
+    from ``torch.batch_norm_stats`` (one read of x; E[x²] from its mean
+    and 1/sqrt(var + eps)), ``torch.batch_norm_elemt`` with the global
+    statistics → (y, mean, var)."""
+    mean, invstd = torch.batch_norm_stats(x, eps)
+    mean, var = _reduce_moments(torch.cat(
+        [mean, torch.addcmul(invstd.pow(-2).sub_(eps), mean, mean)]), group)
+    return (torch.batch_norm_elemt(x, weight, bias, mean,
+                                   var.add(eps).rsqrt_(), eps), mean, var)
+
+
+def backward_shared(dy, x, weight, mean, var, eps: float, group,
+                    needs: tuple) -> tuple:
+    """The backward of ``forward_shared`` for (x, weight, bias) where
+    ``needs`` says: the scale's and shift's gradients this rank's (the
+    trainer's gradient all-reduce sums them), dx from the group's (Σdy,
+    Σdy·(x - mean)), one all-reduce, as SyncBatchNorm takes it."""
+    c = x.shape[1]
+    shape = (1, c, 1, 1)
+    invstd = (var + eps).rsqrt()
+    dyf = dy.float()
+    xmu = x.float() - mean.view(shape)
+    sums = torch.cat([dyf.sum(dim=(0, 2, 3)),
+                      (dyf * xmu).sum(dim=(0, 2, 3))])
+    grad_w = (sums[c:] * invstd).to(weight.dtype) if needs[1] else None
+    # copied: the all-reduce below sums ``sums`` in place
+    grad_b = sums[:c].to(weight.dtype, copy=True) if needs[2] else None
+    dx = None
+    if needs[0]:
+        distributed.all_reduce(sums, group, "bn")
+        n = x.numel() // c * distributed.group_size(group)
+        mean_dy = (sums[:c] / n).view(shape)
+        mean_dy_xmu = (sums[c:] / n).view(shape)
+        istd = invstd.view(shape)
+        dx = ((dyf - mean_dy - xmu * istd * istd * mean_dy_xmu)
+              * istd * weight.float().view(shape)).to(x.dtype)
+    return dx, grad_w, grad_b
+
+
+def backward_cuda(dy, x, weight, mean, var, eps: float, group,
+                  needs: tuple) -> tuple:
+    """``backward_shared`` on SyncBatchNorm's primitives:
+    ``torch.batch_norm_backward_reduce`` (the local sums and the scale's
+    and shift's gradients, no f32 copy of x or dy), one all-reduce of the
+    sums, ``torch.batch_norm_backward_elemt``."""
+    fmt = (torch.channels_last
+           if x.is_contiguous(memory_format=torch.channels_last)
+           else torch.contiguous_format)
+    dy = dy.contiguous(memory_format=fmt)
+    invstd = (var + eps).rsqrt()
+    sum_dy, sum_dy_xmu, grad_w, grad_b = torch.batch_norm_backward_reduce(
+        dy, x, mean, invstd, weight, *needs)
+    dx = None
+    if needs[0]:
+        sums = distributed.all_reduce(torch.cat([sum_dy, sum_dy_xmu]),
+                                      group, "bn")
+        count = torch.full(
+            (1,), x.numel() // x.shape[1] * distributed.group_size(group),
+            dtype=torch.int32, device=x.device)
+        dx = torch.batch_norm_backward_elemt(dy, x, mean, invstd, weight,
+                                             *sums.chunk(2), count)
+    return dx, grad_w, grad_b
+
+
+def _forms(x):
+    """(forward, backward) of the global-statistics BN for x's device."""
+    return ((forward_cuda, backward_cuda) if x.is_cuda
+            else (forward_shared, backward_shared))
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """The global-statistics BN of x's device (``_forms``) under autograd
+    → (y, mean, var)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        y, mean, var = _forms(x)[0](x, weight, bias, eps, group)
+        ctx.save_for_backward(x, weight, mean, var)
+        ctx.group, ctx.eps = group, eps
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        x, weight, mean, var = ctx.saved_tensors
+        return _forms(x)[1](dy, x, weight, mean, var, ctx.eps, ctx.group,
+                            ctx.needs_input_grad[:3]) + (None, None)
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -67,20 +195,37 @@ class BatchNorm(nn.BatchNorm2d):
     ``update_stats`` is false (a checkpointed block's recomputation)."""
 
     update_stats = True
+    #: the process group whose ranks' batches give the train-mode
+    #: statistics (global BN), or None for this batch's own
+    stats_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        y, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        group = self.stats_group
+        if group is None:
+            y, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        elif torch.is_grad_enabled() and (x.requires_grad
+                                          or self.weight.requires_grad):
+            y, mean, var = _GlobalBatchNorm.apply(
+                x, self.weight, self.bias, self.eps, group)
+        else:
+            y, mean, var = _forms(x)[0](x, self.weight, self.bias,
+                                        self.eps, group)
         if not self.update_stats:
             return y
         with torch.no_grad():
-            var = torch.clamp_min(torch.reciprocal(invstd * invstd)
-                                  - self.eps, 0.0)
             m = self.momentum
-            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
-            self.running_var.copy_((1 - m) * self.running_var + m * var)
+            if group is None:
+                var = torch.clamp_min(torch.reciprocal(invstd * invstd)
+                                      - self.eps, 0.0)
+                self.running_mean.copy_((1 - m) * self.running_mean
+                                        + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var + m * var)
+            else:
+                torch._foreach_lerp_([self.running_mean, self.running_var],
+                                     [mean, var], m)
             self.num_batches_tracked.add_(1)
         return y
 
@@ -92,6 +237,14 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv_forward(x, self.weight.to(x.dtype), None)
+
+
+def set_stats_group(module: nn.Module, group) -> None:
+    """Every ``BatchNorm`` of ``module`` takes its train-mode statistics
+    over the ranks of ``group`` (None: its own batch's)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.stats_group = group
 
 
 @contextlib.contextmanager

@@ -35,7 +35,11 @@ is rebuilt — and returns
         → (verb_logits (B, V) f32, verb_ids (B,), noun_logits (B, R, L) f32)
 
 with ``fn.gt(images_u8, verb_ids) → noun_logits`` (the reference's
-gt-verb path), ``fn.meta`` and ``fn.batch_size``.  It rebuilds
+gt-verb path), ``fn.meta`` and ``fn.batch_size``.  ``devices=[...]``
+serves on several cards (JAX ``load_inference(devices=)``): the artifact
+is loaded once per card, a batch is split into baked-size chunks placed
+round-robin over the cards, every chunk is dispatched before a result is
+awaited, and the outputs are gathered onto the first card.  It rebuilds
 ``SituationModel`` from the meta and the same weights instead (``fn.model``)
 for an artifact without programs, when ``ggnn_impl`` or ``block_impl``
 choose the paths, and for a portable artifact on the card whose compute
@@ -476,12 +480,19 @@ def load_inference(path: str, device=None, ggnn_impl: str = "auto",
     a device it was exported for (else this raises, as the JAX loader
     does).  ``None`` (the default) picks with ``_serves_rebuilt``: the
     programs, unless there are none, the paths are chosen, or the device
-    would run the kernels that the programs leave out.  ``devices``
-    (serving on several cards) is not ported."""
+    would run the kernels that the programs leave out.  ``devices``: serve
+    on each of them in turn (see the module docstring); ``device`` is then
+    ``None`` or the first of them."""
     if devices is not None:
-        raise NotImplementedError(
-            "load_inference(devices=...) (data-parallel serving over cards) "
-            "is not ported yet: ROADMAP §1 item 8")
+        devs = [resolve_device(d) for d in devices]
+        if not devs:
+            raise ValueError("devices must be a non-empty list (or None)")
+        if device is not None and resolve_device(device) != devs[0]:
+            raise ValueError(f"device {device} is not devices[0] "
+                             f"({devs[0]})")
+        return _over_devices([load_inference(path, d, ggnn_impl,
+                                             block_impl, rebuild)
+                              for d in devs], devs)
     dev = resolve_device(device)
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
@@ -558,12 +569,12 @@ def _load_programs(path: str, meta: dict, dev: torch.device) -> Callable:
 
     def fn(images_u8):
         with torch.inference_mode():
-            return _over_chunks(calls["argmax"], baked,
+            return _over_chunks(_one(calls["argmax"]), baked,
                                 (_coerce(images_u8, torch.uint8, dev),))
 
     def gt(images_u8, verb_ids):
         with torch.inference_mode():
-            return _over_chunks(calls["gt"], baked,
+            return _over_chunks(_one(calls["gt"]), baked,
                                 (_coerce(images_u8, torch.uint8, dev),
                                  _coerce(verb_ids, torch.long, dev)))
 
@@ -622,12 +633,12 @@ def _load_rebuilt(path: str, meta: dict, dev: torch.device, ggnn_impl: str,
 
     def fn(images_u8):
         with torch.inference_mode():
-            return _over_chunks(model.serve, baked,
+            return _over_chunks(_one(model.serve), baked,
                                 (_coerce(images_u8, torch.uint8, dev),))
 
     def gt(images_u8, verb_ids):
         with torch.inference_mode():
-            return _over_chunks(model.serve_gt, baked,
+            return _over_chunks(_one(model.serve_gt), baked,
                                 (_coerce(images_u8, torch.uint8, dev),
                                  _coerce(verb_ids, torch.long, dev)))
 
@@ -638,36 +649,86 @@ def _load_rebuilt(path: str, meta: dict, dev: torch.device, ggnn_impl: str,
     return fn
 
 
-def _over_chunks(call, baked: int, args):
+def _one(call):
+    """``call`` as ``_over_chunks`` calls it: chunk index first."""
+    return lambda i, *chunk: call(*chunk)
+
+
+def _over_devices(fns, devs) -> Callable:
+    """The loaded artifacts ``fns`` (one per device of ``devs``) as one
+    ``fn``: chunk i of a batch runs on ``fns[i % len(fns)]``, each chunk
+    launched before any result is read, the outputs gathered onto
+    ``devs[0]``.  A host batch served on cards is pinned once, so that each
+    chunk's copy to its card is queued without waiting (a pageable copy
+    would hold the host until it lands, and with it the next card's
+    chunk); only the last chunk, zero-padded to the baked size, is copied
+    from pageable memory."""
+    baked = fns[0].batch_size
+    pin = any(d.type == "cuda" for d in devs)
+
+    def serve(entry, args):
+        if pin:
+            args = tuple(a.pin_memory() if a.device.type == "cpu" else a
+                         for a in args)
+
+        def call(i, *chunk):
+            f = fns[i % len(fns)]
+            chunk = tuple(c.to(devs[i % len(fns)], non_blocking=True)
+                          for c in chunk)
+            return (f if entry == "argmax" else f.gt)(*chunk)
+
+        with torch.inference_mode():
+            return _over_chunks(call, baked, args, gather=devs[0])
+
+    def fn(images_u8):
+        return serve("argmax", (_coerce(images_u8, torch.uint8, None),))
+
+    def gt(images_u8, verb_ids):
+        return serve("gt", (_coerce(images_u8, torch.uint8, None),
+                            _coerce(verb_ids, torch.long, None)))
+
+    fn.gt = gt
+    fn.meta = fns[0].meta
+    fn.batch_size = baked
+    fn.devices = devs
+    fn.loaded = fns
+    return fn
+
+
+def _over_chunks(call, baked: int, args, gather=None):
     """Serve any leading batch size through the baked batch: split into
     baked-size chunks, zero-pad the last one (zero images are safe with
-    eval-mode BN), and slice the concatenated outputs back to B.  An
+    eval-mode BN), call ``call(i, *chunk)`` for chunk i, and slice the
+    concatenated outputs (moved to ``gather`` where given) back to B.  An
     exactly baked batch is one call."""
     sizes = {a.shape[0] for a in args}
     if len(sizes) != 1:
         raise ValueError(f"argument batch sizes disagree: "
                          f"{[a.shape[0] for a in args]}")
     b = args[0].shape[0]
-    if b == baked:
-        return call(*args)
+    if b == baked and gather is None:
+        return call(0, *args)
     if b == 0:
         raise ValueError("empty batch")
     outs = []
-    for lo in range(0, b, baked):
+    for i, lo in enumerate(range(0, b, baked)):
         chunk = tuple(a[lo:lo + baked] for a in args)
         short = baked - chunk[0].shape[0]
         if short:
             chunk = tuple(torch.cat([c, c.new_zeros((short,) + c.shape[1:])])
                           for c in chunk)
-        res = call(*chunk)
+        res = call(i, *chunk)
         outs.append(res if isinstance(res, tuple) else (res,))
+    if gather is not None:
+        outs = [tuple(o.to(gather) for o in out) for out in outs]
     cat = tuple(torch.cat([o[i] for o in outs])[:b]
                 for i in range(len(outs[0])))
     return cat if len(cat) > 1 else cat[0]
 
 
-def _coerce(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """Host inputs (numpy, lists) or tensors → ``dtype`` on ``device``."""
+def _coerce(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """Host inputs (numpy, lists) or tensors → ``dtype`` on ``device``
+    (``None``: where they are)."""
     if not torch.is_tensor(x):
         x = torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
     return x.to(device=device, dtype=dtype)

@@ -1,4 +1,5 @@
-"""Training and evaluation of ResNet or ViT + FCGGNN on one device.
+"""Training and evaluation of ResNet or ViT + FCGGNN on one device, or on
+one card per process of a ``torch.distributed`` world.
 
 Port of ``situation_recognition_tpu/train.py``: ``TrainerConfig`` (the
 fields this package uses), ``make_lr_fn``, and ``Trainer`` with its train
@@ -70,6 +71,35 @@ A frozen backbone's convolutions are cast to the compute type in place on
 the card; the f32 parameters they came from are kept on the host (taken
 at construction and at every load) and are what a checkpoint writes, as
 the JAX trainer writes its f32 ``backbone_params``.
+
+``Trainer(..., mesh=make_mesh(model=M))`` (JAX ``Trainer(mesh=...)``) runs
+the same steps on each rank of a world (``parallel/``): ``batch_size`` is
+the global batch, split over the data axis, and every rank ends each step
+with the same parameters, Adamax state and BN statistics.
+
+* Batches: a sharded loader's block (``ImsituLoader(shard=...)``), or a
+  whole global batch, wrapped at the global level and cut to this rank's
+  rows (``_pad_batch``); the uploader thread issues no collective.
+* BN: train-mode statistics over the global batch (``models/resnet.py``),
+  eval mode local.
+* Losses: each rank's numerator over the all-reduced denominator (a count,
+  no gradient), so the ranks' backward gradients sum to the global one;
+  the logged losses are all-reduced, and the top-k rows gathered
+  (``distributed.fetch``) so that every rank scores the global batch.
+* Dropout: every rank draws the global batch's masks from the shared
+  generators and keeps its rows: a world equals one process at the global
+  batch.
+* Gradients: one all-reduce per optimizer step, in buckets of the flat
+  gradients (``_reduce_grads``; under ``grad_accum`` the microbatches sum
+  locally first, as ``no_sync``), before the mean, the clip and Adamax.
+* ``model_axis`` M > 1: the classifier kernels split their input columns
+  over the model group (``models/fcggnn.py``); their Adamax state follows
+  the shard, the clip counts each sharded kernel once (its squared norm
+  all-reduced over the model group), ``model_state_dict`` gathers the full
+  kernels and ``load_model_state`` scatters them, so a checkpoint is the
+  single process's key for key.
+* ``fit``: only rank 0 writes checkpoints, the curve and metrics; the
+  ranks agree on a preemption at every step boundary.
 """
 
 from __future__ import annotations
@@ -99,8 +129,13 @@ from situation_recognition_tpu_torch.device import resolve_device
 from situation_recognition_tpu_torch.metrics.scorer import (
     ImsituScorer, mean_of_eight)
 from situation_recognition_tpu_torch.models.fcggnn import (
-    FCGGNNHead, nouns_loss_masked, resolve_ggnn_impl, verb_loss_masked)
+    FCGGNNHead, nouns_ce_terms, nouns_loss_masked, resolve_ggnn_impl,
+    verb_ce_term, verb_loss_masked)
 from situation_recognition_tpu_torch.models.backbone import build_backbone
+from situation_recognition_tpu_torch.models.resnet import set_stats_group
+from situation_recognition_tpu_torch.parallel import distributed
+from situation_recognition_tpu_torch.parallel.mesh import (
+    check_cols, head_param_sharding)
 from situation_recognition_tpu_torch.utils.checkpoint import (
     HISTORY_KEYS, copy_checkpoint, history_list, restore_tolerant,
     save_checkpoint)
@@ -112,6 +147,8 @@ REF_BACKBONE = "convnet_verbs.model."
 REF_TWIN = "convnet_nouns.model."
 #: steps ``train_epoch`` and ``evaluate`` keep in flight before scoring
 PIPELINE_DEPTH = 2
+#: the bytes at which a gradient bucket (one all-reduce) closes
+GRAD_BUCKET_BYTES = 256 << 20
 
 
 @dataclasses.dataclass
@@ -154,6 +191,9 @@ class TrainerConfig:
     # are balanced; train-mode BN takes each microbatch's statistics and
     # updates its running ones once per microbatch (DIVERGENCES #17)
     grad_accum: int = 1
+    # the mesh's model axis: the classifier kernels split their input
+    # columns over it (needs a mesh of that model size)
+    model_axis: int = 1
 
 
 def make_lr_fn(config: TrainerConfig):
@@ -316,6 +356,28 @@ class AsyncSaver:
             raise e
 
 
+class _RankSaver:
+    """``AsyncSaver`` of rank 0 of a world (or of a lone process): the
+    other ranks write nothing, and build a checkpoint's state only where
+    that is a collective (split classifiers).  ``state`` is a function
+    that builds it."""
+
+    def __init__(self, trainer):
+        self.write = distributed.is_main_process()
+        self._gather = bool(trainer._sharded)
+        self._saver = AsyncSaver()
+
+    def save(self, path: str, state, background: bool = True,
+             copy_to: Optional[str] = None) -> None:
+        if self.write or self._gather:
+            state = state()
+        if self.write:
+            self._saver.save(path, state, background, copy_to)
+
+    def join(self) -> None:
+        self._saver.join()
+
+
 class Preempted(Exception):
     """Raised out of the loop on a preemption stop (``fit(handle_sigterm=
     True)`` sets the event from SIGTERM).  ``saved``: whether a resumable
@@ -366,14 +428,32 @@ class Trainer:
     ``device``: default cuda (raises without a card), ``"cpu"`` by name.
     ``backbone_state`` / ``head_state``: state dicts in the reference
     layout (``convert.py``); without them the weights are random from
-    ``config.seed``."""
+    ``config.seed``.  ``mesh``: this rank's place in a world
+    (``parallel/mesh.make_mesh``; see the module docstring)."""
 
     def __init__(self, encoder: ImsituEncoder, config: TrainerConfig,
                  device=None, backbone_state: Optional[dict] = None,
-                 head_state: Optional[dict] = None):
+                 head_state: Optional[dict] = None, mesh=None):
         self.encoder = encoder
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = mesh
+        model = 1 if mesh is None else mesh.model
+        if config.model_axis != model:
+            raise ValueError(f"model_axis {config.model_axis} needs a mesh "
+                             f"of that model size (this one's is {model})")
+        # both classifiers' contraction dim (hidden) splits over model
+        check_cols(config.hidden, model)
+        ndata = 1 if mesh is None else mesh.data
+        if config.batch_size % ndata != 0:
+            raise ValueError(f"batch_size {config.batch_size} not divisible "
+                             f"by data axis {ndata}")
+        #: the data axis's group (None: no collective) and this rank's rows
+        self._data_group = None if mesh is None else mesh.data_group
+        self._rows = slice(None) if ndata == 1 \
+            else mesh.rows(config.batch_size)
+        #: the generators' rank fold (``parallel/spmd.py``)
+        self._dropout_fold = None
         dt = config.compute_dtype
         gen = torch.Generator().manual_seed(config.seed)
         if config.image_size < 32:
@@ -405,6 +485,21 @@ class Trainer:
             self.head.reset_parameters(gen)
         else:
             self.head.load_state_dict(head_state, strict=True)
+        if has_bn and self._data_group is not None:
+            set_stats_group(self.backbone, self._data_group)
+        if ndata > 1:
+            self.head.dropout_rows = (self._rows.start, config.batch_size)
+        #: the split classifier kernels (name → column slice)
+        self._sharded = {}
+        if model > 1:
+            cols = mesh.cols(config.hidden)
+            specs = head_param_sharding(mesh, self.head.state_dict())
+            for name, p in self.head.named_parameters():
+                if specs[name]:
+                    mod = self.head.get_submodule(name.rsplit(".", 1)[0])
+                    mod.weight = nn.Parameter(p.detach()[:, cols].clone())
+                    self._sharded[name] = cols
+            self.head.tp = (mesh.model_group, cols)
         self.backbone.to(self.device)
         if has_bn:
             # the ResNet's BatchNorm parameters and statistics in f32;
@@ -468,10 +563,13 @@ class Trainer:
     # ------------------------------------------------------------- stepping
 
     def _generator(self, stream: int) -> torch.Generator:
-        """Dropout stream ``stream`` of the current step."""
+        """Dropout stream ``stream`` of the current step (folded with the
+        rank under ``parallel/spmd.py``)."""
         g = torch.Generator(device=self.device)
-        g.manual_seed((self.config.seed * 1_000_003 + self.step_count) * 2
-                      + stream)
+        seed = (self.config.seed * 1_000_003 + self.step_count) * 2 + stream
+        if self._dropout_fold is not None:
+            seed = seed * 65_537 + self._dropout_fold
+        g.manual_seed(seed)
         return g
 
     def _features(self, images: torch.Tensor, flip, train: bool,
@@ -490,13 +588,53 @@ class Trainer:
         with torch.set_grad_enabled(grad):
             return self.backbone(x).float()
 
+    def _denominators(self, labels, valid):
+        """The masked means' denominators over the data axis: (4,) f32,
+        the valid rows and each annotation's valid (row, role) positions
+        (counts only: no gradient); None without a data group."""
+        if self._data_group is None:
+            return None
+        ok = (labels != self.encoder.get_num_labels()) \
+            & valid.bool()[:, None, None]
+        den = torch.cat([valid.float().sum()[None],
+                         ok.sum(dim=(0, 2)).float()])
+        return distributed.all_reduce(den, self._data_group, "den")
+
+    def _verb_loss(self, pred_verb, verbs, valid, den):
+        if den is None:
+            return verb_loss_masked(pred_verb, verbs, valid)
+        return verb_ce_term(pred_verb, verbs, valid)[0] / den[0]
+
+    def _nouns_loss(self, pred_nouns, labels, valid, den):
+        n_labels = self.encoder.get_num_labels()
+        if den is None:
+            return nouns_loss_masked(pred_nouns, labels, n_labels, valid)
+        terms = nouns_ce_terms(pred_nouns, labels, n_labels,
+                               valid[:, None].bool())
+        return sum(num / torch.clamp_min(den[1 + i], 1.0)
+                   for i, (num, _) in enumerate(terms))
+
+    def _global(self, losses, topk):
+        """This rank's shares of the losses and its top-k rows → the global
+        batch's (sums over the data axis; rows gathered in rank order)."""
+        if self._data_group is None:
+            return losses, topk
+        distributed.all_reduce(losses, self._data_group, "loss")
+        b = topk[0].shape[0]
+        flat = distributed.fetch(torch.cat([t.reshape(b, -1) for t in topk],
+                                            dim=1), self._data_group)
+        widths = [t[0].numel() for t in topk]
+        parts = torch.split(flat, widths, dim=1)
+        return losses, tuple(p.reshape((-1,) + t.shape[1:])
+                             for p, t in zip(parts, topk))
+
     def _losses(self, outs, verbs, labels, valid):
         pred_verb, pred_nouns, gt_pred_nouns = outs
-        n_labels = self.encoder.get_num_labels()
+        den = self._denominators(labels, valid)
         return torch.stack([
-            verb_loss_masked(pred_verb, verbs, valid),
-            nouns_loss_masked(pred_nouns, labels, n_labels, valid),
-            nouns_loss_masked(gt_pred_nouns, labels, n_labels, valid)])
+            self._verb_loss(pred_verb, verbs, valid, den),
+            self._nouns_loss(pred_nouns, labels, valid, den),
+            self._nouns_loss(gt_pred_nouns, labels, valid, den)])
 
     @staticmethod
     def _topk(outs):
@@ -522,23 +660,23 @@ class Trainer:
         returns."""
         feats = self._features(images, flip, True, grad=self._ft)
         head = self.head
-        n_labels = self.encoder.get_num_labels()
         if first:
             self.optimizer.zero_grad(set_to_none=True)
+        den = self._denominators(labels, valid)
         pred_verb, pred_nouns = head.predict_train(
             feats, self.role_ids, self.role_mask, train=True,
             generator=self._generator(0))
-        vloss = verb_loss_masked(pred_verb, verbs, valid)
-        nloss = nouns_loss_masked(pred_nouns, labels, n_labels, valid)
+        vloss = self._verb_loss(pred_verb, verbs, valid, den)
+        nloss = self._nouns_loss(pred_nouns, labels, valid, den)
         (vloss + nloss).backward()
         with torch.no_grad():
             gt_pred_nouns = head.predict_nouns(
                 feats.detach(), verbs, self.role_ids, self.role_mask,
                 train=True, generator=self._generator(1))
-            gloss = nouns_loss_masked(gt_pred_nouns, labels, n_labels, valid)
+            gloss = self._nouns_loss(gt_pred_nouns, labels, valid, den)
         losses = torch.stack([vloss.detach(), nloss.detach(), gloss])
-        return losses, self._topk((pred_verb.detach(), pred_nouns.detach(),
-                                   gt_pred_nouns))
+        return self._global(losses, self._topk(
+            (pred_verb.detach(), pred_nouns.detach(), gt_pred_nouns)))
 
     def apply_step(self, count: int) -> None:
         """The optimizer step on the gradients that ``count`` microbatches
@@ -546,13 +684,55 @@ class Trainer:
         ``apply_accum_step``): their mean, one global-norm-1 clip over
         every trainable parameter, the rate of this optimizer step and
         Adamax; the schedule's count ticks once.  No host sync."""
+        self._reduce_grads()
         if count > 1:
             grads = [p.grad for p in self._trainable if p.grad is not None]
             torch._foreach_div_(grads, float(count))
-        torch.nn.utils.clip_grad_norm_(self._trainable, 1.0)
+        self._clip()
         self._set_lr()
         self.optimizer.step()
         self.opt_steps += 1
+
+    def _reduce_grads(self) -> None:
+        """Sum ``.grad`` over the data axis: the flat gradients in buckets,
+        each closed at the tensor that brings it to ``GRAD_BUCKET_BYTES``
+        (or a change of type), one all-reduce each."""
+        if self._data_group is None:
+            return
+        grads = [p.grad for p in self._trainable if p.grad is not None]
+        bucket, size = [], 0
+        for i, g in enumerate(grads):
+            bucket.append(g)
+            size += g.numel() * g.element_size()
+            last = i + 1 == len(grads)
+            if size >= GRAD_BUCKET_BYTES or last or \
+                    grads[i + 1].dtype != g.dtype:
+                flat = torch.cat([t.reshape(-1) for t in bucket])
+                distributed.all_reduce(flat, self._data_group, "grad")
+                torch._foreach_copy_(bucket, [
+                    f.view_as(t) for f, t in zip(
+                        torch.split(flat, [t.numel() for t in bucket]),
+                        bucket)])
+                bucket, size = [], 0
+
+    def _clip(self) -> None:
+        """One global-norm-1 clip over every trainable parameter
+        (``clip_grad_norm_``); with split classifiers, their squared norms
+        summed over the model group, each kernel counted once."""
+        if not self._sharded:
+            torch.nn.utils.clip_grad_norm_(self._trainable, 1.0)
+            return
+        names = dict(self.head.named_parameters())
+        split = {id(names[n]) for n in self._sharded}
+        sq = [torch.zeros((), dtype=torch.float32, device=self.device)
+              for _ in range(2)]
+        for p in self._trainable:
+            if p.grad is not None:
+                sq[int(id(p) in split)] += p.grad.float().pow(2).sum()
+        distributed.all_reduce(sq[1], self.mesh.model_group, "clip")
+        coef = torch.clamp(1.0 / ((sq[0] + sq[1]).sqrt() + 1e-6), max=1.0)
+        torch._foreach_mul_([p.grad for p in self._trainable
+                             if p.grad is not None], coef)
 
     def eval_step(self, images, verbs, labels, valid):
         """All three branches forward-only with eval-mode BN → (losses,
@@ -560,7 +740,8 @@ class Trainer:
         feats = self._features(images, None, False)
         with torch.no_grad():
             outs = self.head(feats, verbs, self.role_ids, self.role_mask)
-            return self._losses(outs, verbs, labels, valid), self._topk(outs)
+            return self._global(self._losses(outs, verbs, labels, valid),
+                                self._topk(outs))
 
     # ------------------------------------------------------------ inference
 
@@ -592,23 +773,50 @@ class Trainer:
 
     def _pad_batch(self, batch: Dict) -> Tuple[Dict, np.ndarray, int]:
         """Pad to config.batch_size by wrapping; returns (arrays, valid,
-        n).  A window-cached batch carries ``indices`` in place of
-        ``images``."""
+        n), n the global batch's real rows.  A window-cached batch carries
+        ``indices`` in place of ``images``.  On a data axis: a sharded
+        loader's block as it is (the loader wrapped it), or this rank's
+        rows of the wrapped global batch."""
         big = self.config.batch_size
+        keys = [k for k in ("images", "indices", "flip", "verbs", "labels")
+                if k in batch]
+        if "shard" in batch:
+            return self._shard_block(batch, keys)
         n = len(batch["verbs"])
         if n > big:
             raise ValueError(
                 f"loader batch of {n} exceeds config.batch_size {big}")
-        keys = [k for k in ("images", "indices", "flip", "verbs", "labels")
-                if k in batch]
         if n == big:
             # a full batch passes through: the wrap-gather would copy the
             # whole uint8 image batch on the host for an identity index
-            out = {k: np.asarray(batch[k]) for k in keys}
+            out = {k: np.asarray(batch[k])[self._rows] for k in keys}
         else:
-            idx = np.arange(big) % n
+            idx = (np.arange(big) % n)[self._rows]
             out = {k: np.asarray(batch[k])[idx] for k in keys}
-        return out, (np.arange(big) < n).astype(np.float32), n
+        valid = (np.arange(big) < n).astype(np.float32)[self._rows]
+        return out, valid, n
+
+    def _shard_block(self, batch: Dict, keys) -> Tuple[Dict, np.ndarray,
+                                                       int]:
+        """A sharded loader's block (JAX ``_assemble_sharded``): its rows
+        and the valid mask of this rank's rows of the global batch."""
+        rank, world = batch["shard"]
+        mesh = self.mesh
+        ndata, index = (1, 0) if mesh is None else (mesh.data,
+                                                    mesh.data_index)
+        if (rank, world) != (index, ndata):
+            raise ValueError(
+                f"loader shard {batch['shard']} does not match this rank's "
+                f"data block ({index}/{ndata}) — build the loader with "
+                f"shard=(mesh.data_index, mesh.data)")
+        per = self.config.batch_size // world
+        out = {k: np.asarray(batch[k]) for k in keys}
+        if len(out["verbs"]) != per:
+            raise ValueError(f"a shard of {len(out['verbs'])} rows, want "
+                             f"{per}")
+        n = int(batch["global_n"])
+        valid = (rank * per + np.arange(per) < n).astype(np.float32)
+        return out, valid, n
 
     def _host_tensors(self, batch: Dict) -> Tuple[Dict, int]:
         """The padded batch (``_pad_batch``) and its ``valid`` mask as
@@ -832,8 +1040,7 @@ class Trainer:
                 micros = 0
             # the sidecars are taken now: the in-flight window keeps
             # nothing else of the host batch
-            inflight.append((losses, topk, np.asarray(batch["verbs"])[:n],
-                             np.asarray(batch["labels"])[:n], n))
+            inflight.append((losses, topk, *_sidecars(batch, n), n))
             self.step_count += 1
             batch_idx += 1
             while len(inflight) > PIPELINE_DEPTH:
@@ -842,8 +1049,9 @@ class Trainer:
             want_save = bool(save_every and save_callback
                              and dispatched % save_every == 0
                              and micros == 0)
-            want_stop = (preempt is not None and micros == 0
-                         and preempt.is_set())
+            # every rank asks at every group end (the ranks agree)
+            want_stop = micros == 0 and distributed.preempt_agreed(
+                preempt, self._data_group is not None)
             if want_save or want_stop:
                 # a snapshot's scores cover exactly batch_in_epoch batches
                 while inflight:
@@ -851,8 +1059,8 @@ class Trainer:
                 if save_callback:
                     save_callback(mid())
                 if want_stop:
-                    raise Preempted(epoch, batch_idx,
-                                    saved=save_callback is not None)
+                    raise Preempted(epoch, batch_idx, saved=bool(
+                        save_callback and distributed.is_main_process()))
         while inflight:
             consume_one()
         if micros:
@@ -884,11 +1092,11 @@ class Trainer:
         for (imgs, _, verbs, labels, valid), batch, n in \
                 self._device_batches(loader):
             losses, topk = self.eval_step(imgs, verbs, labels, valid)
-            inflight.append((losses, topk, np.asarray(batch["verbs"])[:n],
-                             np.asarray(batch["labels"])[:n], n))
+            inflight.append((losses, topk, *_sidecars(batch, n), n))
             while len(inflight) > PIPELINE_DEPTH:
                 consume_one()
-            if preempt is not None and preempt.is_set():
+            if distributed.preempt_agreed(preempt,
+                                          self._data_group is not None):
                 raise Preempted(-1, num_batches + len(inflight))
         while inflight:
             consume_one()
@@ -940,7 +1148,10 @@ class Trainer:
         far (resumed history included) is also copied to
         ``<name>_best``.  ``metrics_jsonl``: one JSON line per epoch.
         ``async_save``: checkpoints are written by a background thread,
-        at most one in flight, joined before ``fit`` returns."""
+        at most one in flight, joined before ``fit`` returns.  In a world
+        only rank 0 writes (checkpoints, the curve, ``metrics_jsonl``);
+        with split classifiers every rank takes part in the gather of each
+        checkpoint's state."""
         histories = {k: [] for k in HISTORY_KEYS}
         epoch = 0
         mid_state = None
@@ -953,12 +1164,14 @@ class Trainer:
             mid_state = checkpoint.get("mid")
 
         ckpt_path = os.path.join(folder, model_saving_name)
-        saver = AsyncSaver()
+        saver = _RankSaver(self)
+        if not saver.write:
+            plot, metrics_jsonl = False, None
 
         def save_mid(mid):
             # the histories are copied: the writer never serialises lists
             # the loop appends to
-            saver.save(ckpt_path, {
+            saver.save(ckpt_path, lambda: {
                 "epoch": self._current_epoch,
                 **{k: list(v) for k, v in histories.items()},
                 **self.model_state_snapshot(), "mid": mid},
@@ -1002,9 +1215,9 @@ class Trainer:
         best_path = path + "_best"
 
         def epoch_ckpt(next_epoch):
-            return {"epoch": next_epoch,
-                    **{k: list(v) for k, v in histories.items()},
-                    **self.model_state_snapshot()}
+            return lambda: {"epoch": next_epoch,
+                            **{k: list(v) for k, v in histories.items()},
+                            **self.model_state_snapshot()}
 
         def is_best(val_avg):
             # >= so that the first epoch seeds the best file; [:-1] holds
@@ -1088,7 +1301,7 @@ class Trainer:
                 # histories one short (the resume finishes the eval)
                 if save:
                     saver.save(path, epoch_ckpt(e + 1), background=False)
-                raise Preempted(e, 0, saved=save)
+                raise Preempted(e, 0, saved=save and saver.write)
             record_val(val_losses, val_avg)
             if metrics_jsonl:
                 with open(metrics_jsonl, "a") as f:
@@ -1186,7 +1399,7 @@ class Trainer:
                 bb[k] = v                    # immutable host copy
             else:
                 bb[k] = get(v)
-        head = OrderedDict((k, get(v))
+        head = OrderedDict((k, get(self._gathered(k, v)))
                            for k, v in self.head.state_dict().items())
         msd: OrderedDict = OrderedDict()
         names = list(head)
@@ -1204,8 +1417,9 @@ class Trainer:
         where = {n: i for i, n in enumerate(ref)}
         state = {}
         for i, s in osd["state"].items():
-            state[where[port[i]]] = {k: get(v) if torch.is_tensor(v) else v
-                                     for k, v in s.items()}
+            state[where[port[i]]] = {
+                k: get(self._gathered(port[i], v)) if torch.is_tensor(v)
+                else v for k, v in s.items()}
         group = {k: v for k, v in osd["param_groups"][0].items()
                  if k not in ("params", "lr_ratio")}
         group["params"] = list(range(len(where)))
@@ -1215,6 +1429,25 @@ class Trainer:
                     "param_groups": [group]},
                 "step_count": self.step_count,
                 "opt_steps": self.opt_steps}
+
+    def _gathered(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A split classifier kernel's (or its Adamax state's) column block
+        → the whole kernel, by one all-reduce over the model group; any
+        other tensor as it is."""
+        cols = self._sharded.get(name)
+        if cols is None or t.dim() != 2:
+            return t
+        full = t.new_zeros((t.shape[0], self.config.hidden))
+        full[:, cols] = t
+        return distributed.all_reduce(full, self.mesh.model_group, "tp")
+
+    def _scattered(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A whole split kernel → this rank's column block."""
+        cols = self._sharded.get(name)
+        if cols is None or t.dim() != 2 \
+                or t.shape[1] != self.config.hidden:
+            return t
+        return t[:, cols]
 
     def model_state_snapshot(self) -> dict:
         """``model_state_dict`` with the mutable tensors as private copies
@@ -1250,6 +1483,7 @@ class Trainer:
             keys = list(msd)
             bb, head = from_reference(msd)
             self.load_backbone_state(bb, REF_BACKBONE.rstrip("."))
+            head = {k: self._scattered(k, v) for k, v in head.items()}
             merged = restore_tolerant(self.head.state_dict(), head)
             with torch.no_grad():
                 self.head.load_state_dict(merged, strict=True)
@@ -1296,6 +1530,8 @@ class Trainer:
                 if s is None:
                     continue
                 p = params[port[name]]
+                s = {k: self._scattered(name, v) if torch.is_tensor(v)
+                     else v for k, v in s.items()}
                 if tuple(s["exp_avg"].shape) != tuple(p.shape):
                     problem = f"{name} has shape {tuple(s['exp_avg'].shape)}"
                     break
@@ -1316,6 +1552,13 @@ class Trainer:
             opt_steps = max((int(float(s["step"])) for s in state.values()),
                             default=0)
         self.opt_steps = int(opt_steps)
+
+
+def _sidecars(batch: Dict, n: int):
+    """The verbs and labels of the global batch's ``n`` real rows, which
+    the gathered top-k rows are scored against."""
+    return (np.asarray(batch.get("verbs_global", batch["verbs"]))[:n],
+            np.asarray(batch.get("labels_global", batch["labels"]))[:n])
 
 
 def _plain(x):

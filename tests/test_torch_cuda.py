@@ -1,6 +1,7 @@
 """Card-only tests: the CUDA GGNN and ViT kernels against their plain
 twins, the ViT's differentiable attention (K7 forward, K8 backward), and
-the serving and training paths on the card.  Marked ``cuda``;
+the serving and training paths on the card, and the global-statistics
+BatchNorm in a NCCL world of one.  Marked ``cuda``;
 each test asks for the card in the ``cuda_device`` fixture and skips with
 a reason where there is none (run them on the card with ``python -m
 pytest tests/test_torch_cuda.py -m cuda``)."""
@@ -1199,3 +1200,93 @@ def test_cuda_program_matches_the_eager_model(cuda_device, tmp_path,
                  (gt, eager.gt(images, np.array([1, 2, 3, 4])))):
         assert torch.isfinite(a).all()
         assert (a - b).abs().max().item() <= 0.1
+
+
+# ------------------------------------------------ global-statistics BN
+
+
+@pytest.fixture
+def nccl_world(cuda_device):
+    """A NCCL world of one process on the card (``init_distributed``)."""
+    import socket
+
+    from situation_recognition_tpu_torch.parallel import (
+        destroy, init_distributed)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda:0")
+    assert torch.distributed.get_backend() == "nccl"
+    yield torch.distributed.group.WORLD
+    destroy()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2 ** -7)])
+def test_global_batch_norm_card_form_matches_the_shared_form(nccl_world,
+                                                             dtype, tol):
+    """The card's global-statistics BN (``batch_norm_stats`` /
+    ``batch_norm_elemt``, ``batch_norm_backward_reduce`` /
+    ``batch_norm_backward_elemt``) against the plain-op form that the CPU
+    tests run, both on the card over a NCCL world of one: y, the
+    statistics, dx and the scale's and shift's gradients (f32 sums in
+    another order: Welford against two passes; bf16 outputs within a
+    rounding)."""
+    from situation_recognition_tpu_torch.models import resnet
+
+    dev = torch.device("cuda:0")
+    g = torch.Generator().manual_seed(3)
+    x = (torch.randn(16, 64, 14, 14, generator=g) * 2 + 0.5).to(
+        dev, dtype).contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(x.shape, generator=g).to(dev, dtype).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.linspace(0.5, 1.5, 64, device=dev)
+    b = torch.linspace(-0.2, 0.2, 64, device=dev)
+    out = {}
+    for name, fwd, bwd in (
+            ("card", resnet.forward_cuda, resnet.backward_cuda),
+            ("shared", resnet.forward_shared, resnet.backward_shared)):
+        y, mean, var = fwd(x, w, b, 1e-5, nccl_world)
+        out[name] = (y.float(), mean, var) + tuple(
+            t.float() for t in bwd(dy, x, w, mean, var, 1e-5, nccl_world,
+                                   (True, True, True)))
+    for a, want, what in zip(out["card"], out["shared"],
+                             ("y", "mean", "var", "dx", "dw", "db")):
+        scale = max(1.0, want.abs().max().item())
+        torch.testing.assert_close(a, want, rtol=tol, atol=tol * scale,
+                                   msg=what)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2 ** -7)])
+def test_global_batch_norm_in_a_world_of_one_matches_native(nccl_world,
+                                                            dtype, tol):
+    """The global-statistics BN over a NCCL world of one against the
+    layer's own ``native_batch_norm`` path: output, running statistics,
+    and the gradients of x, the scale and the shift."""
+    from situation_recognition_tpu_torch.models.resnet import BatchNorm
+
+    dev = torch.device("cuda:0")
+    g = torch.Generator().manual_seed(5)
+    x0 = (torch.randn(8, 32, 10, 10, generator=g) * 1.5 + 0.3).to(
+        dev, dtype).contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(x0.shape, generator=g).to(dev, dtype)
+    out = {}
+    for name, group in (("global", nccl_world), ("native", None)):
+        bn = BatchNorm(32, eps=1e-5).to(dev).train()
+        bn.weight.data = torch.linspace(0.5, 1.5, 32, device=dev)
+        bn.bias.data = torch.linspace(-0.2, 0.2, 32, device=dev)
+        bn.stats_group = group
+        x = x0.clone().requires_grad_(True)
+        y = bn(x)
+        y.backward(dy)
+        out[name] = (y.float(), bn.running_mean.clone(),
+                     bn.running_var.clone(), x.grad.float(),
+                     bn.weight.grad, bn.bias.grad)
+    for a, b, what in zip(out["global"], out["native"],
+                          ("y", "running mean", "running var", "dx", "dw",
+                           "db")):
+        scale = max(1.0, b.abs().max().item())
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol * scale,
+                                   msg=what)

@@ -160,8 +160,8 @@ def test_refusals(tmp_path):
     with pytest.raises(ValueError, match="platform"):
         export_inference(model, path, platform="tpu")
     assert not os.path.exists(path)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        load_inference(path, device="cpu", devices=["cpu"])
+    with pytest.raises(ValueError, match="non-empty"):
+        load_inference(path, device="cpu", devices=[])
 
 
 def test_impl_overrides_serve_the_rebuilt_model(artifacts):
