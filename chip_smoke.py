@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card (H100).
 
-    python3 chip_smoke.py [--seed 0] [--phase dist]
+    python3 chip_smoke.py [--seed 0] [--phase dist|export|remat|bench]
 
-(``--phase dist`` runs the dist phase alone, after the device and its
-kernel's build.)
+(``--phase`` runs that phase alone, after the device and its kernels'
+build, and prints its result as the last line: ``remat`` is the train
+phase's ``ggnn_remat`` pair.)
 
 Phases, each printing its seconds:
 
@@ -53,7 +54,12 @@ Phases, each printing its seconds:
              agreeing between the routes; launch counts per step (K1 once,
              for the gt branch; K2 and K3 twice each under ``pallas``,
              never under ``xla``) and per eval batch (K1 three times); 8
-             finite scores in [0, 100]; training and eval img/s.
+             finite scores in [0, 100]; training and eval img/s.  Then a
+             step with ``ggnn_remat`` beside one without, from the same
+             state and batch: losses equal, head gradients within
+             ``REMAT_GRAD_REL``, and the device time and peak memory of
+             the step and of the head's differentiated branches alone
+             (remat must lower the latter's peak).
 5b. accum  — gradient accumulation at the flagship (ResNet-152, d=2048,
              bf16): ``grad_accum`` 2 at microbatch 128 against batch 256.
              A group of two microbatches A and B (B: A's verbs in
@@ -106,8 +112,10 @@ Phases, each printing its seconds:
              transcript in the form of its golden under ``tests/golden``,
              K1 twice an image for a predicted verb and once for a given
              one; and the per-image latency of single-image inference.
-7. vit     — ViT-L/14 + FCGGNN(1024) at full width (224², 257 tokens, 24
-             blocks, 16 heads, bf16, batch 256, random weights from
+7. vit     — ViT-L/14 + FCGGNN(1024) at full width (224², 257 tokens, 12
+             of its 24 blocks (``VIT_DEPTH``: a cut of depth
+             for the time limit; the CLIP tower of ``export`` too), 16
+             heads, bf16, batch 256, random weights from
              ``--seed``).  Kernels: K4 (qkv), K6 (out-MLP, both GELUs),
              each of their four GEMMs alone (qkv, out-projection, fc1,
              fc2) with its TFLOP/s beside ``torch.nn.functional.linear``
@@ -176,7 +184,13 @@ Phases, each printing its seconds:
              eval-mode BN (not the statistics) and with train-mode BN
              (losses and statistics) within ``ACCUM_GRAD_REL``, f32 with
              train-mode BN within ``DIST_F32_REL`` (the head within
-             ``ACCUM_GRAD_REL``).  (c)
+             ``ACCUM_GRAD_REL``, and on the elements whose first-step
+             gradient is clear of the runs' gap within ``DIST_F32_REL``);
+             the bf16 train-mode BN gradient gap within one process's own
+             bf16 spread (its bf16 against its f32 gradients).  Then (b)
+             again with the global BN's plain-op forms on the card
+             (``forward_shared`` / ``backward_shared``), train-mode BN in
+             bf16 and f32, held alike.  (c)
              Where the machine has 2 or more cards: a NCCL world of up to
              4, held as (b), and its steady step; else a line says why it
              did not run.
@@ -201,6 +215,20 @@ Phases, each printing its seconds:
              plain paths' top-2 margin is decisive, each decoded weight
              within its encoding's rounding, and the bf16 / int8 logits
              beside the f32 artifact's as a share of its max |logit|.
+             The flagship's f32 and int8 ``cuda`` artifacts and the ViT's
+             f32 one are also exported baked (the weights inside the
+             programs, no ``weights.pt``; on the card after the load),
+             each held to its external program within ``LOGIT_TOL`` (bit
+             equality printed) with its launches per batch, img/s and the
+             host's ms before the first launch beside the external one's.
+10. bench  — ``python -m situation_recognition_tpu_torch.bench`` as a
+             child: the flagship's train step at ``BENCH_BATCH`` (768),
+             ``BENCH_STEPS`` timed, with its eval and serving numbers on
+             its one JSON line; rc 0, the line's keys and 0 < mfu < 1.
+             Then ``python -m situation_recognition_tpu_torch.tools.
+             perf_guard`` once: K1 against the masked GGNN and the ViT
+             stream stack against the per-block path, slopes of CUDA
+             event times.
 
 Then a ``kernels`` JSON line (the entries of K1–K3 and of the ViT kernels
 with the registers, spills and shared memory that ``-Xptxas -v``
@@ -1227,7 +1255,115 @@ def phase_train(enc, seed: int, batch: int) -> dict:
     if (loss_rel > ROUTE_LOSS_REL or grad_rel > ROUTE_GRAD_REL
             or cos < ROUTE_UPDATE_COS):
         raise SystemExit("the two GGNN backward routes disagree")
+    result["remat"] = _remat_pair(trainer, batches[0])
     return result
+
+
+#: ``ggnn_remat``'s step against the plain one: the same operations, so
+#: the losses are equal and the head gradients within f32 rounding of
+#: their sums (recomputed activations are the same bits; the backward's
+#: sums may run in another order)
+REMAT_GRAD_REL = 1e-5
+
+
+def _remat_pair(trainer, batch) -> dict:
+    """One train step (``accum_step``: forward, backward, no update) with
+    ``ggnn_remat`` off, then on, from the same state, batch and dropout
+    seed: the losses held equal and each head gradient within
+    ``REMAT_GRAD_REL``; for each, the step's device time (CUDA events) and
+    peak memory (``max_memory_allocated``) and the host's time to return
+    from the call, and the same of the head's
+    differentiated branches alone on the step's features, where the
+    GGNN's stored step activations are what remat saves (each timed after
+    a warm, untimed call of both)."""
+    import torch
+
+    (images, flip, verbs, labels, valid), _ = trainer._upload(batch)
+    head, ggnn = trainer.head, trainer.head.ggsnn
+    step = trainer.step_count
+    feats = trainer._features(images, flip, True).detach()
+    rows, grads, losses, host = {}, {}, {}, []
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        out = fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end), \
+            (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    def head_part():
+        den = trainer._denominators(labels, valid)
+        pv, pn = head.predict_train(feats, trainer.role_ids,
+                                    trainer.role_mask, train=True,
+                                    generator=trainer._generator(0))
+        (trainer._verb_loss(pv, verbs, valid, den)
+         + trainer._nouns_loss(pn, labels, valid, den)).backward()
+
+    try:
+        for remat in (False, True):
+            # warm, untimed: the first calls pick and tune their kernels
+            ggnn.remat = remat
+            trainer.step_count = step
+            trainer.accum_step(images, flip, verbs, labels, valid,
+                               first=True)
+            head_part()
+            head.zero_grad(set_to_none=True)
+        for remat in (False, True):
+            ggnn.remat = remat
+            trainer.step_count = step
+            (got, _), step_ms, step_gb = timed(lambda: trainer.accum_step(
+                images, flip, verbs, labels, valid, first=True))
+            losses[remat] = got.float().cpu()
+            grads[remat] = {n: p.grad.detach().float().clone()
+                            for n, p in head.named_parameters()}
+            head.zero_grad(set_to_none=True)
+            trainer.step_count = step
+            _, head_ms, head_gb = timed(head_part)
+            head.zero_grad(set_to_none=True)
+            rows["remat" if remat else "plain"] = {
+                "step_device_ms": step_ms, "step_peak_gb": step_gb,
+                "head_device_ms": head_ms, "head_peak_gb": head_gb,
+                # the host's time to return from the call (a call that
+                # waits on the card inside shows its device time here)
+                "step_host_ms": host[-2], "head_host_ms": host[-1]}
+    finally:
+        ggnn.remat = False
+        trainer.step_count = step
+        trainer.optimizer.zero_grad(set_to_none=True)
+    rel = {n: ((grads[True][n] - g).norm() / (g.norm() + 1e-30)).item()
+           for n, g in grads[False].items()}
+    out = {**rows, "losses": losses[False].tolist(),
+           "losses_equal": bool(torch.equal(losses[True], losses[False])),
+           "grad_rel": max(rel.values()), "tol_grad_rel": REMAT_GRAD_REL,
+           "head_peak_saved_gb": rows["plain"]["head_peak_gb"]
+           - rows["remat"]["head_peak_gb"]}
+    _log("[train] ggnn_remat against the plain step " + json.dumps(out))
+    if not out["losses_equal"] or out["grad_rel"] > REMAT_GRAD_REL:
+        raise SystemExit(f"ggnn_remat changes the step: {out}")
+    if DEVICE == "cuda" and not out["head_peak_saved_gb"] > 0:
+        raise SystemExit(f"ggnn_remat kept the head's peak memory: {out}")
+    return out
+
+
+def phase_remat(enc, seed: int, batch: int) -> dict:
+    """``_remat_pair`` alone (``--phase remat``) on the train phase's
+    trainer and first batch."""
+    import torch
+
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+
+    trainer = Trainer(enc, TrainerConfig(
+        hidden=D, batch_size=batch, backbone=BACKBONE,
+        compute_dtype=torch.bfloat16, seed=seed), device=DEVICE)
+    return _remat_pair(trainer, _train_batches(enc, seed + 2, batch, 1)[0])
 
 
 # ------------------------------------------------- gradient accumulation
@@ -2159,7 +2295,21 @@ def _cli_accum_and_inference(root: str, data: dict, saving: str, common,
 
 # ----------------------------------------------------------------- the ViT
 
-VIT, VIT_D, VIT_HEADS, VIT_DEPTH, VIT_IMAGE = "vit_l14", 1024, 16, 24, 224
+VIT, VIT_D, VIT_HEADS, VIT_DEPTH, VIT_IMAGE = "vit_l14", 1024, 16, 12, 224
+#: the ViT-L/14 models of the smoke run 12 of the published 24 blocks (a
+#: cut of depth, not of width: every block is full width, and the kernels'
+#: own checks run at the published shapes), so that the smoke stays near
+#: half its time limit (``_cut_vit_depth``)
+
+
+def _cut_vit_depth() -> None:
+    """Build this process's ViT-L/14 and its CLIP tower with
+    ``VIT_DEPTH`` blocks (``models/vit.py``'s table, for this run only)."""
+    from situation_recognition_tpu_torch.models import vit
+
+    for name in ("vit_l14", "vit_l14_clip"):
+        patch, width, _, heads, clip = vit.VIT_CONFIGS[name]
+        vit.VIT_CONFIGS[name] = (patch, width, VIT_DEPTH, heads, clip)
 VIT_N = (VIT_IMAGE // 14) ** 2 + 1            # 257 tokens
 # 264: the rows per example of the TPU's padded stream, a layout K7 takes
 VIT_N8 = -(-VIT_N // 8) * 8
@@ -3190,6 +3340,14 @@ FLAGSHIP_EXPORTS = (("f32", "cuda"), ("bf16", "cuda"), ("int8", "cuda"),
 CLIP_VIT, CLIP_IMAGE = "vit_l14_clip", 336
 CLIP_N = (CLIP_IMAGE // 14) ** 2 + 1          # 577 tokens
 CLIP_EXPORTS = (("f32", "cuda"), ("int8", "cuda"))
+#: the artifacts also exported baked (the weights inside each program,
+#: JAX's default kind), each held to the external program of its encoding
+FLAGSHIP_BAKED = (("f32", "cuda"), ("int8", "cuda"))
+CLIP_BAKED = (("f32", "cuda"),)
+#: the host API calls that put work on the card: the first of a served
+#: call ends its host prologue (``_first_launch_ms``)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
 def _clip_state(seed: int) -> dict:
@@ -3247,6 +3405,95 @@ def _served(fn, images, reps: int) -> tuple:
         ms.append((time.perf_counter() - t0) * 1e3)
     counts = _vit_counts()
     return out, ms, {k: v / reps for k, v in counts.items()}
+
+
+def _first_launch_ms(fn, images, reps: int = 3):
+    """The host's ms from the start of a served call to its first launch
+    on the card (``LAUNCH_CALLS``), by ``torch.profiler`` over ``reps``
+    synchronised calls, the median (the profiler's own cost is in it, the
+    same for every program it is compared with); None when the profile
+    shows no launch (a CPU rehearsal)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            with record_function(f"srtorch_served_call_{i}"):
+                fn(images)
+            torch.cuda.synchronize()
+    events = prof.events()
+    gaps = []
+    for i in range(reps):
+        call = [e for e in events if e.name == f"srtorch_served_call_{i}"]
+        if not call:
+            continue
+        lo, hi = call[0].time_range.start, call[0].time_range.end
+        starts = [e.time_range.start for e in events
+                  if e.name in LAUNCH_CALLS and lo <= e.time_range.start <= hi]
+        if starts:
+            gaps.append((min(starts) - lo) / 1e3)
+    return float(np.median(gaps)) if gaps else None
+
+
+def _baked_case(tag: str, model, images, weights: str, target: str,
+                external: tuple, expect: dict, card: str) -> dict:
+    """The same model exported baked (``export_model(bake=True)``): its
+    programs hold the weights, no ``weights.pt``, and a load moves them
+    onto the card.  Served on the same batch, held to the external
+    program of the encoding (``external``: its outputs) within
+    ``LOGIT_TOL`` (bit-equality expected: the same decode, the same
+    kernels), with its launches per batch, img/s and host ms before the
+    first launch."""
+    import torch
+
+    from situation_recognition_tpu_torch.export_serving import export_model
+    from situation_recognition_tpu_torch.serving import load_inference
+
+    name = f"{weights}_{target}_baked"
+    batch = images.shape[0]
+    tmp = tempfile.mkdtemp(prefix="srtorch_baked_")
+    try:
+        t0 = time.perf_counter()
+        nbytes = export_model(model, tmp, batch_size=batch, weights=weights,
+                              target=target, bake=True)
+        export_s = time.perf_counter() - t0
+        files = sorted(os.listdir(tmp))
+        t0 = time.perf_counter()
+        fn = load_inference(tmp, device="cuda", rebuild=False)
+        load_s = time.perf_counter() - t0
+        if not fn.meta["bake_weights"] or "weights.pt" in files:
+            raise SystemExit(f"[{tag}] {name}: not a baked artifact "
+                             f"({files})")
+        on = {t.device.type for c in fn.programs.values()
+              for t in c.module.buffers()}
+        if on != {DEVICE}:
+            raise SystemExit(f"[{tag}] {name}: the baked tensors are on "
+                             f"{on}, not on the card")
+        got, ms, launches = _served(fn, images, EXPORT_REPS)
+        first_ms = _first_launch_ms(fn, images)
+        del fn
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if {k: launches[k] for k in expect} != expect or any(
+            launches[k] for k in launches if k not in expect):
+        raise SystemExit(f"[{tag}] {name}: launches per batch {launches}, "
+                         f"want {expect}")
+    errs = _logit_errors(got, external)
+    if max(errs["verb"], errs["noun"]) > LOGIT_TOL \
+            or not errs["verb_ids_agree_where_decided"]:
+        raise SystemExit(f"[{tag}] {name}: the baked program disagrees "
+                         f"with the external one: {errs}")
+    equal = all(torch.equal(a, b) for a, b in zip(got, external))
+    return {"bytes": nbytes, "files": files, "export_s": export_s,
+            "load_s": load_s, "ms": ms,
+            "img_per_s": batch / (min(ms) / 1e3),
+            "first_launch_ms": first_ms, "launches_per_batch": launches,
+            "vs_external": errs, "bit_equal_to_external": equal,
+            "card": card}
 
 
 def _encoding_errors(got, f32, tol: float) -> dict:
@@ -3312,7 +3559,7 @@ def _check_decoded(tag: str, model, path: str, weights: str) -> dict:
 
 
 def _export_case(tag: str, model, images, specs, want_launches: dict,
-                 card: str) -> dict:
+                 card: str, baked=()) -> dict:
     """Each (encoding, target) of ``specs``: ``export_serving.export_model``
     into a temporary directory, ``load_inference`` on the card, and the
     program beside the eager model rebuilt from the same artifact
@@ -3324,7 +3571,8 @@ def _export_case(tag: str, model, images, specs, want_launches: dict,
     artifact (the masked GGNN, plain ViT blocks; untimed), its decoded
     weights within their encoding's rounding (``_check_decoded``), and an
     encoded artifact's logits beside the f32 one's (``_encoding_errors``,
-    printed)."""
+    printed).  Each (encoding, target) of ``baked`` is then also exported
+    baked and held to this external program (``_baked_case``)."""
     import torch
 
     from situation_recognition_tpu_torch.export_serving import export_model
@@ -3354,6 +3602,8 @@ def _export_case(tag: str, model, images, specs, want_launches: dict,
                 raise SystemExit(f"[{tag}] {name}: platforms "
                                  f"{fn.meta['platforms']}")
             got, ms, launches = _served(fn, images, EXPORT_REPS)
+            first_ms = (_first_launch_ms(fn, images)
+                        if (weights, target) in baked else None)
             want, eager_ms, _ = _served(eager, images, EXPORT_REPS)
             del fn, eager
             torch.cuda.empty_cache()
@@ -3383,6 +3633,7 @@ def _export_case(tag: str, model, images, specs, want_launches: dict,
                                  f"with {against}: {e}")
         row = {"bytes": nbytes, "export_s": export_s, "load_s": load_s,
                "ms": ms, "img_per_s": batch / (min(ms) / 1e3),
+               "first_launch_ms": first_ms,
                "eager_ms": eager_ms,
                "eager_img_per_s": batch / (min(eager_ms) / 1e3),
                "launches_per_batch": launches, "vs_eager": errs,
@@ -3402,6 +3653,20 @@ def _export_case(tag: str, model, images, specs, want_launches: dict,
              + (f"; vs plain {json.dumps(vs_plain)}" if vs_plain else "")
              + (f"; vs f32 {json.dumps(row['vs_f32'])}"
                 if "vs_f32" in row else "") + f" ({card})")
+        if (weights, target) in baked:
+            b = _baked_case(tag, model, images, weights, target, got,
+                            want_launches[target], card)
+            rows[f"{name}_baked"] = b
+            _log(f"[{tag}] {name} baked: {b['bytes']} bytes {b['files']}, "
+                 f"export {b['export_s']:.2f} s, load {b['load_s']:.2f} s; "
+                 f"{b['img_per_s']:.1f} img/s (ms "
+                 f"{[round(x, 2) for x in b['ms']]}) against the external "
+                 f"program's {row['img_per_s']:.1f}; host ms before the "
+                 f"first launch {b['first_launch_ms']} against "
+                 f"{first_ms}; launches per batch "
+                 f"{b['launches_per_batch']}; vs external "
+                 f"{json.dumps(b['vs_external'])}, bit-equal "
+                 f"{b['bit_equal_to_external']} ({card})")
     return rows
 
 
@@ -3412,7 +3677,9 @@ def phase_export(enc, seed: int, batch: int, card: str) -> dict:
     f32 ``portable``; then ViT-L/14's CLIP tower at 336² from a CLIP-layout
     state dict at the 224 grid through the CLI's ``_load_backbone`` (257 →
     577 tokens), exported f32 and int8 for ``cuda``.  Each artifact is
-    loaded and serves a batch of ``batch`` (``_export_case``)."""
+    loaded and serves a batch of ``batch`` (``_export_case``); the
+    flagship's f32 and int8 ``cuda`` programs and the ViT's f32 one are
+    also exported baked and held to them (``_baked_case``)."""
     import numpy as np
     import torch
 
@@ -3429,7 +3696,8 @@ def phase_export(enc, seed: int, batch: int, card: str) -> dict:
     model = _random_model(enc, seed).to(DEVICE)
     flagship = _export_case(
         "export", model, images, FLAGSHIP_EXPORTS,
-        {"cuda": {**none, "K1": 2}, "portable": none}, card)
+        {"cuda": {**none, "K1": 2}, "portable": none}, card,
+        baked=FLAGSHIP_BAKED)
     del model
     torch.cuda.empty_cache()
     _phase("export: the flagship", t)
@@ -3472,7 +3740,7 @@ def phase_export(enc, seed: int, batch: int, card: str) -> dict:
     vit = _export_case(
         "export vit", model, images, CLIP_EXPORTS,
         {"cuda": {**none, "K1": 2, "K4": VIT_DEPTH, "K6": VIT_DEPTH,
-                  "K7": VIT_DEPTH}}, card)
+                  "K7": VIT_DEPTH}}, card, baked=CLIP_BAKED)
     del model
     torch.cuda.empty_cache()
     _phase("export: ViT-L/14 CLIP at 336", t)
@@ -3512,6 +3780,11 @@ DIST_MODES = {"eval": ("eval", "bf16"), "train": ("train", "bf16"),
 DIST_F32_REL = ACCUM_GRAD_REL / 10
 #: the most ranks of part (c)
 DIST_MAX_CARDS = 4
+#: part (b) again with the global BN's plain-op forms on the card
+#: (``forward_shared`` / ``backward_shared`` in place of SyncBatchNorm's
+#: primitives), in the train-mode BN modes: it tells the split from the
+#: primitives
+DIST_SHARED_MODES = ("train", "train_f32")
 
 
 def _free_port() -> int:
@@ -3527,7 +3800,8 @@ def _dist_spec(seed: int, batch: int, world: int, backend: str) -> dict:
     device (``_dist_rank``)."""
     return {"seed": seed, "batch": batch, "world": world,
             "backend": backend, "backbone": BACKBONE, "hidden": D,
-            "device": DEVICE, "steps": DIST_CHECK_STEPS}
+            "device": DEVICE, "steps": DIST_CHECK_STEPS,
+            "modes": list(DIST_MODES), "bn_form": "device"}
 
 
 def _dist_trainer(enc, spec: dict, device, mesh=None, mode: str = "train"):
@@ -3727,10 +4001,15 @@ def _dist_rank(spec: dict, rank: int, port: int, out: str) -> int:
     import torch
 
     from situation_recognition_tpu_torch.data.encoder import ImsituEncoder
+    from situation_recognition_tpu_torch.models import resnet
     from situation_recognition_tpu_torch.parallel import (
         destroy, init_distributed, make_mesh)
     from situation_recognition_tpu_torch.parallel import distributed
 
+    if spec.get("bn_form") == "shared":
+        # the plain-op forms on every device, forward and backward
+        resnet._forms = lambda x: (resnet.forward_shared,
+                                   resnet.backward_shared)
     if spec["device"] == "cuda":
         # part (b) shares card 0 between the ranks, part (c) takes one each
         device = ("cuda:0" if spec["backend"] == "gloo"
@@ -3745,7 +4024,7 @@ def _dist_rank(spec: dict, rank: int, port: int, out: str) -> int:
         enc = ImsituEncoder.synthetic_full(spec["seed"])
         mesh = make_mesh()
         res = {}
-        for bn in DIST_MODES:
+        for bn in spec.get("modes", DIST_MODES):
             tr = _dist_trainer(enc, spec, device, mesh, bn)
             distributed.COUNTS.clear()
             res[bn] = _dist_steps(tr, enc, spec, timed=spec.get("timed", 0)
@@ -3818,6 +4097,41 @@ def _compare(r0: dict, one: dict) -> dict:
             "collectives": r0["collectives"], "launches": r0["launches"]}
 
 
+def _bf16_spread(r0: dict, one: dict) -> dict:
+    """The world's bf16 train-mode BN gradient gap
+    (rank 0's first-step head gradients against one process's, relative
+    per tensor) beside one process's own bf16 spread (its bf16 gradients
+    against its f32 ones, same batch and weights) and the world's."""
+    gap = {n: _rel(r0["train"]["grads"][n], g)
+           for n, g in one["train"]["grads"].items()}
+    spread = {n: _rel(g, one["train_f32"]["grads"][n])
+              for n, g in one["train"]["grads"].items()}
+    world = {n: _rel(r0["train"]["grads"][n], r0["train_f32"]["grads"][n])
+             for n in gap}
+    return {"gap": max(gap.values()), "spread": max(spread.values()),
+            "world_spread": max(world.values()),
+            "gap_over_spread_by_tensor": {n: gap[n] / max(spread[n], 1e-30)
+                                          for n in gap},
+            "gap_by_tensor": gap, "spread_by_tensor": spread}
+
+
+def _f32_head_clear(r0: dict, one: dict) -> dict:
+    """The f32 head after the steps on the elements
+    whose first-step gradient is clear of the two runs' gradient gap
+    (|g| > |g_world - g|, so that Adamax's first step, lr·sign(g), moves
+    them the same way), relative per tensor, and how many elements that
+    holds."""
+    rel, kept = {}, {}
+    for n, g in one["train_f32"]["grads"].items():
+        clear = g.abs() > (r0["train_f32"]["grads"][n] - g).abs()
+        want = one["train_f32"]["head"][n][clear]
+        got = r0["train_f32"]["head"][n][clear]
+        rel[n] = _rel(got, want) if want.numel() else 0.0
+        kept[n] = float(clear.float().mean())
+    return {"head_rel_clear": max(rel.values()), "by_tensor": rel,
+            "share_clear": kept}
+
+
 def _hold_world(tag: str, ranks: list, one: dict) -> dict:
     """A world's results against one process's, relative (per tensor for
     gradients and the head), by ``DIST_MODES``: with bf16 eval-mode BN
@@ -3827,15 +4141,26 @@ def _hold_world(tag: str, ranks: list, one: dict) -> dict:
     bf16 train-mode BN the losses and the BN running statistics within it
     (its gradients and head are printed); with f32 train-mode BN the
     losses, gradients and statistics within ``DIST_F32_REL`` and the head
-    within ``ACCUM_GRAD_REL``.  Every rank's losses equal rank 0's; K1
-    launches once a step at bf16 (f32 takes the masked GGNN)."""
-    res = {bn: _compare(ranks[0][bn], one[bn]) for bn in DIST_MODES}
+    within ``ACCUM_GRAD_REL``, and on the elements whose first-step
+    gradient is clear of the runs' gap within ``DIST_F32_REL``
+    (``_f32_head_clear``); the bf16 train-mode BN gradient gap within one
+    process's bf16 spread (``_bf16_spread``).  Every rank's losses equal
+    rank 0's; K1 launches once a step at bf16 (f32 takes the masked
+    GGNN).  The modes are those the ranks ran."""
+    modes = [bn for bn in DIST_MODES if bn in ranks[0]]
+    res = {bn: _compare(ranks[0][bn], one[bn]) for bn in modes}
     for part in res.values():
         part["grad_rel"] = max(part["grad_rel_by_tensor"].values())
         part["head_rel"] = max(part["head_rel_by_tensor"].values())
     tols = {"bf16": ACCUM_GRAD_REL, "f32": DIST_F32_REL}
+    if {"train", "train_f32"} <= set(modes) and DEVICE == "cuda":
+        # (a CPU rehearsal runs both modes in f32: no bf16 spread)
+        res["bf16_spread"] = _bf16_spread(ranks[0], one)
+    if "train_f32" in modes:
+        res["f32_head_clear"] = _f32_head_clear(ranks[0], one)
     _log(f"[dist] {tag}: " + json.dumps({**res, "tol": tols}))
-    for bn, (_, compute) in DIST_MODES.items():
+    for bn in modes:
+        compute = DIST_MODES[bn][1]
         for r in ranks[1:]:
             if r[bn]["losses"] != ranks[0][bn]["losses"]:
                 raise SystemExit(f"dist {tag}: the ranks' losses differ: "
@@ -3847,6 +4172,19 @@ def _hold_world(tag: str, ranks: list, one: dict) -> dict:
             ("train", "loss_rel"), ("train", "stats_rel")] + [
         ("train_f32", k) for k in ("loss_rel", "grad_rel", "head_rel",
                                    "stats_rel")]
+    held = [(bn, key) for bn, key in held if bn in modes]
+    spread = res.get("bf16_spread")
+    if spread is not None and not spread["gap"] <= spread["spread"]:
+        raise SystemExit(f"dist {tag}: the bf16 train-mode BN gradients "
+                         f"differ from one process's by {spread['gap']:.3e}"
+                         f", beyond one process's bf16 spread "
+                         f"{spread['spread']:.3e}")
+    clear = res.get("f32_head_clear")
+    if clear is not None and not clear["head_rel_clear"] <= DIST_F32_REL:
+        raise SystemExit(f"dist {tag}: the f32 head where the gradients "
+                         f"are clear of the gap differs by "
+                         f"{clear['head_rel_clear']:.3e}, above "
+                         f"{DIST_F32_REL}")
     for bn, key in held:
         tol = tols["bf16" if key == "head_rel" else DIST_MODES[bn][1]]
         if not res[bn][key] <= tol:
@@ -4009,6 +4347,14 @@ def phase_dist(enc, seed: int, batch: int, card: str) -> dict:
         torch.cuda.empty_cache()
     result["gloo_two_ranks"] = _hold_world("(b) gloo, 2 ranks, 1 card",
                                            ranks, one)
+    # (b) again, the global BN in its plain-op forms on the card
+    t = time.perf_counter()
+    shared = dict(spec, modes=list(DIST_SHARED_MODES), bn_form="shared")
+    ranks = _run_world(shared, "(b) shared forms")
+    result["gloo_two_ranks_shared"] = _hold_world(
+        "(b) gloo, 2 ranks, 1 card, forward_shared / backward_shared",
+        ranks, one)
+    _phase("dist: (b) world of two, the shared forms", t)
 
     # (c) a NCCL world of the cards
     cards = torch.cuda.device_count() if DEVICE == "cuda" else 0
@@ -4049,13 +4395,113 @@ def phase_dist(enc, seed: int, batch: int, card: str) -> dict:
          f"{ft['device_ms']['dist']:.2f} against "
          f"{ft['device_ms']['plain']:.2f} ms, collectives a step "
          f"{ft['collectives_per_step']}; phase {result['phase_s']:.1f} s")
+    for key in ("gloo_two_ranks", "gloo_two_ranks_shared"):
+        w = result[key]
+        spread, clear = w.get("bf16_spread"), w.get("f32_head_clear")
+        _log(f"[dist] {key}: bf16 train-mode BN gradient gap "
+             + (f"{spread['gap']:.3e} against one process's bf16 spread "
+                f"{spread['spread']:.3e} (the world's {spread['world_spread']:.3e})"
+                if spread else "not read (no bf16 here)")
+             + f"; f32 head on the elements clear of the gradient gap "
+             f"{clear['head_rel_clear']:.3e} (tol {DIST_F32_REL}; shares "
+             f"clear {json.dumps(clear['share_clear'])}); f32 gradients "
+             f"{w['train_f32']['grad_rel']:.3e}, head "
+             f"{w['train_f32']['head_rel']:.3e} ({card})")
     return result
+
+
+# ----------------------------------------------------------- the bench phase
+
+#: ``python -m situation_recognition_tpu_torch.bench``'s run here: train
+#: mode, the flagship at the bench's batch of 768 a card, few timed steps
+#: (its secondary eval and serving numbers at their own minimum of 5), a
+#: budget well inside this script's time
+BENCH_BATCH, BENCH_STEPS, BENCH_BUDGET = 768, 5, 240
+#: the keys the bench's line must carry in train mode
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "step_ms", "mfu",
+              "eval_img_s", "serving_img_s")
+
+
+def _module_line(module: str, env: dict, timeout: float, tag: str,
+                 args=()) -> dict:
+    """``python -m module args`` in a child with ``env`` added → its last
+    stdout line as JSON; its stderr's tail is logged; a non-zero exit or
+    a last line that does not parse fails the phase."""
+    full = {k: v for k, v in os.environ.items() if not k.startswith("BENCH")}
+    full.update(PYTHONPATH=_REPO, **env)
+    proc = subprocess.run([sys.executable, "-m", module, *args], env=full,
+                          cwd=_REPO, capture_output=True, text=True,
+                          timeout=timeout)
+    for line in proc.stderr.splitlines()[-25:]:
+        _log(f"[{tag}] stderr | {line}")
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise SystemExit(f"[{tag}] {module} exited {proc.returncode}: "
+                         f"{proc.stdout[-2000:]}")
+    try:
+        return json.loads(lines[-1])
+    except json.JSONDecodeError:
+        raise SystemExit(f"[{tag}] {module}'s last line is no JSON: "
+                         f"{lines[-1]!r}")
+
+
+def phase_bench(enc, seed: int, card: str) -> dict:
+    """K1 against its twin at the bench's shapes (``BENCH_BATCH`` × 6 and
+    × 1, d=2048), then the port's bench as a user runs it, ``python -m
+    situation_recognition_tpu_torch.bench`` in a child: the flagship's
+    train step at ``BENCH_BATCH``, with the eval and serving numbers on
+    the same line; rc 0, every ``BENCH_KEYS`` key, ``0 < mfu < 1`` on the
+    card.  Then ``tools/perf_guard.py`` once (K1 against the masked GGNN,
+    the ViT stream stack against the per-block path), its ratios
+    printed."""
+    import numpy as np
+    import torch
+
+    k1_rows = _k1_rows_at(enc, torch.Generator().manual_seed(seed + 31),
+                          BENCH_BATCH, D, tag="bench")
+    torch.cuda.empty_cache()
+    env = {"BENCH_MODE": "train", "BENCH_BATCH": str(BENCH_BATCH),
+           "BENCH_BACKBONE": BACKBONE, "BENCH_STEPS": str(BENCH_STEPS),
+           "BENCH_TOTAL_BUDGET": str(BENCH_BUDGET), "BENCH_SECONDARY": "1"}
+    if DEVICE == "cpu":
+        env["BENCH_DEVICE"] = "cpu"
+    t = time.perf_counter()
+    line = _module_line("situation_recognition_tpu_torch.bench", env,
+                        BENCH_BUDGET + 60, "bench")
+    bench_s = time.perf_counter() - t
+    missing = [k for k in BENCH_KEYS if k not in line]
+    if missing or "secondary_error" in line or not line.get("value"):
+        raise SystemExit(f"[bench] the line lacks {missing}: {line}")
+    mfu = line["mfu"]
+    if DEVICE == "cuda" and not (mfu is not None and 0 < mfu < 1):
+        raise SystemExit(f"[bench] mfu {mfu} is not in (0, 1): {line}")
+    _log(f"[bench] {json.dumps(line)} ({bench_s:.1f} s; {card})")
+    t = time.perf_counter()
+    guard_env = {"PERF_GUARD_ITERS": "3"}
+    args = []
+    if DEVICE == "cpu":
+        args = ["--device", "cpu", "--batch", "4", "--hidden", str(D),
+                "--vit-batch", "2", "--vit-tokens", "17", "--vit-width",
+                "128", "--vit-blocks", "1"]
+    guard = _module_line("situation_recognition_tpu_torch.tools.perf_guard",
+                         guard_env, 300, "perf_guard", args)
+    for k in ("ggnn_ratio", "vit_ratio"):
+        if not np.isfinite(guard.get(k, float("nan"))) or guard[k] <= 0:
+            raise SystemExit(f"[perf_guard] {k}: {guard}")
+    _log(f"[perf_guard] {json.dumps(guard)} "
+         f"({time.perf_counter() - t:.1f} s; {card})")
+    return {"k1_rows": k1_rows, "bench": line, "bench_s": bench_s,
+            "perf_guard": guard, "card": card}
+
+
+#: the phases ``--phase`` runs alone
+PHASES_ALONE = ("dist", "export", "remat", "bench")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phase", choices=("dist",), default=None,
+    ap.add_argument("--phase", choices=PHASES_ALONE, default=None,
                     help="run this phase alone, after the device phase and "
                          "the build of the kernels it runs, and print its "
                          "result as the last line (not the smoke's)")
@@ -4113,11 +4559,16 @@ def main(argv=None) -> int:
     _phase("build", t)
 
     enc = ImsituEncoder.synthetic_full(args.seed)
-    if args.phase == "dist":
+    _cut_vit_depth()
+    if args.phase is not None:
         t = time.perf_counter()
-        dist = phase_dist(enc, args.seed, BATCH, smi)
-        _phase("dist", t)
-        print(json.dumps(dist, default=str), flush=True)
+        alone = {"dist": lambda: phase_dist(enc, args.seed, BATCH, smi),
+                 "export": lambda: phase_export(enc, args.seed, BATCH, smi),
+                 "remat": lambda: phase_remat(enc, args.seed, BATCH),
+                 "bench": lambda: phase_bench(enc, args.seed, smi)
+                 }[args.phase]()
+        _phase(args.phase, t)
+        print(json.dumps(alone, default=str), flush=True)
         return 0
     t = time.perf_counter()
     kernel = phase_kernel(enc, args.seed, BATCH)
@@ -4194,6 +4645,10 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     export = phase_export(enc, args.seed, BATCH, smi)
     _phase("export", t)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    bench = phase_bench(enc, args.seed, smi)
+    _phase("bench", t)
     vit_launches = {k: {path: c[k] for path, c in (
         ("export_program", export["launches"]["vit"]),
         ("serve_stream", vit_path["launches"]["stream"]),
@@ -4223,7 +4678,8 @@ def main(argv=None) -> int:
         ("ggnn_bwd_agg_kernel", "ggnn_bwd_prep_kernel"))
     print(json.dumps({"kernels": [
         _kernel_line("ggnn_folded", "ggnn_folded.cu", 217,
-                     kernel["shapes"] + kernel["k1_more"] + vit_kernel["K1"],
+                     kernel["shapes"] + kernel["k1_more"] + vit_kernel["K1"]
+                     + bench["k1_rows"],
                      {"serve": path["launches"],
                       "train": train_launches["K1"],
                       "accum": accum["launches"]["K1"],

@@ -48,6 +48,17 @@ their stdout to ``/dev/null``, and only rank 0 writes the encoder, the
 backbone cache and the checkpoints (``parallel/``, ``train.py``).  Without
 ``--distributed`` the CLI drives one card, where the JAX CLI takes every
 local chip (README, divergences).
+
+The JAX package's run-time switches, read where it reads them and with
+its defaults: ``SRTPU_HBM_BYTES`` (the device memory ``--cache_device``
+budgets against, in place of ``torch.cuda.mem_get_info``),
+``SRTPU_HBM_CHUNK_BYTES`` (the window cache's upload chunk, 256 MB),
+``SRTPU_PIPELINE_DEPTH`` (train and eval steps in flight, 2),
+``SRTPU_STEP_TRACE=1`` (the host's ``[trace]`` lines of the first 16
+train steps), ``SRTPU_PROFILE_DIR`` (a ``torch.profiler`` trace of the
+first epoch's training), ``SRTPU_UPLOAD_DEPTH`` (batches staged ahead,
+2), ``SRTPU_GGNN_BWD=pallas`` (the K2/K3 route) and the ViT's
+``SRTPU_VIT_STREAM`` / ``SRTPU_ATTN_CORE`` (``models/vit.py``).
 """
 
 from __future__ import annotations
@@ -326,9 +337,12 @@ def _working_reserve(encoder, cfg, device, window: int,
 
 def _device_free_bytes(device) -> int:
     """Free device memory (``torch.cuda.mem_get_info``); for the CPU, the
-    host's available physical memory."""
+    host's available physical memory.  ``SRTPU_HBM_BYTES`` overrides
+    either, as in the JAX CLI (``cli.py:588-597``)."""
     import torch
 
+    if os.environ.get('SRTPU_HBM_BYTES'):
+        return int(os.environ['SRTPU_HBM_BYTES'])
     if device.type == 'cuda':
         return int(torch.cuda.mem_get_info(device)[0])
     return os.sysconf('SC_AVPHYS_PAGES') * os.sysconf('SC_PAGE_SIZE')

@@ -2,7 +2,7 @@
 
     python -m situation_recognition_tpu_torch.export_serving CKPT OUT \\
         [--batch_size 256] [--backbone resnet152] [--weights f32|bf16|int8] \\
-        [--target portable|cuda] [--dataset_folder imSitu] \\
+        [--target portable|cuda] [--external] [--dataset_folder imSitu] \\
         [--precision fp32|bf16] [--image_size 224]
 
 The face of ``serving.export_inference``, with the JAX package's
@@ -13,8 +13,9 @@ checkpoint (read without JAX: ``utils/msgpack.py``,
 ``<dataset_folder>/train.json``, the reference's rule (a checkpoint holds
 none).  ``--target cuda`` keeps the CUDA kernels in the programs and needs
 the card (bf16 compute for the kernels); ``portable`` exports the plain
-paths, on the card unless ``--platform cpu``.  ``--external`` has no
-meaning here: the programs never embed their weights.
+paths, on the card unless ``--platform cpu``.  As in the JAX tool the
+weights are baked into the programs unless ``--external`` writes them to
+``weights.pt`` beside programs that take them as their argument.
 """
 
 from __future__ import annotations
@@ -41,13 +42,13 @@ def read_states(path: str):
 
 
 def export_model(model, out: str, batch_size: int = 1, weights: str = "f32",
-                 target: str = "portable") -> int:
+                 target: str = "portable", bake: bool = False) -> int:
     """``serving.export_inference`` of ``model`` into ``out`` → the
     artifact's bytes."""
     from situation_recognition_tpu_torch.serving import export_inference
 
     export_inference(model, out, batch_size=batch_size, weights=weights,
-                     platform=target)
+                     platform=target, bake_weights=bake)
     return sum(os.path.getsize(os.path.join(out, f))
                for f in os.listdir(out))
 
@@ -70,8 +71,9 @@ def main(argv=None) -> None:
                          "(per-channel symmetric) 2x and 4x smaller "
                          "matrices")
     ap.add_argument("--external", action="store_true",
-                    help="refused: the programs always take the weights "
-                         "file as their argument")
+                    help="write the weights to weights.pt beside programs "
+                         "that take them as their argument (default: "
+                         "baked into each program)")
     ap.add_argument("--target", default="portable",
                     choices=["portable", "cuda"],
                     help="portable: runs on the CPU and the card (no "
@@ -89,9 +91,6 @@ def main(argv=None) -> None:
                     help="where the programs are traced: auto, the card; "
                          "cpu for a portable artifact without one")
     args = ap.parse_args(argv)
-    if args.external:
-        ap.error("--external has no meaning here: the exported programs "
-                 "never embed weights; weights.pt ships beside them")
     if args.target == "cuda" and args.platform == "cpu":
         ap.error("--target cuda traces the CUDA kernels: it needs the card")
 
@@ -114,9 +113,11 @@ def main(argv=None) -> None:
     model.head.load_state_dict(head, strict=True)
     model.to(device)
     total = export_model(model, args.out, batch_size=args.batch_size,
-                         weights=args.weights, target=args.target)
+                         weights=args.weights, target=args.target,
+                         bake=not args.external)
+    kind = "external" if args.external else "baked"
     print(f"exported {args.out} (batch {args.batch_size}, weights "
-          f"{args.weights} external, target {args.target}, "
+          f"{args.weights} {kind}, target {args.target}, "
           f"{total / 1e6:.1f} MB): entries argmax + gt")
 
 

@@ -23,7 +23,13 @@ the weights) and differentiated ones as the JAX package does
 with ``SRTPU_GGNN_BWD=pallas``, the K2/K3 autograd Function.  ``masked``
 runs the masked-sum math of ``ops/ggnn.py`` in ``dtype`` everywhere.
 ``auto`` picks the kernel on a CUDA device at bf16, as the JAX trainer
-picks its Pallas kernel on a TPU at bf16.
+picks its Pallas kernel on a TPU at bf16.  ``ggnn_remat`` (JAX
+``TrainerConfig.ggnn_remat``) recomputes each step of a differentiated
+propagate in the backward: such a propagate takes the masked math with
+each step checkpointed, never K2/K3, as JAX's remat request leaves its
+Pallas kernel (``models/fcggnn.py:85-89``); a forward-only propagate keeps
+K1, where JAX takes the masked path (the same results: remat has no
+meaning without a backward).
 
 In a world of processes (``parallel/``) the trainer sets two attributes:
 ``dropout_rows`` = (start, global batch) makes each dropout draw the global
@@ -123,13 +129,15 @@ class GGNN(nn.Module):
     """The 7 dense layers of the reference GGSNN and the propagate calls."""
 
     def __init__(self, hidden: int, num_steps: int = 4,
-                 dtype: torch.dtype = torch.float32, impl: str = "masked"):
+                 dtype: torch.dtype = torch.float32, impl: str = "masked",
+                 remat: bool = False):
         super().__init__()
         for name in GGSNN_NAMES:
             setattr(self, name, nn.Linear(hidden, hidden))
         self.num_steps = num_steps
         self.dtype = dtype
         self.impl = impl
+        self.remat = remat
         self._folded = {}
         # a serving program's K1 operands (``serving.kernel_operands``): a
         # module of buffers while it is traced, else None
@@ -177,12 +185,14 @@ class GGNN(nn.Module):
                                      weights=self.folded(float(r)))
 
     def _route(self, hidden: torch.Tensor) -> str:
-        """'kernel' (K1), 'train_kernel' (K2/K3) or 'masked'."""
+        """'kernel' (K1), 'train_kernel' (K2/K3) or 'masked' (under
+        ``remat``, each step checkpointed when differentiated)."""
         if self.impl != "kernel":
             return "masked"
         if not self._differentiated(hidden):
             return "kernel"
-        return "train_kernel" if resolve_ggnn_bwd() == "pallas" else "masked"
+        return ("train_kernel" if resolve_ggnn_bwd() == "pallas"
+                and not self.remat else "masked")
 
     def _propagate(self, hidden, mask):
         route = self._route(hidden)
@@ -193,7 +203,8 @@ class GGNN(nn.Module):
             return ggnn_propagate_train(self.params(), hidden, mask,
                                         self.num_steps,
                                         weights=self.folded(r))
-        return ggnn_propagate(self.params(), hidden, mask, self.num_steps)
+        return ggnn_propagate(self.params(), hidden, mask, self.num_steps,
+                              remat=self.remat)
 
     def propagate(self, hidden: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:
@@ -206,7 +217,7 @@ class GGNN(nn.Module):
         hidden = hidden.to(self.dtype)
         if self._route(hidden) == "masked":
             return ggnn_propagate_verb(self.params(), hidden,
-                                       self.num_steps)
+                                       self.num_steps, remat=self.remat)
         zeros = torch.zeros(hidden.shape[0], 1, dtype=torch.float32,
                             device=hidden.device)
         return self._propagate(hidden[:, None, :], zeros)[:, 0, :]
@@ -228,7 +239,7 @@ class FCGGNNHead(nn.Module):
                  max_role_count: int, hidden: int = 2048,
                  num_steps: int = 4, dropout_rate: float = 0.5,
                  dtype: torch.dtype = torch.float32,
-                 ggnn_impl: str = "masked"):
+                 ggnn_impl: str = "masked", ggnn_remat: bool = False):
         super().__init__()
         self.max_role_count = max_role_count
         self.num_labels = num_labels
@@ -236,7 +247,7 @@ class FCGGNNHead(nn.Module):
         self.role_emb = nn.Embedding(num_roles + 1, hidden,
                                      padding_idx=num_roles)
         self.verb_emb = nn.Embedding(num_verbs, hidden)
-        self.ggsnn = GGNN(hidden, num_steps, dtype, ggnn_impl)
+        self.ggsnn = GGNN(hidden, num_steps, dtype, ggnn_impl, ggnn_remat)
         self.verb_classifier = nn.Sequential(
             nn.Dropout(dropout_rate), nn.Linear(hidden, num_verbs))
         self.nouns_classifier = nn.Sequential(

@@ -19,8 +19,11 @@ The GRU-style update:
 
 Weights are (D_in, D_out) for ``x @ W``, the JAX package's layout, so that
 the same arrays feed both packages; ``models.fcggnn.GGNN`` hands its
-``nn.Linear`` weights over as transposed views.  The folded multi-step
-kernel that serves forward-only calls lives in ``ops/ggnn_kernel.py``.
+``nn.Linear`` weights over as transposed views.  ``remat=True``
+recomputes each step in the backward (``torch.utils.checkpoint`` of the
+step, the JAX package's ``jax.checkpoint``): the step's gate activations
+are not kept across the propagate.  The folded multi-step kernel that
+serves forward-only calls lives in ``ops/ggnn_kernel.py``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 class GGNNParams(NamedTuple):
@@ -58,18 +62,33 @@ def _gru_update(p: GGNNParams, n: torch.Tensor,
     return (1.0 - z) * h + z * c
 
 
+def _steps(step, h: torch.Tensor, num_steps: int,
+           remat: bool) -> torch.Tensor:
+    """``num_steps`` applications of ``step``, each checkpointed under
+    ``remat`` when a backward can follow.  A step draws no random numbers,
+    so the checkpoint keeps no RNG state: saving and restoring the card's
+    reads it back to the host, a sync per step."""
+    remat = remat and torch.is_grad_enabled()
+    for _ in range(num_steps):
+        h = (checkpoint(step, h, use_reentrant=False,
+                        preserve_rng_state=False) if remat else step(h))
+    return h
+
+
 def ggnn_propagate(params: GGNNParams, hidden: torch.Tensor,
-                   mask: torch.Tensor, num_steps: int = 4) -> torch.Tensor:
+                   mask: torch.Tensor, num_steps: int = 4,
+                   remat: bool = False) -> torch.Tensor:
     """Masked-sum propagation.  hidden (B, N, D), mask (B, N) binary."""
     mask = mask.to(hidden.dtype)[..., None]              # (B, N, 1)
     n_slots = hidden.shape[1]
-    h = hidden
-    for _ in range(num_steps):
+
+    def step(h):
         s = torch.sum(mask * h, dim=1, keepdim=True)     # (B, 1, D)
         agg = torch.where(mask > 0, s - h, h)
         n = agg @ params.w_p + n_slots * params.b_p
-        h = _gru_update(params, n, h)
-    return h
+        return _gru_update(params, n, h)
+
+    return _steps(step, hidden, num_steps, remat)
 
 
 def ggnn_propagate_dense(params: GGNNParams, hidden: torch.Tensor,
@@ -88,10 +107,12 @@ def ggnn_propagate_dense(params: GGNNParams, hidden: torch.Tensor,
 
 
 def ggnn_propagate_verb(params: GGNNParams, hidden: torch.Tensor,
-                        num_steps: int = 4) -> torch.Tensor:
+                        num_steps: int = 4,
+                        remat: bool = False) -> torch.Tensor:
     """Verb branch: single-node graphs (B, D), self-message only."""
-    h = hidden
-    for _ in range(num_steps):
+
+    def step(h):
         n = h @ params.w_p + params.b_p
-        h = _gru_update(params, n, h)
-    return h
+        return _gru_update(params, n, h)
+
+    return _steps(step, hidden, num_steps, remat)

@@ -1,35 +1,44 @@
 """Serving artifacts: export → load → ``fn(images_u8)``.
 
 Port of ``situation_recognition_tpu/serving.py``.  ``export_inference``
-writes a directory that holds
+writes a directory of one of the JAX artifact's two kinds:
 
-* ``weights.pt`` — the weights once, in one of the JAX artifact's three
-  encodings (``weights``): ``f32``; ``bf16``, every floating leaf of two or
-  more dimensions cast; ``int8``, those leaves symmetric per output channel
-  (the scale is max |w| / 127 over every axis but the last, floored at
-  1e-12).  The leaves are the JAX package's (``convert``'s ``*_to_jax``
-  view of the model: dense kernels (in, out), q/k/v kernels (D, heads,
-  dh) whose scale is shared by the heads, the position embedding and
-  the CLS token included), so that the decoded weights are the JAX
-  artifact's bit for bit; 1-D leaves stay f32.  An f32 file holds the
-  port's state dicts as they are (the format of the artifacts this package
-  wrote before it had programs);
-* ``model.pt2`` and ``model_gt.pt2`` — ``torch.export`` programs of the
-  two entries, which take the weights as their leading argument (the JAX
-  package's ``bake_weights=False`` artifact): a dict of the decoded
-  tensors by the model's names, and on the ``cuda`` platform also the
-  operands that its kernels read, prepared once at load
-  (``kernel_operands``);
-* ``meta.json`` — the JAX artifact's keys.
+* **baked** (``bake_weights=True``, JAX's default): ``model.pt2`` and
+  ``model_gt.pt2``, ``torch.export`` programs of the two entries that hold
+  the weights inside them as buffers, and ``meta.json`` with
+  ``bake_weights: true`` and no ``weights_file``.  An ``f32`` program
+  holds the tensors as the served model uses them (a ResNet's
+  convolutions in the compute type); a ``bf16`` or ``int8`` one holds the
+  encoded matrices in the served model's layout and decodes them inside
+  the program, which gives the external artifact's decoded weights bit
+  for bit (``_bake``).  A ``cuda`` program also holds the operands its
+  kernels read (``kernel_operands``), so a load folds nothing;
+* **external** (``bake_weights=False``, this function's default):
+  ``weights.pt``, the weights once, and the two programs taking them as
+  their leading argument (a dict of the decoded tensors by the model's
+  names, and on the ``cuda`` platform also the kernels' operands,
+  prepared once at load), with ``weights_file`` in the meta.
+
+``weights`` is one of the JAX artifact's three encodings: ``f32``;
+``bf16``, every floating leaf of two or more dimensions cast; ``int8``,
+those leaves symmetric per output channel (the scale is max |w| / 127 over
+every axis but the last, floored at 1e-12).  The leaves are the JAX
+package's (``convert``'s ``*_to_jax`` view of the model: dense kernels
+(in, out), q/k/v kernels (D, heads, dh) whose scale is shared by the
+heads, the position embedding and the CLS token included), so that the
+decoded weights are the JAX artifact's bit for bit; 1-D leaves stay f32.
+An external f32 file holds the port's state dicts as they are (the format
+of the artifacts this package wrote before it had programs).
 
 ``platform="portable"`` exports the masked GGNN and the plain ViT blocks:
 the programs run on the CPU and on the card (moved to the device they are
 loaded on).  ``platform="cuda"`` keeps the kernels (``torch.library`` custom
 ops: K1, K4, K5/K7 and K6) in the programs, which then run only on the card.
 
-``load_inference`` decodes the weights once (``q.float() * scale``, the
-bf16 upcast), loads the programs with ``torch.export.load`` — no model code
-is rebuilt — and returns
+``load_inference`` takes either kind.  It loads the programs with
+``torch.export.load`` — no model code is rebuilt — (an external artifact's
+weights decoded once, ``q.float() * scale`` or the bf16 upcast; a baked
+program's tensors moved onto the device) and returns
 
     fn(images_u8 (B, 256, 256, 3) uint8)
         → (verb_logits (B, V) f32, verb_ids (B,), noun_logits (B, R, L) f32)
@@ -40,11 +49,12 @@ serves on several cards (JAX ``load_inference(devices=)``): the artifact
 is loaded once per card, a batch is split into baked-size chunks placed
 round-robin over the cards, every chunk is dispatched before a result is
 awaited, and the outputs are gathered onto the first card.  It rebuilds
-``SituationModel`` from the meta and the same weights instead (``fn.model``)
-for an artifact without programs, when ``ggnn_impl`` or ``block_impl``
-choose the paths, and for a portable artifact on the card whose compute
-type runs the kernels there (bf16): on the card the kernels serve either
-kind of artifact unless ``rebuild=False`` asks for the portable program.
+``SituationModel`` from the meta and the same weights instead (``fn.model``;
+a baked artifact's weights read back from its program) for an artifact
+without programs, when ``ggnn_impl`` or ``block_impl`` choose the paths,
+and for a portable artifact on the card whose compute type runs the
+kernels there (bf16): on the card the kernels serve either kind of
+artifact unless ``rebuild=False`` asks for the portable program.
 The path on the device: resize-as-matmul
 + ImageNet normalise, the backbone (eval-mode BN, its convolutions in the
 compute type and its BatchNorm in f32), the FCGGNN verb branch, argmax,
@@ -218,17 +228,10 @@ def _write_weights(model, path: str, weights: str) -> None:
     torch.save(blob, os.path.join(path, WEIGHTS_FILE))
 
 
-def decode_weights(path: str, meta: dict | None = None):
-    """An artifact's weights → (backbone state, head state) in the port's
-    layout, decoded (f32 floating tensors)."""
-    if meta is None:
-        with open(os.path.join(path, "meta.json")) as f:
-            meta = json.load(f)
-    blob = torch.load(os.path.join(path, meta["weights_file"]),
-                      map_location="cpu", weights_only=True)
-    if "tree" not in blob:
-        return blob["backbone"], blob["head"]
-    tree = decode_tree(blob["tree"])
+def _port_states(tree):
+    """A JAX-layout weight tree → (backbone state, head state) in the
+    port's layout (``convert``'s layout maps: transposes, reshapes and
+    concatenations only)."""
     bvars = tree["backbone"]
     if "cls_token" in bvars["params"]:
         backbone = convert.vit_state_from_jax(bvars["params"])
@@ -236,6 +239,22 @@ def decode_weights(path: str, meta: dict | None = None):
         backbone = convert.resnet_state_from_jax(bvars["params"],
                                                  bvars["batch_stats"])
     return backbone, convert.head_state_from_jax(tree["head"]["params"])
+
+
+def decode_weights(path: str, meta: dict | None = None):
+    """An artifact's weights → (backbone state, head state) in the port's
+    layout, decoded (f32 floating tensors; a baked artifact's as its
+    program holds them, see ``_baked_states``)."""
+    if meta is None:
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+    if meta.get("bake_weights"):
+        return _baked_states(path, meta)
+    blob = torch.load(os.path.join(path, meta["weights_file"]),
+                      map_location="cpu", weights_only=True)
+    if "tree" not in blob:
+        return blob["backbone"], blob["head"]
+    return _port_states(decode_tree(blob["tree"]))
 
 
 # --------------------------------------------------------------- programs
@@ -321,6 +340,165 @@ class _Program(nn.Module):
                                           strict=True)
 
 
+# ------------------------------------------------------------ baked weights
+
+
+def _marked(tree, part: str):
+    """The encoded ``tree`` with each encoded leaf replaced by ``part`` of
+    it in f32 — ``value``: an int8 leaf's q or a bf16 leaf's values;
+    ``scale``: an int8 leaf's scale broadcast to q's shape — and every
+    other leaf by NaN.  Through ``_port_states`` it puts each encoded
+    element where the served model reads it."""
+    if isinstance(tree, dict):
+        if set(tree) == {"q", "scale"}:
+            q = tree["q"].to(torch.float32)
+            return q if part == "value" else \
+                tree["scale"].to(torch.float32).expand(q.shape)
+        return {k: _marked(v, part) for k, v in tree.items()}
+    t = tree if torch.is_tensor(tree) else torch.as_tensor(np.asarray(tree))
+    if t.dtype == torch.bfloat16 and part == "value":
+        return t.to(torch.float32)
+    return torch.full(t.shape, float("nan"))
+
+
+def _compact(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with every axis along which it repeats cut to size 1: the
+    smallest tensor that broadcasts back to it."""
+    for ax in range(t.dim()):
+        first = t.narrow(ax, 0, 1)
+        if torch.equal(t, first.expand_as(t)):
+            t = first
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _decode(kind: str, tensors, dtype: torch.dtype,
+            channels_last: bool) -> torch.Tensor:
+    """A baked tensor as the served model reads it: ``plain`` as stored;
+    ``int8`` ``q.float() * scale`` and ``bf16`` the f32 upcast (as
+    ``decode_tree``), then cast to ``dtype`` in ``channels_last`` where
+    the served tensor is."""
+    if kind == "plain":
+        return tensors[0]
+    if kind == "int8":
+        x = tensors[0].to(torch.float32) * tensors[1]
+    else:
+        x = tensors[0] if tensors[0].dtype == dtype \
+            else tensors[0].to(torch.float32)
+    x = x.to(dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    return x
+
+
+def _buffer_names(name: str, kind: str) -> list:
+    base = name.replace(".", "__")
+    return [base + "__q", base + "__scale"] if kind == "int8" else [base]
+
+
+def _bake(model: "SituationModel", weights: str, impls: dict,
+          dev) -> "OrderedDict[str, tuple]":
+    """What a baked program of ``model`` holds, by the served model's
+    names: ``(kind, tensors, dtype, channels_last)`` for ``_decode``, kind
+    ``plain`` (the tensor the external artifact's load serves), ``bf16``
+    (its bf16 values) or ``int8`` (q and its scale cut to the axes it
+    varies on), both in the served layout.  An encoded tensor's decode is
+    checked bit-equal to what the external load serves.  The kernels'
+    operands (``impls``) are made from the decoded weights, as a load of
+    the external artifact makes them."""
+    backbone, head = _state_dicts(model)
+    tree = None
+    if weights != "f32":
+        tree = encode_tree(jax_tree(backbone, head, getattr(
+            model.backbone, "heads", None)), weights)
+        backbone, head = _port_states(decode_tree(tree))
+    served = _serving_state(backbone, head, model.role_ids, model.role_mask,
+                            model.backbone_has_bn, model.dtype, dev)
+    served.update(kernel_operands(
+        head, backbone, model.dtype, model.encoder.max_role_count, dev,
+        impls.get("ggnn") == "kernel",
+        impls.get("vit_blocks") in ("stream", "block")))
+    marks = scales = None
+    if tree is not None:
+        marks = dict(zip(("backbone", "head"),
+                         _port_states(_marked(tree, "value"))))
+        if weights == "int8":
+            scales = dict(zip(("backbone", "head"),
+                              _port_states(_marked(tree, "scale"))))
+    out: OrderedDict = OrderedDict()
+    for name, t in served.items():
+        part, _, key = name.partition(".")
+        v = marks[part].get(key) if marks and part in marks else None
+        cl = (model.backbone_has_bn and t.dim() == 4
+              and dev.type == "cuda")
+        fmt = torch.channels_last if cl else torch.contiguous_format
+        if v is None or not v.is_floating_point() or torch.isnan(v).all():
+            if t._base is not None:
+                # a view (the kernels' operands share buffers): a program
+                # saves each tensor with the storage it owns
+                t = t.clone(memory_format=torch.preserve_format)
+            out[name] = ("plain", (t,), t.dtype, cl)
+            continue
+        if torch.isnan(v).any():
+            raise ValueError(f"{name} mixes encoded and plain leaves")
+        if weights == "bf16":
+            stored = (v.to(dev, torch.bfloat16)
+                      .contiguous(memory_format=fmt),)
+        else:
+            stored = (v.to(dev, torch.int8).contiguous(memory_format=fmt),
+                      _compact(scales[part][key]).to(dev))
+        out[name] = (weights, stored, t.dtype, cl)
+        if not torch.equal(_decode(weights, stored, t.dtype, cl), t):
+            raise AssertionError(f"{name}: the baked decode differs from "
+                                 f"the external artifact's")
+    return out
+
+
+class _Baked(nn.Module):
+    """A baked entry: ``forward(images_u8[, verb_ids])`` decodes its
+    buffers (``_decode``) and runs the model with them in place of its
+    tensors.  The model is not a submodule: the buffers are the program's
+    only tensors."""
+
+    def __init__(self, model: "SituationModel", baked: dict):
+        super().__init__()
+        object.__setattr__(self, "model", model)
+        self._layout = []
+        for name, (kind, tensors, dtype, cl) in baked.items():
+            bufs = _buffer_names(name, kind)
+            for b, t in zip(bufs, tensors):
+                self.register_buffer(b, t)
+            self._layout.append((name, kind, bufs, dtype, cl))
+
+    def forward(self, images_u8, verb_ids=None):
+        weights = {name: _decode(kind, [getattr(self, b) for b in bufs],
+                                 dtype, cl)
+                   for name, kind, bufs, dtype, cl in self._layout}
+        args = (images_u8,) if verb_ids is None else (images_u8, verb_ids)
+        return torch.func.functional_call(self.model, weights, args,
+                                          strict=True)
+
+
+def _baked_states(path: str, meta: dict):
+    """A baked artifact's weights read back from its ``argmax`` program →
+    (backbone state, head state), decoded to f32 (an f32 artifact's
+    ResNet convolutions as the program holds them, in the compute
+    type's values)."""
+    ep = torch.export.load(os.path.join(path,
+                                        meta["entries"]["argmax"]["file"]))
+    state = {**ep.state_dict, **ep.constants}
+    parts = {"backbone": OrderedDict(), "head": OrderedDict()}
+    for name, spec in meta["baked"].items():
+        part, _, key = name.partition(".")
+        if part not in parts or ".operands." in name:
+            continue
+        ts = [state[b].detach().to("cpu")
+              for b in _buffer_names(name, spec[0])]
+        x = _decode(spec[0], ts, torch.float32, False)
+        parts[part][key] = (x.float() if x.is_floating_point()
+                            else x).contiguous()
+    return parts["backbone"], parts["head"]
+
+
 @contextlib.contextmanager
 def _program_paths(model: "SituationModel", platform: str, dev):
     """The model set up for a program of ``platform`` inside: the masked
@@ -373,31 +551,42 @@ def _program_paths(model: "SituationModel", platform: str, dev):
 
 
 def _export_programs(model: "SituationModel", path: str, batch_size: int,
-                     platform: str) -> tuple:
-    """Trace and save the two entries; → (the programs' weight names in
-    order, the implementations they run, the device they were traced
-    on)."""
+                     platform: str, weights: str, bake: bool) -> dict:
+    """Trace and save the two entries → the meta's keys of the programs:
+    the weight names they take (external) or the layout of the tensors
+    they hold (baked; ``_bake``), the implementations they run and the
+    device they were traced on."""
     dev = next(model.parameters()).device
     with _program_paths(model, platform, dev) as (ops, impls):
-        backbone, head_sd = _state_dicts(model)
-        weights = _serving_state(backbone, head_sd, model.role_ids,
-                                 model.role_mask, model.backbone_has_bn,
-                                 model.dtype, dev)
-        weights.update(ops)
-        weights = dict(weights)       # the loader passes a dict (its spec)
-        prog = _Program(model.eval())
+        if bake:
+            baked = _bake(model, weights, impls, dev)
+            prog, lead = _Baked(model.eval(), baked), ()
+            dnames = {v: k for k, v in _DTYPES.items()}
+            keys = {"baked": {
+                name: [kind] if kind == "plain" else [kind, dnames[dt], cl]
+                for name, (kind, _, dt, cl) in baked.items()}}
+        else:
+            backbone, head_sd = _state_dicts(model)
+            served = _serving_state(backbone, head_sd, model.role_ids,
+                                    model.role_mask, model.backbone_has_bn,
+                                    model.dtype, dev)
+            served.update(ops)
+            # the loader passes a dict (its spec)
+            prog, lead = _Program(model.eval()), (dict(served),)
+            keys = {"program_weights": list(served)}
         stub = torch.zeros((batch_size, 256, 256, 3), dtype=torch.uint8,
                            device=dev)
         vstub = torch.zeros((batch_size,), dtype=torch.long, device=dev)
         with torch.no_grad():
-            for entry, args in (("argmax", (weights, stub)),
-                                ("gt", (weights, stub, vstub))):
+            for entry, args in (("argmax", lead + (stub,)),
+                                ("gt", lead + (stub, vstub))):
                 ep = torch.export.export(prog, args, strict=False)
-                # the program, not the weights it was traced with
+                # the program (and a baked one's tensors), not the inputs
+                # it was traced with
                 ep.example_inputs = None
                 torch.export.save(ep, os.path.join(path,
                                                    PROGRAM_FILES[entry]))
-    return list(weights), impls, dev.type
+    return {**keys, "impls": impls, "traced_on": dev.type}
 
 
 def export_inference(model: SituationModel, path: str, batch_size: int = 1,
@@ -405,43 +594,39 @@ def export_inference(model: SituationModel, path: str, batch_size: int = 1,
                      bake_weights: bool = False) -> None:
     """Write ``model`` as a serving artifact directory.
 
-    ``weights``: the encoding of ``weights.pt`` — ``f32`` (exact),
-    ``bf16`` or ``int8`` (``encode_tree``; 2x / 4x smaller matrices).
+    ``weights``: the encoding of the weights — ``f32`` (exact), ``bf16``
+    or ``int8`` (``encode_tree``; 2x / 4x smaller matrices).
     ``platform``: ``portable`` (the programs run on the CPU and the card,
     without the kernels) or ``cuda`` (the kernels in the programs; the
     model must be on the card, and the artifact serves only there).
-    ``bake_weights=True`` (weights inside each program) is not ported."""
+    ``bake_weights``: the weights inside each program (JAX's default, and
+    ``export_serving``'s), or in ``weights.pt`` beside programs that take
+    them as their argument (this function's default)."""
     if weights not in ENCODINGS:
         raise ValueError(f"weights must be f32|bf16|int8, got {weights!r}")
     if platform not in PLATFORMS:
         raise ValueError(f"platform must be portable|cuda, got "
                          f"{platform!r}")
-    if bake_weights:
-        raise NotImplementedError(
-            "bake_weights=True (weights inside each program) is not ported "
-            "yet (ROADMAP §1); the programs take the weights file as their "
-            "argument")
     if platform == "cuda" and next(model.parameters()).device.type != "cuda":
         raise ValueError("platform='cuda' traces the CUDA kernels into the "
                          "programs: move the model to the card first")
     enc = model.encoder
     os.makedirs(path, exist_ok=True)
-    _write_weights(model, path, weights)
     meta = {
         "format_version": FORMAT_VERSION,
         "batch_size": batch_size,
         "weights": weights,
-        "weights_file": WEIGHTS_FILE,
         "compute_dtype": {v: k for k, v in _DTYPES.items()}[model.dtype],
-        "entries": {e: {"signature": s} for e, s in _SIGNATURES.items()},
+        "entries": {e: {"signature": s, "file": PROGRAM_FILES[e]}
+                    for e, s in _SIGNATURES.items()},
     }
-    names, impls, traced_on = _export_programs(model, path, batch_size,
-                                               platform)
-    for e, f in PROGRAM_FILES.items():
-        meta["entries"][e]["file"] = f
-    meta.update({"platforms": PLATFORMS[platform], "bake_weights": False,
-                 "program_weights": names, "impls": impls,
-                 "traced_on": traced_on})
+    if not bake_weights:
+        _write_weights(model, path, weights)
+        meta["weights_file"] = WEIGHTS_FILE
+    meta.update({"platforms": PLATFORMS[platform],
+                 "bake_weights": bool(bake_weights)})
+    meta.update(_export_programs(model, path, batch_size, platform, weights,
+                                 bool(bake_weights)))
     meta.update({
         "backbone": model.backbone_name,
         "hidden": model.hidden,
@@ -541,30 +726,16 @@ def _load_programs(path: str, meta: dict, dev: torch.device) -> Callable:
     from situation_recognition_tpu_torch.ops import vit_kernel  # noqa: F401
     from torch.export.passes import move_to_device_pass
 
-    dtype = _DTYPES[meta["compute_dtype"]]
-    enc = _encoder(meta)
-    backbone, head = decode_weights(path, meta)
-    names = meta["program_weights"]
-    weights = _serving_state(backbone, head, enc.role_ids, enc.role_mask,
-                             not meta["backbone"].startswith("vit"), dtype,
-                             dev)
-    impls = meta.get("impls") or {}
-    if any(".operands." in n for n in names):
-        weights.update(kernel_operands(
-            head, backbone, dtype, meta["max_role_count"], dev,
-            impls.get("ggnn") == "kernel",
-            impls.get("vit_blocks") in ("stream", "block")))
-    if set(weights) != set(names):
-        raise ValueError(f"artifact {path}: its programs take "
-                         f"{sorted(set(names) ^ set(weights))} that the "
-                         f"weights do not give, or the other way round")
-    weights = {n: weights[n] for n in names}
-    calls = {}
-    for entry, info in meta["entries"].items():
-        ep = torch.export.load(os.path.join(path, info["file"]))
-        if meta.get("traced_on") != dev.type:
-            ep = move_to_device_pass(ep, dev)
-        calls[entry] = _Call(ep.module(), weights)
+    if meta.get("bake_weights"):
+        weights, calls = None, _baked_calls(path, meta, dev)
+    else:
+        weights = _program_weights(path, meta, dev)
+        calls = {}
+        for entry, info in meta["entries"].items():
+            ep = torch.export.load(os.path.join(path, info["file"]))
+            if meta.get("traced_on") != dev.type:
+                ep = move_to_device_pass(ep, dev)
+            calls[entry] = _Call(ep.module(), weights)
     baked = int(meta["batch_size"])
 
     def fn(images_u8):
@@ -586,8 +757,58 @@ def _load_programs(path: str, meta: dict, dev: torch.device) -> Callable:
     return fn
 
 
+def _program_weights(path: str, meta: dict, dev: torch.device) -> dict:
+    """An external artifact's weights decoded onto ``dev`` as its programs
+    take them (with a ``cuda`` program's kernel operands, made here)."""
+    dtype = _DTYPES[meta["compute_dtype"]]
+    enc = _encoder(meta)
+    backbone, head = decode_weights(path, meta)
+    names = meta["program_weights"]
+    weights = _serving_state(backbone, head, enc.role_ids, enc.role_mask,
+                             not meta["backbone"].startswith("vit"), dtype,
+                             dev)
+    impls = meta.get("impls") or {}
+    if any(".operands." in n for n in names):
+        weights.update(kernel_operands(
+            head, backbone, dtype, meta["max_role_count"], dev,
+            impls.get("ggnn") == "kernel",
+            impls.get("vit_blocks") in ("stream", "block")))
+    if set(weights) != set(names):
+        raise ValueError(f"artifact {path}: its programs take "
+                         f"{sorted(set(names) ^ set(weights))} that the "
+                         f"weights do not give, or the other way round")
+    return {n: weights[n] for n in names}
+
+
+def _baked_calls(path: str, meta: dict, dev: torch.device) -> dict:
+    """A baked artifact's entries loaded with their tensors moved onto
+    ``dev`` (``torch.export.load`` leaves them where they were traced, or
+    on the CPU); the ``gt`` entry reads the ``argmax`` entry's tensors,
+    which are the same, so the card holds them once."""
+    from torch.export.passes import move_to_device_pass
+
+    calls = {}
+    for entry in ("argmax", "gt"):
+        ep = torch.export.load(os.path.join(path,
+                                            meta["entries"][entry]["file"]))
+        module = move_to_device_pass(ep, dev).module()
+        for name, t in module.named_buffers():
+            if t.device.type != dev.type:
+                raise RuntimeError(f"artifact {path}: {name} is on "
+                                   f"{t.device}, not {dev}")
+        calls[entry] = _Call(module, None)
+    first = calls["argmax"].module
+    held = dict(first.named_buffers())
+    for name, t in list(calls["gt"].module.named_buffers()):
+        src = held.get(name)
+        if src is not None and "." not in name and src.shape == t.shape \
+                and src.dtype == t.dtype:
+            calls["gt"].module._buffers[name] = src
+    return calls
+
+
 class _Call:
-    """A loaded program with its weights bound.  The program checks its
+    """A loaded program with its weights bound (``None``: baked in it).  The program checks its
     inputs against what it was traced with on the first call; after one
     that passed it checks no more (the weights are these, unchanged, and
     ``_over_chunks`` gives the baked batch of ``_coerce``'s types), which
@@ -598,7 +819,8 @@ class _Call:
         self.weights = weights
 
     def __call__(self, *args):
-        out = self.module(self.weights, *args)
+        out = (self.module(*args) if self.weights is None
+               else self.module(self.weights, *args))
         self.module.validate_inputs = False
         return out
 

@@ -61,11 +61,17 @@ on the card it stages each padded batch into pinned host buffers from a
 small reused pool, issues the copies with ``non_blocking=True`` on a side
 stream and records an event that the step's stream waits on, so the copy
 overlaps the steps in flight; ``SRTPU_UPLOAD_DEPTH`` (default 2) batches
-wait ready.  A window-cached split (``--cache_device``) is uploaded once
-and each batch is a gather on the device.  The step loop keeps up to
-``PIPELINE_DEPTH`` (2) steps in flight before it reads their losses and
-top-k back and scores them, so the host scores step k while the card runs
-step k+1.
+wait ready.  A window-cached split (``--cache_device``) is uploaded once,
+in chunks of ``SRTPU_HBM_CHUNK_BYTES`` (default 256 MB), and each batch is
+a gather on the device.  The step loop keeps up to
+``SRTPU_PIPELINE_DEPTH`` (default 2; 0 is synchronous) steps in flight
+before it reads their losses and top-k back and scores them, so the host
+scores step k while the card runs step k+1; ``SRTPU_STEP_TRACE=1`` prints
+the host's time to read the first 16 consumed train steps back (the JAX
+package's ``[trace]`` lines).  ``SRTPU_PROFILE_DIR`` puts a
+``torch.profiler`` trace of ``fit``'s first epoch of training into that
+directory (``utils/logging.profile_trace``).  The JAX package's switches,
+read where it reads them, with its defaults.
 
 A frozen backbone's convolutions are cast to the compute type in place on
 the card; the f32 parameters they came from are kept on the host (taken
@@ -140,13 +146,19 @@ from situation_recognition_tpu_torch.utils.checkpoint import (
     HISTORY_KEYS, copy_checkpoint, history_list, restore_tolerant,
     save_checkpoint)
 from situation_recognition_tpu_torch.utils.logging import (
-    StepTimer, format_dict)
+    StepTimer, format_dict, profile_trace)
 
 #: the reference model's prefixes of its twin backbones
 REF_BACKBONE = "convnet_verbs.model."
 REF_TWIN = "convnet_nouns.model."
-#: steps ``train_epoch`` and ``evaluate`` keep in flight before scoring
+#: steps ``train_epoch`` and ``evaluate`` keep in flight before scoring,
+#: unless ``SRTPU_PIPELINE_DEPTH`` says otherwise
 PIPELINE_DEPTH = 2
+#: the window cache's upload chunk, unless ``SRTPU_HBM_CHUNK_BYTES`` says
+#: otherwise
+HBM_CHUNK_BYTES = 256 << 20
+#: consumed train steps ``SRTPU_STEP_TRACE=1`` reports
+STEP_TRACE_BATCHES = 16
 #: the bytes at which a gradient bucket (one all-reduce) closes
 GRAD_BUCKET_BYTES = 256 << 20
 
@@ -194,6 +206,10 @@ class TrainerConfig:
     # the mesh's model axis: the classifier kernels split their input
     # columns over it (needs a mesh of that model size)
     model_axis: int = 1
+    # recompute each GGNN step of a differentiated propagate in the
+    # backward (JAX ``ggnn_remat``; ``models/fcggnn.GGNN``): the masked
+    # math with each step checkpointed, never K2/K3
+    ggnn_remat: bool = False
 
 
 def make_lr_fn(config: TrainerConfig):
@@ -410,6 +426,41 @@ class _PinnedSlot:
         return buf
 
 
+def pipeline_depth() -> int:
+    """``SRTPU_PIPELINE_DEPTH`` (JAX ``train.py:1274``): the steps in
+    flight before the oldest is read back; 0 reads each step at once."""
+    return max(0, int(os.environ.get("SRTPU_PIPELINE_DEPTH",
+                                     PIPELINE_DEPTH)))
+
+
+def chunk_rows(row_bytes: int) -> int:
+    """Rows of ``row_bytes`` a window-cache upload chunk holds:
+    ``SRTPU_HBM_CHUNK_BYTES`` (JAX ``train.py:1032``) over a row, at least
+    one."""
+    chunk = int(os.environ.get("SRTPU_HBM_CHUNK_BYTES", HBM_CHUNK_BYTES))
+    return max(1, chunk // max(1, row_bytes))
+
+
+def upload_windows(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """(N, S, S, 3) uint8 windows → a tensor on ``device``, copied in
+    chunks of ``chunk_rows`` through one staging buffer (pinned on the
+    card, each chunk landed before the buffer is refilled), so that a
+    multi-GB split never stages whole."""
+    dev = torch.empty(host.shape, dtype=torch.uint8, device=device)
+    rows = chunk_rows(host[0].nbytes) if len(host) else 1
+    cuda = device.type == "cuda"
+    staging = torch.empty((min(rows, len(host)),) + host.shape[1:],
+                          dtype=torch.uint8, pin_memory=cuda)
+    for start in range(0, len(host), rows):
+        part = host[start:start + rows]
+        staging[:len(part)].numpy()[...] = part
+        dev[start:start + len(part)].copy_(staging[:len(part)],
+                                           non_blocking=cuda)
+        if cuda:
+            torch.cuda.current_stream(device).synchronize()
+    return dev
+
+
 def _upload_depth() -> int:
     """Batches the uploader keeps ready: ``SRTPU_UPLOAD_DEPTH`` (2)."""
     return max(1, int(os.environ.get("SRTPU_UPLOAD_DEPTH", "2")))
@@ -480,7 +531,8 @@ class Trainer:
             encoder.get_num_labels(), encoder.max_role_count,
             hidden=config.hidden, num_steps=config.num_ggnn_steps,
             dropout_rate=config.dropout_rate, dtype=dt,
-            ggnn_impl=resolve_ggnn_impl(config.ggnn_impl, dt, self.device))
+            ggnn_impl=resolve_ggnn_impl(config.ggnn_impl, dt, self.device),
+            ggnn_remat=config.ggnn_remat)
         if head_state is None:
             self.head.reset_parameters(gen)
         else:
@@ -835,8 +887,8 @@ class Trainer:
 
     def _device_window_cache(self, dataset) -> torch.Tensor:
         """A window-cached dataset's (N, S, S, 3) uint8 windows on the
-        device, uploaded once (in 256 MB chunks through one pinned buffer
-        on the card) and kept while the host array lives."""
+        device, uploaded once in chunks (``upload_windows``; on the CPU
+        the host array itself) and kept while the host array lives."""
         host = dataset.window_cache
         entry = self._window_caches.get(id(dataset))
         if entry is not None and entry[0]() is host:
@@ -844,17 +896,7 @@ class Trainer:
         if self.device.type != "cuda":
             dev = torch.from_numpy(host)
         else:
-            dev = torch.empty(host.shape, dtype=torch.uint8,
-                              device=self.device)
-            rows = max(1, (256 << 20) // max(1, host[0].nbytes))
-            pinned = torch.empty((min(rows, len(host)),) + host.shape[1:],
-                                 dtype=torch.uint8, pin_memory=True)
-            for start in range(0, len(host), rows):
-                part = host[start:start + rows]
-                pinned[:len(part)].numpy()[...] = part
-                dev[start:start + len(part)].copy_(pinned[:len(part)],
-                                                   non_blocking=True)
-                torch.cuda.current_stream(self.device).synchronize()
+            dev = upload_windows(host, self.device)
         self._window_caches[id(dataset)] = (weakref.ref(host), dev)
         return dev
 
@@ -965,11 +1007,15 @@ class Trainer:
         """The most batches ``_device_batches`` and the step loop hold on
         the device at once: those queued, the one staging, the one in the
         step and those in flight."""
-        return _upload_depth() + 2 + PIPELINE_DEPTH
+        return _upload_depth() + 2 + pipeline_depth()
 
     @staticmethod
-    def _score(top1, top5, topk, verbs, labels, n):
-        pv5, pn5, gt1 = (x.cpu().numpy()[:n] for x in topk)
+    def _fetch(topk, n):
+        return tuple(x.cpu().numpy()[:n] for x in topk)
+
+    @staticmethod
+    def _score(top1, top5, host_topk, verbs, labels):
+        pv5, pn5, gt1 = host_topk
         top1.add_point_indices(pv5[:, :1], verbs, pn5[:, :, :1], labels, gt1)
         top5.add_point_indices(pv5, verbs, pn5, labels)
 
@@ -1014,14 +1060,23 @@ class Trainer:
         accum = max(1, int(self.config.grad_accum))
         micros = 0
         inflight: deque = deque()
+        depth = pipeline_depth()
+        trace = os.environ.get("SRTPU_STEP_TRACE") == "1"
 
         def consume_one():
             nonlocal num_batches, sums
             losses, topk, verbs, labels, n = inflight.popleft()
+            t0 = time.perf_counter()
             sums += losses.cpu().numpy()
-            self._score(top1, top5, topk, verbs, labels, n)
-            if timer is not None:
-                timer.lap(n)
+            t1 = time.perf_counter()
+            host_topk = self._fetch(topk, n)
+            lap = timer.lap(n) if timer is not None else 0.0
+            if trace and num_batches < STEP_TRACE_BATCHES:
+                print(f"[trace] b{num_batches}: loss_block="
+                      f"{(t1 - t0) * 1e3:.0f}ms topk_fetch="
+                      f"{(time.perf_counter() - t1) * 1e3:.0f}ms "
+                      f"lap={lap * 1e3:.0f}ms", file=sys.stderr)
+            self._score(top1, top5, host_topk, verbs, labels)
             num_batches += 1
 
         def mid():
@@ -1043,7 +1098,7 @@ class Trainer:
             inflight.append((losses, topk, *_sidecars(batch, n), n))
             self.step_count += 1
             batch_idx += 1
-            while len(inflight) > PIPELINE_DEPTH:
+            while len(inflight) > depth:
                 consume_one()
             dispatched = num_batches + len(inflight)
             want_save = bool(save_every and save_callback
@@ -1079,12 +1134,13 @@ class Trainer:
         num_batches = 0
         images = 0
         inflight: deque = deque()
+        depth = pipeline_depth()
 
         def consume_one():
             nonlocal num_batches, sums, images
             losses, topk, verbs, labels, n = inflight.popleft()
             sums += losses.cpu().numpy()
-            self._score(top1, top5, topk, verbs, labels, n)
+            self._score(top1, top5, self._fetch(topk, n), verbs, labels)
             num_batches += 1
             images += n
 
@@ -1093,7 +1149,7 @@ class Trainer:
                 self._device_batches(loader):
             losses, topk = self.eval_step(imgs, verbs, labels, valid)
             inflight.append((losses, topk, *_sidecars(batch, n), n))
-            while len(inflight) > PIPELINE_DEPTH:
+            while len(inflight) > depth:
                 consume_one()
             if distributed.preempt_agreed(preempt,
                                           self._data_group is not None):
@@ -1269,10 +1325,14 @@ class Trainer:
             print('Epoch-{}, lr: {:.4f}'.format(e, epoch_lr))
             timer.reset()
             self._current_epoch = e
-            top1, top5, (vloss, nloss, gloss) = self.train_epoch(
-                train_loader, e, timer=timer, mid_state=mid_state,
-                save_every=save_every_steps,
-                save_callback=save_mid if save else None, preempt=preempt)
+            # SRTPU_PROFILE_DIR: the first epoch's training, as JAX traces
+            with profile_trace(os.environ.get("SRTPU_PROFILE_DIR")
+                               if e == epoch else None):
+                top1, top5, (vloss, nloss, gloss) = self.train_epoch(
+                    train_loader, e, timer=timer, mid_state=mid_state,
+                    save_every=save_every_steps,
+                    save_callback=save_mid if save else None,
+                    preempt=preempt)
             mid_state = None
             if timer.images_per_sec > 0:
                 print(f'[srtorch] epoch {e}: {timer.images_per_sec:.0f} '

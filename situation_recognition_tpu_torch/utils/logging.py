@@ -1,14 +1,16 @@
-"""The reference's metric formatting and step timing.
+"""The reference's metric formatting, step timing and the profiler hook.
 
 Port of ``situation_recognition_tpu/utils/logging.py``: ``format_dict``
-(the reference's stdout format) and ``StepTimer``.  The JAX profiler hook
-has its counterpart in ``torch.profiler`` and is not ported here.
+(the reference's stdout format), ``StepTimer`` and ``profile_trace``, the
+counterpart of ``jax_profile_trace`` on ``torch.profiler``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 
 def format_dict(d: Dict[str, float], s: str, p: str) -> str:
@@ -71,3 +73,27 @@ class StepTimer:
     def mean_step_time(self) -> float:
         n = self._steps - self.warmup_steps
         return self._time / n if n > 0 else 0.0
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: Optional[str]) -> Iterator[None]:
+    """A ``torch.profiler`` trace of the region into ``log_dir`` (``None``:
+    no-op): the host's operators and, with a card, its kernels and copies,
+    written on exit as a Chrome trace ``trace_<pid>_<ns>.json``
+    (``chrome://tracing``, Perfetto).  The JAX package's
+    ``jax_profile_trace``, which ``SRTPU_PROFILE_DIR`` turns on around
+    ``fit``'s first epoch of training."""
+    if log_dir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

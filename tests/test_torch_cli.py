@@ -4,7 +4,8 @@ the reference's transcripts line for line (``tests/golden/*.txt``, numbers
 masked: the weights are seeded differently); ``--evaluate_dev`` of a
 checkpoint exported from a JAX trainer prints the JAX trainer's metrics on
 those weights (equal, losses within 0.01); ``--grad_accum`` rounds the
-batch and steps once per group; every ResNet backbone evaluates; the flags
+batch and steps once per group; ``--cache_device`` budgets against the
+probed memory or ``SRTPU_HBM_BYTES``; every ResNet backbone evaluates; the flags
 of several processes are refused by name without a world; ``--platform auto``
 needs a card; and a SIGTERM drill in a subprocess exits 0 and resumes."""
 
@@ -299,6 +300,27 @@ def test_cache_device_budget_takes_the_splits_windows(
         assert got.split("=> evaluating")[1] == plain.split(
             "=> evaluating")[1]
     assert asked == [(window, False)] * 2
+
+
+def test_hbm_bytes_switch_decides_the_cache(workdir, monkeypatch, capsys):
+    """``SRTPU_HBM_BYTES`` (the JAX CLI's switch) replaces the probed free
+    memory that ``--cache_device`` budgets against: the same dev split is
+    cached at one value and streamed at one row's bytes less."""
+    from situation_recognition_tpu_torch import cli
+
+    monkeypatch.setattr(cli, "_working_reserve",
+                        lambda encoder, cfg, device, window, train: 1000)
+    argv = _argv(workdir, "hbm_switch", "--evaluate_dev", "--cache_device")
+    row = 256 * 256 * 3
+    for rows, streamed in ((5, False), (4, True)):
+        monkeypatch.setenv("SRTPU_HBM_BYTES", str(1000 + rows * row))
+        assert cli._device_free_bytes(torch.device("cpu")) == \
+            1000 + rows * row
+        _run(argv)
+        err = capsys.readouterr().err
+        assert ("dev split" in err and "streaming it" in err) == streamed
+    monkeypatch.delenv("SRTPU_HBM_BYTES")
+    assert cli._device_free_bytes(torch.device("cpu")) != 1000 + 4 * row
 
 
 def test_platform_auto_needs_a_card(workdir, monkeypatch):

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of it, and not chip_smoke.py, imports
-JAX or the JAX package; its entry points refuse to run without a card
+"""The port stands alone: no module of it (its tools included), and not
+chip_smoke.py or the port's scripts in ``tools/``, imports JAX or the JAX
+package; its entry points refuse to run without a card
 unless the CPU is asked for by name."""
 
 import ast
@@ -16,8 +17,15 @@ _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
               "situation_recognition_tpu")
 
 
+#: the port's scripts under the repository's ``tools/`` (the rest of that
+#: directory is the JAX package's)
+_PORT_TOOLS = ("ggnn_tile_sweep.py", "vit_gemm_variants.py",
+               "serving_program_profile.py")
+
+
 def _port_files():
     out = [os.path.join(_REPO, "chip_smoke.py")]
+    out += [os.path.join(_REPO, "tools", f) for f in _PORT_TOOLS]
     for root, _, files in os.walk(_PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -51,7 +59,12 @@ def test_importing_the_port_loads_no_jax():
         "metrics.scorer", "ops.ggnn", "ops.ggnn_kernel",
         "ops.ggnn_train", "ops._build", "ops.vit", "ops.vit_kernel",
         "ops.vit_train",
-        "models.resnet", "models.vit", "models.backbone", "models.fcggnn")]
+        "models.resnet", "models.vit", "models.backbone", "models.fcggnn",
+        "bench", "export_serving", "inference", "utils.msgpack",
+        "parallel.distributed", "parallel.mesh", "parallel.spmd",
+        "tools.common", "tools.profile_step", "tools.perf_guard",
+        "tools.bench_e2e", "tools.bench_input", "tools.bench_vit_block",
+        "tools.pack_dataset", "tools.convert_torch", "tools.export_torch")]
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "

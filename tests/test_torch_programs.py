@@ -155,8 +155,8 @@ def test_refusals(tmp_path):
     path = str(tmp_path / "never")
     with pytest.raises(ValueError, match="move the model to the card"):
         export_inference(model, path, platform="cuda")
-    with pytest.raises(NotImplementedError, match="bake_weights"):
-        export_inference(model, path, bake_weights=True)
+    with pytest.raises(ValueError, match="move the model to the card"):
+        export_inference(model, path, platform="cuda", bake_weights=True)
     with pytest.raises(ValueError, match="platform"):
         export_inference(model, path, platform="tpu")
     assert not os.path.exists(path)
@@ -332,10 +332,10 @@ def test_export_serving_from_a_jax_checkpoint(tmp_path, capsys):
                              "--dataset_folder", str(ds)])
         assert f"exported {out}" in capsys.readouterr().out
         fn = load_inference(out, device="cpu")
-        assert fn.meta["weights"] == w
+        assert fn.meta["weights"] == w and fn.meta["bake_weights"] is True
         np.testing.assert_allclose(fn(images)[0].numpy(), live, rtol=0,
                                    atol=tol)
-    for bad in (["--external"], ["--target", "cuda"]):
+    for bad in (["--target", "cuda"],):
         with pytest.raises(SystemExit):
             export_serving.main([str(tmp_path / "jax_ckpt"),
                                  str(tmp_path / "x"), "--platform", "cpu",
