@@ -137,7 +137,9 @@ Phases, each printing its seconds:
              (the attention backward) against its twin at the stream's
              shape (257-row stride) and at the 264-row stride with pad
              rows, timed beside its bound and the backward of SDPA on the
-             same (B, h, N, 64) tensors.
+             same (B, h, N, dh) tensors; and K7 and K8 on the same 1024
+             columns in 8, 4 and 2 heads (head widths 128, 256, 512), K5
+             in 8 (``VIT_WIDE_HEADS``).
 8. vit ft  — fine-tuning.  First the ft stack on the card: 2 blocks at
              ViT-L/14 width, batch 16, its gradients (K7 forward, K8
              backward, torch products) against autograd over the plain
@@ -156,6 +158,20 @@ Phases, each printing its seconds:
              microbatch), steady optimizer step and peak memory beside
              the step's; ``--cache_device``'s reserve, probed for the
              accumulating run, covers what that trainer took.
+8b. vit h8 — ViT-L/14's geometry (patch 14, width 1024, 224², the same
+             ``VIT_DEPTH`` blocks) in 8 heads of 128 (``VIT_H8_HEADS``, a
+             split the JAX kernels take; no named backbone has it, so the
+             phase swaps the heads into ``vit_l14``'s table entry for its
+             duration) + FCGGNN(1024), bf16, ``block_impl`` auto, weights
+             from ``--seed``, batch 256: ``SituationModel.serve`` through
+             the stream stack against the plain path on the same weights
+             (within ``LOGIT_TOL``, verb ids equal where decided), a frozen
+             ``Trainer`` step and a fine-tuning step (remat) after a warm
+             one each (finite losses, img/s, the step's ms and peak
+             memory), the ft stack at 8 heads against autograd over the
+             plain blocks, and the launches (K4, K7, K6 once a block a
+             served batch and frozen step; K7 twice and K8 once a block a
+             fine-tuning step).
 
 6b. dist   — multi-process data parallelism at the flagship width
              (ResNet-152 + FCGGNN, d=2048, bf16, batch 256).  (a) A NCCL
@@ -234,8 +250,9 @@ Then a ``kernels`` JSON line (the entries of K1–K3 and of the ViT kernels
 with the registers, spills and shared memory that ``-Xptxas -v``
 reported, and for the GEMMs of K1–K3 and K4/K6 the ``setmaxnreg`` split,
 the dynamic shared memory that the library states and the HGMMA count of
-each instantiation's SASS; a GEMM without HGMMA, or a K1–K3 kernel that
-spills, fails the run), the
+each instantiation's SASS; a GEMM without HGMMA, a K1–K3 kernel that
+spills, or an attention instantiation that runs heads of 128 and spills,
+fails the run), the
 card's ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero
 before that line is printed.
@@ -244,6 +261,7 @@ before that line is printed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -2339,6 +2357,11 @@ FT_X_REL, FT_W_REL, FT_BK_ABS = 0.03, 0.08, 1e-2
 FT_STACK_BATCH, FT_STACK_DEPTH = 16, 2
 # fine-tuning steps timed after a warm one
 VIT_FT_STEPS = 2
+# ViT-L/14's 1024 columns in wider heads, as the JAX kernels take them:
+# 8 heads of 128 (the h8 phase's model), 4 of 256 and 2 of 512; the kernel
+# phase times K7 and K8 at each
+VIT_WIDE_HEADS = (8, 4, 2)
+VIT_H8_HEADS = 8
 
 
 def _vit_counts() -> dict:
@@ -2364,14 +2387,39 @@ def _zero_vit_counts() -> None:
         w.launches = 0
 
 
+def _attention_instance(kern: str, mangled: str) -> tuple:
+    """An attention kernel's instantiation from its mangled name → (name,
+    the head width its dynamic shared memory is asked at, the head widths
+    it runs): ``attn_kernel<FOLDED, DH, G>`` (DH 0: the chunked form) and
+    ``dq_kernel`` / ``dkv_kernel<RESIDENT>``."""
+    if kern == "attn_kernel":
+        folded, dh, g = (int(x) for x in re.search(
+            r"attn_kernelILb(\d)ELi(\d+)ELi(\d+)E", mangled).groups())
+        flavour = "exp2" if folded else "softmax"
+        if dh:
+            return f"attn_kernel<{flavour},dh={dh}>", dh, [dh]
+        runs = "multiples of 128 above 128" if g == 128 else \
+            "odd multiples of 64 above 128"
+        return (f"attn_kernel<{flavour},chunked,G={g}>",
+                256 if g == 128 else 192, [runs])
+    resident = re.search(rf"{kern}ILb(\d)E", mangled).group(1) == "1"
+    if resident:
+        return f"{kern}<resident>", 64, [64]
+    return f"{kern}<chunked>", 128, ["multiples of 64 above 64"]
+
+
 def _attention_resources() -> dict:
     """Registers, spills and stack frame per thread and static shared
-    memory of the attention kernels as ``nvcc -Xptxas -v`` reported them,
-    with the dynamic shared memory a block takes: by source, by kernel."""
+    memory of the attention kernels' instantiations as ``nvcc -Xptxas -v``
+    reported them, with the dynamic shared memory a block takes and the
+    head widths each runs: by source, by instantiation.  Fails if an
+    instantiation that runs heads of 128 (``attn_kernel<*,dh=128>``, the
+    chunked ``dq_kernel`` and ``dkv_kernel``) spills."""
     from situation_recognition_tpu_torch.ops import _build
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
 
-    fwd = _build.load("vit_attention.cu")
-    bwd = _build.load("vit_attention_bwd.cu")
+    fwd = vk._lib("vit_attention.cu", "vit_attention_forward_smem")
+    bwd = vk._lib("vit_attention_bwd.cu", "vit_attention_backward_smem")
     out = {"vit_attention.cu": {}, "vit_attention_bwd.cu": {}}
     for src, kern in (("vit_attention.cu", "attn_kernel"),
                       ("vit_attention_bwd.cu", "dq_kernel"),
@@ -2381,15 +2429,17 @@ def _attention_resources() -> dict:
             raise SystemExit(f"no -Xptxas -v report of {kern} in the build "
                              f"log of {src}")
         for mangled, res in found.items():
-            if kern == "attn_kernel":   # attn_kernel<FOLDED>
-                name = ("attn_kernel<exp2>" if "ILb1E" in mangled
-                        else "attn_kernel<softmax>")
-                dynamic = fwd.vit_attention_forward_smem()
+            name, dh, runs = _attention_instance(kern, mangled)
+            if kern == "attn_kernel":
+                dynamic = fwd.vit_attention_forward_smem(dh)
             else:
-                name = kern
                 dynamic = bwd.vit_attention_backward_smem(
-                    int(kern == "dkv_kernel"))
-            out[src][name] = {**res, "dynamic_smem": dynamic}
+                    int(kern == "dkv_kernel"), dh)
+            out[src][name] = {**res, "dynamic_smem": dynamic,
+                              "head_widths": runs}
+            at_128 = "dh=128" in name or name.endswith("<chunked>")
+            if at_128 and (res["spill_stores"] or res["spill_loads"]):
+                raise SystemExit(f"{name} spills at heads of 128: {res}")
     _log("[vit] attention kernel resources " + json.dumps(out))
     return out
 
@@ -2630,7 +2680,7 @@ def _attention_row(kname: str, q, k, v, batch: int, n: int, stride: int,
     """The attention kernel through K5's wrapper (``stride == n``) or K7's
     against its twin in both softmax flavours (pad rows exactly zero),
     timed with CUDA events beside its bound and SDPA on the same real
-    rows as (B, h, N, 64) tensors."""
+    rows as (B, h, N, dh) tensors."""
     import torch
     import torch.nn.functional as F
 
@@ -2647,7 +2697,7 @@ def _attention_row(kname: str, q, k, v, batch: int, n: int, stride: int,
         def call(folded):
             return vk.vit_attention_stream_forward(q, k, v, heads, folded,
                                                    stride, n)
-    scale = 1.0 / 8.0
+    scale = (d // heads) ** -0.5
     rows = {}
     for flavour, folded in (("exp2", True), ("softmax", False)):
         want = tv.attn_core_reference(q, k, v, heads, scale, folded, stride,
@@ -2686,9 +2736,9 @@ def _attention_bwd_row(q, k, v, o, do, batch: int, n: int, stride: int,
                        heads: int) -> dict:
     """K8 against its twin (pad rows exactly zero), timed with CUDA events
     beside its bound and the backward alone of SDPA on the same real rows
-    as (B, h, N, 64) tensors.  The bound counts the five real-row inputs
+    as (B, h, N, dh) tensors.  The bound counts the five real-row inputs
     read once and the three gradients written once (pad rows included),
-    and five products of 2·N²·64 per head and example."""
+    and five products of 2·N²·dh per head and example."""
     import torch
     import torch.nn.functional as F
 
@@ -2696,7 +2746,8 @@ def _attention_bwd_row(q, k, v, o, do, batch: int, n: int, stride: int,
     from situation_recognition_tpu_torch.ops import vit_kernel as vk
 
     d = q.shape[1]
-    want = tv.attn_bwd_reference(q, k, v, o, do, heads, 1.0 / 8.0, stride, n)
+    scale = (d // heads) ** -0.5
+    want = tv.attn_bwd_reference(q, k, v, o, do, heads, scale, stride, n)
     got = vk.vit_attention_backward(q, k, v, o, do, heads, stride, n)
     torch.cuda.synchronize()
     errs = {name: _rel_errors(g, w)
@@ -2709,7 +2760,7 @@ def _attention_bwd_row(q, k, v, o, do, batch: int, n: int, stride: int,
     ms = _time_ms(lambda: vk.vit_attention_backward(q, k, v, o, do, heads,
                                                     stride, n), 10)
     plain_ms = _time_ms(lambda: tv.attn_bwd_reference(
-        q, k, v, o, do, heads, 1.0 / 8.0, stride, n), 3, 1)
+        q, k, v, o, do, heads, scale, stride, n), 3, 1)
     flops = 5 * 2 * batch * heads * n * n * (d // heads)
     nbytes = 5 * batch * n * d * 2 + 3 * batch * stride * d * 2
     q4, k4, v4, do4 = (t.reshape(batch, stride, heads, d // heads)[:, :n]
@@ -2795,6 +2846,18 @@ def phase_vit_kernel(enc, seed: int, batch: int) -> dict:
     out["K8"] = [_attention_bwd_row(q, k, v, ctx, do, batch, n, n, h)]
     out["K8"].append(_attention_bwd_row(
         *(padded(t) for t in (q, k, v, ctx, do)), batch, n, n8, h))
+    # the same 1024 columns in wider heads (``VIT_WIDE_HEADS``): K7 and K8
+    # at each, K5 at the h8 phase's 8 heads of 128; K8 on each split's own
+    # exp2 context
+    for wide in VIT_WIDE_HEADS:
+        out["K7"].append(_attention_row("K7", q, k, v, batch, n, n, wide))
+        if wide == VIT_H8_HEADS:
+            out["K5"].append(_attention_row("K5", q, k, v, batch, n, n,
+                                            wide))
+        ctx_w = vk.vit_attention_stream_forward(q, k, v, wide, True, n, n)
+        out["K8"].append(_attention_bwd_row(q, k, v, ctx_w, do, batch, n, n,
+                                            wide))
+        del ctx_w
     del q, k, v, do
     # ViT-L/14 at 336²: 577 tokens, ten key tiles per query tile
     xl = rnd(VIT_LONG_BATCH * VIT_LONG_N, d).to(torch.bfloat16).to(DEVICE)
@@ -3037,12 +3100,13 @@ def phase_vit_train(enc, seed: int, batch: int) -> dict:
     return result
 
 
-def phase_vit_ft_stack(seed: int) -> dict:
+def phase_vit_ft_stack(seed: int, heads: int = VIT_HEADS) -> dict:
     """The ft stack on the card: ``FT_STACK_DEPTH`` blocks at ViT-L/14
-    width (1024, 16 heads of 64, MLP 4096), batch ``FT_STACK_BATCH``, 257
-    tokens, bf16.  Its gradients with respect to x and each block's
-    parameters (K7 forward, K8 backward) against autograd over the plain
-    ``reference_block``s, under a squared loss of the CLS rows."""
+    width (1024 in ``heads`` heads: 16 of 64 by default, MLP 4096), batch
+    ``FT_STACK_BATCH``, 257 tokens, bf16.  Its gradients with respect to x
+    and each block's parameters (K7 forward, K8 backward) against autograd
+    over the plain ``reference_block``s, under a squared loss of the CLS
+    rows."""
     import torch
 
     from situation_recognition_tpu_torch.ops import vit as tv
@@ -3050,7 +3114,7 @@ def phase_vit_ft_stack(seed: int) -> dict:
     from situation_recognition_tpu_torch.ops.vit_train import ft_cls_stack
 
     gen = torch.Generator().manual_seed(seed + 13)
-    d, hid, h, n = VIT_D, 4 * VIT_D, VIT_HEADS, VIT_N
+    d, hid, h, n = VIT_D, 4 * VIT_D, heads, VIT_N
     bound = d ** -0.5
 
     def rnd(*shape, scale, base=0.0):
@@ -3202,6 +3266,158 @@ def phase_vit_ft(enc, seed: int, batch: int) -> dict:
     if eval_launches != per_eval:
         raise SystemExit(f"eval launches after fine-tuning {eval_launches},"
                          f" want {per_eval}")
+    return result
+
+
+@contextlib.contextmanager
+def _vit_l14_in_heads(heads: int):
+    """Within the block, ``vit_l14`` builds ViT-L/14's geometry (patch 14,
+    width 1024, 224², ``VIT_DEPTH`` blocks) in ``heads`` heads: the table
+    entry that the entry points (``SituationModel``, ``Trainer``) read, for
+    this process only, as ``_cut_vit_depth`` cuts the depth."""
+    from situation_recognition_tpu_torch.models import vit
+
+    cfg = vit.VIT_CONFIGS[VIT]
+    vit.VIT_CONFIGS[VIT] = cfg[:3] + (heads,) + cfg[4:]
+    try:
+        yield
+    finally:
+        vit.VIT_CONFIGS[VIT] = cfg
+
+
+def _h8_steps(trainer, batches, tag: str) -> dict:
+    """A warm train step, then one timed with its launches."""
+    import numpy as np
+    import torch
+
+    steps, losses = [], []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        _zero_vit_counts()
+        t0 = time.perf_counter()
+        _, _, step_losses = trainer.train_epoch([b], i)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "launches": _vit_counts()})
+        losses.append(list(step_losses))
+    if not np.isfinite(np.asarray(losses)).all():
+        raise SystemExit(f"non-finite {tag} losses at {VIT_H8_HEADS} heads")
+    return {"steps": steps, "losses": losses, "step_ms": steps[-1]["ms"],
+            "img_per_s": len(batches[-1]["verbs"]) / steps[-1]["ms"] * 1e3,
+            "launches": steps[-1]["launches"]}
+
+
+def phase_vit_h8(enc, seed: int, batch: int) -> dict:
+    """ViT-L/14's geometry in ``VIT_H8_HEADS`` heads of 128 (a split the
+    JAX package's kernels take) + FCGGNN(1024), bf16, ``block_impl``
+    auto, random weights from ``--seed``, through the entry points at
+    ``batch``: ``SituationModel.serve`` on the stream stack against the
+    same weights on the plain path (plain blocks, masked GGNN), a frozen
+    ``Trainer`` step and a fine-tuning step (``train_backbone``,
+    ``remat_backbone``), each after a warm one; the ft stack's gradients
+    at 8 heads against autograd over the plain blocks; the launches of
+    each (K4, K7, K6 once a block a served batch and frozen step; K7
+    twice and K8 once a block a fine-tuning step); img/s served and
+    trained, the fine-tuning step's ms and peak memory."""
+    import numpy as np
+    import torch
+
+    from situation_recognition_tpu_torch.serving import SituationModel
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+
+    h = VIT_H8_HEADS
+    result = {"heads": h, "head_width": VIT_D // h, "batch": batch}
+    with _vit_l14_in_heads(h):
+        t = time.perf_counter()
+        model = SituationModel(enc, backbone=VIT, hidden=VIT_D,
+                               image_size=VIT_IMAGE, dtype=torch.bfloat16,
+                               ggnn_impl="kernel")
+        gen = torch.Generator().manual_seed(seed + 21)
+        model.backbone.reset_parameters(gen)
+        model.head.reset_parameters(gen)
+        model = model.eval().to(DEVICE)
+        vit = model.backbone
+        if (vit.width, vit.depth, vit.heads, vit.n_tokens) != (
+                VIT_D, VIT_DEPTH, h, VIT_N) or \
+                vit.resolved_impl(DEVICE) != "kernel":
+            raise SystemExit(f"the {h}-head ViT-L/14 did not resolve to the "
+                             f"kernels: {vit.resolved_impl(DEVICE)}")
+        _phase("vit h8: model", t)
+        rng = np.random.default_rng(seed + 23)
+        big = torch.from_numpy(rng.integers(0, 256, (batch, 256, 256, 3),
+                                            dtype=np.uint8)).to(DEVICE)
+        with torch.inference_mode():
+            vit.block_impl, model.head.ggsnn.impl = "plain", "masked"
+            want = model.serve(big)
+            vit.block_impl, model.head.ggsnn.impl = "auto", "kernel"
+            model.serve(big)                               # warm-up
+            torch.cuda.synchronize()
+            _zero_vit_counts()
+            got = model.serve(big)
+            torch.cuda.synchronize()
+            launches = _vit_counts()
+            errs = _logit_errors(got, want)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                last = model.serve(big)
+            torch.cuda.synchronize()
+            per_batch = (time.perf_counter() - t0) / 3
+        if not all(torch.isfinite(x).all() for x in (last[0], last[2])):
+            raise SystemExit(f"non-finite logits at {h} heads")
+        result["serve"] = {"errors": errs, "launches": launches,
+                           "batch_ms": per_batch * 1e3,
+                           "img_per_s": batch / per_batch}
+        _log("[vit h8] serve " + json.dumps(result["serve"]))
+        del model, vit, big, want, got, last
+        torch.cuda.empty_cache()
+        if max(errs["verb"], errs["noun"]) > LOGIT_TOL or not \
+                errs["verb_ids_agree_where_decided"]:
+            raise SystemExit(f"the {h}-head stream disagrees with the plain "
+                             f"path")
+
+        t = time.perf_counter()
+        batches = _train_batches(enc, seed + 25, batch, 2)
+        frozen = Trainer(enc, TrainerConfig(
+            hidden=VIT_D, batch_size=batch, backbone=VIT,
+            image_size=VIT_IMAGE, compute_dtype=torch.bfloat16, seed=seed),
+            device=DEVICE)
+        if frozen.backbone.heads != h or \
+                frozen.backbone.resolved_impl(DEVICE) != "kernel":
+            raise SystemExit(f"the {h}-head frozen trainer did not resolve "
+                             f"to the kernels")
+        result["train"] = _h8_steps(frozen, batches, "frozen")
+        _log("[vit h8] train " + json.dumps(result["train"]))
+        del frozen
+        torch.cuda.empty_cache()
+        _phase("vit h8: frozen step", t)
+
+        t = time.perf_counter()
+        result["ft_stack"] = phase_vit_ft_stack(seed, heads=h)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ft = Trainer(enc, TrainerConfig(
+            hidden=VIT_D, batch_size=batch, backbone=VIT,
+            image_size=VIT_IMAGE, compute_dtype=torch.bfloat16, seed=seed,
+            train_backbone=True, remat_backbone=True), device=DEVICE)
+        if ft.backbone.heads != h or not ft.backbone.remat or \
+                ft.backbone.resolved_impl(DEVICE) != "kernel":
+            raise SystemExit(f"the {h}-head fine-tuning trainer did not "
+                             f"resolve to the kernels with remat")
+        result["ft"] = _h8_steps(ft, batches, "fine-tuning")
+        result["ft"]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        _log("[vit h8] ft " + json.dumps(result["ft"]))
+        del ft
+        torch.cuda.empty_cache()
+        _phase("vit h8: ft stack and fine-tuning step", t)
+
+    d = VIT_DEPTH
+    want = {"serve": {"K1": 2, "K4": d, "K5": 0, "K6": d, "K7": d, "K8": 0},
+            "train": {"K1": 1, "K4": d, "K5": 0, "K6": d, "K7": d, "K8": 0},
+            "ft": {"K1": 1, "K4": 0, "K5": 0, "K6": 0, "K7": 2 * d,
+                   "K8": d}}
+    got = {k: result[k]["launches"] for k in want}
+    if got != want:
+        raise SystemExit(f"{h}-head launches {got}, want {want}")
     return result
 
 
@@ -4643,6 +4859,10 @@ def main(argv=None) -> int:
     _phase("vit ft accum", t)
     torch.cuda.empty_cache()
     t = time.perf_counter()
+    vit_h8 = phase_vit_h8(enc, args.seed, BATCH)
+    _phase("vit h8", t)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
     export = phase_export(enc, args.seed, BATCH, smi)
     _phase("export", t)
     torch.cuda.empty_cache()
@@ -4657,7 +4877,10 @@ def main(argv=None) -> int:
         ("train", vit_train["steps"][-1]["launches"]),
         ("ft_train", vit_ft["steps"][-1]["launches"]),
         ("ft_eval", vit_ft["eval_launches"]),
-        ("ft_accum", vit_ft_accum["launches"]))}
+        ("ft_accum", vit_ft_accum["launches"]),
+        ("h8_serve", vit_h8["serve"]["launches"]),
+        ("h8_train", vit_h8["train"]["launches"]),
+        ("h8_ft", vit_h8["ft"]["launches"]))}
         for k in ("K1", "K4", "K5", "K6", "K7", "K8")}
     for k, by_path in vit_launches.items():
         if not sum(by_path.values()):
@@ -4728,6 +4951,7 @@ def main(argv=None) -> int:
         _kernel_line("vit_attention_bwd", "vit_attention_bwd.cu", 467,
                      vit_kernel["K8"], vit_launches["K8"],
                      replaces=vit_pallas, ft_stack=vit_ft_stack,
+                     ft_stack_h8=vit_h8["ft_stack"],
                      resources=res["vit_attention_bwd.cu"]),
     ]}), flush=True)
     print(smi, flush=True)

@@ -85,25 +85,15 @@ def vit_stream() -> bool:
     return os.environ.get("SRTPU_VIT_STREAM", "1") != "0"
 
 
-def _jax_kernels_take(width: int, heads: int) -> bool:
-    """The width part of the JAX package's kernel gate
-    (``fused_block_supported``): a multiple of 128 in heads whose width is
-    a multiple of 64.  Its other terms are the TPU's memory and a least
-    row count, which say nothing of this card."""
-    return (width % 128 == 0 and heads >= 1 and width % heads == 0
-            and (width // heads) % 64 == 0)
-
-
 def resolve_block_impl(impl: str, dtype: torch.dtype, device, width: int,
                        heads: int) -> str:
-    """'auto' → 'kernel' on cuda at bf16 where ``block_supported`` passes,
-    and 'plain' where the JAX package also runs without kernels: off the
-    card, at f32, or at a width its kernels do not take.  A width that
-    the JAX kernels take and these do not (heads wider than 64) raises
-    under 'auto' on the card rather than move to the plain path unseen.
-    'plain' passes through; 'kernel' passes through when the kernels take
-    the width and the type is bf16, and raises otherwise (on the CPU,
-    'kernel' runs the kernels' twins)."""
+    """'auto' → 'kernel' on cuda at bf16 where ``block_supported`` passes
+    (a width that is a multiple of 64 in heads whose width is a multiple
+    of 64: every width the JAX package's kernels take), and 'plain' where
+    the JAX package also runs without kernels: off the card, at f32, or at
+    a width its kernels do not take.  'plain' passes through; 'kernel'
+    passes through when the kernels take the width and the type is bf16,
+    and raises otherwise (on the CPU, 'kernel' runs the kernels' twins)."""
     if impl not in BLOCK_IMPLS:
         raise ValueError(f"block_impl must be auto|kernel|plain, got "
                          f"{impl!r}")
@@ -111,25 +101,18 @@ def resolve_block_impl(impl: str, dtype: torch.dtype, device, width: int,
         return impl
     bf16 = dtype == torch.bfloat16
     ok = bf16 and vit_kernel.block_supported(width, heads)
-    need = (f"they need bf16, heads of width {vit_kernel.HEAD_DIM} and a "
-            f"width that is a multiple of {vit_kernel.D_MULTIPLE}")
     if impl == "kernel":
         if not ok:
+            m = vit_kernel.D_MULTIPLE
             raise ValueError(
                 f"block_impl='kernel' forced but the ViT kernels cannot run "
                 f"this model: dtype={dtype}, width {width}, {heads} heads "
-                f"({need}); use block_impl='auto' or 'plain'")
+                f"(they need bf16 and a width that is a multiple of {m} in "
+                f"heads whose width is a multiple of {m}); use "
+                f"block_impl='auto' or 'plain'")
         return impl
-    if torch.device(device).type != "cuda" or not bf16:
-        return "plain"
-    if ok:
-        return "kernel"
-    if _jax_kernels_take(width, heads):
-        raise ValueError(
-            f"the JAX package runs width {width} in {heads} heads through "
-            f"its kernels, but the port's kernels cannot ({need}); pass "
-            f"block_impl='plain' to run it without kernels")
-    return "plain"
+    return ("kernel" if ok and torch.device(device).type == "cuda"
+            else "plain")
 
 
 class SelfAttention(nn.Module):

@@ -58,9 +58,8 @@ from situation_recognition_tpu_torch.ops.vit import (
     BlockWeights, LOG2E, attn_bwd_reference, attn_core_reference,
     out_mlp_reference, qkv_reference)
 
-#: the attention kernel's head width
-HEAD_DIM = 64
-#: the GEMMs take any width that is a multiple of this
+#: the GEMMs take any width that is a multiple of this, and the attention
+#: kernels any head width that is (the JAX kernels' rule)
 D_MULTIPLE = 64
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -69,6 +68,9 @@ _SIGNATURES = {
     "vit_out_mlp_forward": [_P] * 14 + [_I, _I, _I, _F, _I, _P],
     "vit_attention_forward": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P],
     "vit_attention_backward": [_P] * 9 + [_I] * 5 + [_F, _P],
+    # dynamic shared memory a block takes at a head width
+    "vit_attention_forward_smem": [_I],
+    "vit_attention_backward_smem": [_I, _I],
     # one GEMM of K4/K6 alone (``chip_smoke.py`` times each product)
     "vit_block_gemm": [_I] + [_P] * 5 + [_I] * 3 + [_P],
     "vit_block_gemm_smem": [_I, _I],
@@ -76,12 +78,18 @@ _SIGNATURES = {
 }
 
 
+def head_width_ok(d: int, heads: int) -> bool:
+    """True when ``heads`` heads split the width d into heads whose
+    width is a multiple of 64: the attention kernels' rule, and the JAX
+    kernels' (``fused_block_supported``)."""
+    return heads >= 1 and d % heads == 0 and (d // heads) % D_MULTIPLE == 0
+
+
 def block_supported(d: int, heads: int) -> bool:
     """True when the kernels take this encoder width: a multiple of 64,
-    in heads of width 64.  Any token count runs: the attention kernel
-    loops over tiles of 64 keys."""
-    return (d >= D_MULTIPLE and d % D_MULTIPLE == 0 and heads >= 1
-            and d == heads * HEAD_DIM)
+    in heads whose width is a multiple of 64.  Any token count runs: the
+    attention kernels loop over tiles of 64 keys."""
+    return d >= D_MULTIPLE and head_width_ok(d, heads)
 
 
 def kernel_weights(w: BlockWeights) -> BlockWeights:
@@ -198,21 +206,23 @@ vit_qkv_forward.launches = 0
 def _attention_rows(q, heads: int, row_stride: int, n_valid: int,
                     tensors: dict) -> tuple:
     """Checks of the attention kernels' arguments → (rows, width,
-    examples): (B·row_stride, D) bf16 CUDA tensors in heads of 64, whole
-    examples, ``1 <= n_valid <= row_stride``."""
+    examples): (B·row_stride, D) bf16 CUDA tensors in heads whose width
+    is a multiple of 64, whole examples, ``1 <= n_valid <= row_stride``."""
     if q.device.type != "cuda":
         raise ValueError(f"no ViT kernel for device {q.device}")
     m, d = _rows(q)
-    if d != heads * HEAD_DIM:
-        raise ValueError(f"the attention kernel takes heads of width "
-                         f"{HEAD_DIM}, got d={d} over {heads} heads")
+    if not head_width_ok(d, heads):
+        raise ValueError(f"the attention kernels take heads whose width is "
+                         f"a multiple of {D_MULTIPLE}, got d={d} over "
+                         f"{heads} heads")
     if m % row_stride or not 1 <= n_valid <= row_stride:
         raise ValueError(f"{m} rows are not whole examples of {row_stride} "
                          f"rows with {n_valid} real")
     b = m // row_stride
-    if b > 65535 or heads > 65535:
-        raise ValueError(f"at most 65535 examples and heads, got {b}, "
-                         f"{heads}")
+    # the grid's second axis: a block per head or per 64-column group
+    if b > 65535 or d // D_MULTIPLE > 65535:
+        raise ValueError(f"at most 65535 examples and 65535 groups of "
+                         f"{D_MULTIPLE} columns, got {b}, {d // D_MULTIPLE}")
     _check_tensors(q.device, {name: (t, (m, d), torch.bfloat16)
                               for name, t in tensors.items()})
     return m, d, b

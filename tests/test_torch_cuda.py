@@ -512,25 +512,45 @@ def test_vit_qkv_kernel_tile_edges(cuda_device, m, d):
     _check_qkv(cuda_device, m, d)
 
 
-@pytest.mark.parametrize("b,n,stride,heads,folded", [
-    (3, 257, 264, 2, True), (3, 257, 257, 2, False), (2, 50, 56, 1, True),
-    (2, 17, 17, 3, False), (2, 129, 136, 16, False),
+# the head widths of the attention kernels' forms: 64 and 128 (resident),
+# 192 (chunked, 64-column groups), 256 and 512 (chunked, 128-column groups
+# and 64-column reduction chunks)
+HEAD_WIDTHS = (64, 128, 192, 256, 512)
+WIDE_HEAD_WIDTHS = HEAD_WIDTHS[1:]
+
+
+@pytest.mark.parametrize("b,n,stride,heads,dh,folded", [
+    (3, 257, 264, 2, 64, True), (3, 257, 257, 2, 64, False),
+    (2, 50, 56, 1, 64, True), (2, 17, 17, 3, 64, False),
+    (2, 129, 136, 16, 64, False),
     # ViT-L/14 at 336² and a longer sequence: many key tiles
-    (2, 577, 577, 2, True), (2, 577, 584, 1, False), (1, 1025, 1025, 1, True),
+    (2, 577, 577, 2, 64, True), (2, 577, 584, 1, 64, False),
+    (1, 1025, 1025, 1, 64, True),
     # the tile boundaries of the 64-query tiles, 64-key tiles and 16-row
     # warps, through K5 (stride N) and K7 with pad rows, both flavours
-    *[(2, n, n + pad, 2, folded) for n in (1, 63, 64, 65, 128)
+    *[(2, n, n + pad, 2, 64, folded) for n in (1, 63, 64, 65, 128)
+      for folded, pad in ((True, 0), (False, 7))],
+    # the wider heads: ViT-L/14's 257 tokens in 1024 columns (8 heads of
+    # 128, 4 of 256, 2 of 512) with and without pad rows, and 192 in 3
+    # heads; 577 tokens at 128; the tile boundaries at each width
+    *[(2, 257, 257 + pad, 1024 // dh, dh, folded)
+      for dh in (128, 256, 512) for folded, pad in ((True, 7), (False, 0))],
+    (2, 257, 264, 3, 192, True), (2, 257, 257, 3, 192, False),
+    (2, 577, 577, 2, 128, True), (2, 577, 584, 2, 128, False),
+    *[(2, n, n + pad, 2, dh, folded) for dh in WIDE_HEAD_WIDTHS
+      for n in (1, 63, 64, 65, 128)
       for folded, pad in ((True, 0), (False, 7))]])
 def test_vit_attention_kernel_matches_twin(cuda_device, b, n, stride, heads,
-                                           folded):
+                                           dh, folded):
     from situation_recognition_tpu_torch.ops import vit as tv
     from situation_recognition_tpu_torch.ops import vit_kernel as vk
 
-    g = torch.Generator().manual_seed(b * n + heads)
-    d = 64 * heads
+    g = torch.Generator().manual_seed(b * n + heads + dh)
+    d = dh * heads
     q, k, v = (torch.randn(b * stride, d, generator=g).to(torch.bfloat16)
                .to(cuda_device) for _ in range(3))
-    want = tv.attn_core_reference(q, k, v, heads, 0.125, folded, stride, n)
+    want = tv.attn_core_reference(q, k, v, heads, dh ** -0.5, folded, stride,
+                                  n)
     if stride == n:
         before = vk.vit_attention_forward.launches
         got = vk.vit_attention_forward(
@@ -637,9 +657,15 @@ def test_vit_kernels_reject_unsupported_shapes(cuda_device):
     q = torch.zeros(2 * 50, 96, dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(ValueError, match="multiple of 64"):
         vk.vit_attention_stream_forward(q, q, q, 3, True, 50, 50)
+    rule = "heads whose width is a multiple of 64"
     q = torch.zeros(2 * 64, 128, dtype=torch.bfloat16, device=cuda_device)
-    with pytest.raises(ValueError, match="heads of width 64"):
+    with pytest.raises(ValueError, match=rule):
         vk.vit_attention_stream_forward(q, q, q, 4, True, 64, 64)
+    q = torch.zeros(2 * 64, 192, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match=rule):      # heads of 96
+        vk.vit_attention_stream_forward(q, q, q, 2, True, 64, 64)
+    with pytest.raises(ValueError, match=rule):
+        vk.vit_attention_backward(q, q, q, q, q, 2, 64, 64)
     q = torch.zeros(577, 64, dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(ValueError, match="whole examples"):
         vk.vit_attention_stream_forward(q, q, q, 1, True, 100, 50)
@@ -657,22 +683,29 @@ BWD_MAX_REL = 2 ** -5
 BWD_MEAN_REL = 2 ** -10
 
 
-@pytest.mark.parametrize("b,n,stride,heads", [
-    (2, 257, 257, 16), (2, 257, 264, 16), (3, 50, 56, 2), (2, 13, 16, 1),
-    (1, 577, 577, 2)])
+@pytest.mark.parametrize("b,n,stride,heads,dh", [
+    (2, 257, 257, 16, 64), (2, 257, 264, 16, 64), (3, 50, 56, 2, 64),
+    (2, 13, 16, 1, 64), (1, 577, 577, 2, 64),
+    # ViT-L/14's 1024 columns in 8 heads of 128, 4 of 256 and 2 of 512,
+    # with and without pad rows; 192 in 3 heads; 577 tokens at 128
+    *[(2, 257, stride, 1024 // dh, dh) for dh in (128, 256, 512)
+      for stride in (257, 264)],
+    (2, 257, 264, 3, 192), (3, 50, 56, 2, 192), (1, 577, 577, 2, 128)])
 def test_vit_attention_backward_kernel_matches_twin(cuda_device, b, n,
-                                                    stride, heads):
-    """K8 at the ViT-L/14 head shape (16 heads, 257 tokens), with pad rows
-    (stride 264), small and ragged tiles, and many key tiles."""
+                                                    stride, heads, dh):
+    """K8 at the ViT-L/14 head shape (16 heads, 257 tokens) and its wider
+    splits, with pad rows (stride 264), small and ragged tiles, and many
+    key tiles."""
     from situation_recognition_tpu_torch.ops import vit as tv
     from situation_recognition_tpu_torch.ops import vit_kernel as vk
 
-    g = torch.Generator().manual_seed(b * n + stride)
-    d = 64 * heads
+    g = torch.Generator().manual_seed(b * n + stride + dh)
+    d = dh * heads
     q, k, v, do = (torch.randn(b * stride, d, generator=g).to(torch.bfloat16)
                    .to(cuda_device) for _ in range(4))
     o = vk.vit_attention_stream_forward(q, k, v, heads, True, stride, n)
-    want = tv.attn_bwd_reference(q, k, v, o, do, heads, 0.125, stride, n)
+    want = tv.attn_bwd_reference(q, k, v, o, do, heads, dh ** -0.5, stride,
+                                 n)
     before = vk.vit_attention_backward.launches
     got = vk.vit_attention_backward(q, k, v, o, do, heads, stride, n)
     torch.cuda.synchronize()
@@ -685,24 +718,27 @@ def test_vit_attention_backward_kernel_matches_twin(cuda_device, b, n,
         assert (a.reshape(b, stride, d)[:, n:] == 0).all(), name
 
 
+@pytest.mark.parametrize("dh", HEAD_WIDTHS)
 @pytest.mark.parametrize("n", [1, 63, 64, 65, 128])
 @pytest.mark.parametrize("folded", [True, False])
-def test_vit_attention_backward_tile_boundaries(cuda_device, n, folded):
+def test_vit_attention_backward_tile_boundaries(cuda_device, n, folded, dh):
     """K8 at the tile boundaries (64-row tiles, 16-row warps), with pad
-    rows, on the context of either forward flavour.  Errors are measured
-    against the largest element of the three gradients: at N = 1 the one
-    key's softmax is 1, so dq and dk are zero in exact arithmetic and both
-    sides hold only rounding noise (dv is do there)."""
+    rows, on the context of either forward flavour, at each head width.
+    Errors are measured against the largest element of the three
+    gradients: at N = 1 the one key's softmax is 1, so dq and dk are zero
+    in exact arithmetic and both sides hold only rounding noise (dv is do
+    there)."""
     from situation_recognition_tpu_torch.ops import vit as tv
     from situation_recognition_tpu_torch.ops import vit_kernel as vk
 
     b, heads, stride = 2, 2, n + 5
-    g = torch.Generator().manual_seed(31 * n + folded)
-    d = 64 * heads
+    g = torch.Generator().manual_seed(31 * n + folded + dh)
+    d = dh * heads
     q, k, v, do = (torch.randn(b * stride, d, generator=g).to(torch.bfloat16)
                    .to(cuda_device) for _ in range(4))
     o = vk.vit_attention_stream_forward(q, k, v, heads, folded, stride, n)
-    want = tv.attn_bwd_reference(q, k, v, o, do, heads, 0.125, stride, n)
+    want = tv.attn_bwd_reference(q, k, v, o, do, heads, dh ** -0.5, stride,
+                                 n)
     got = vk.vit_attention_backward(q, k, v, o, do, heads, stride, n)
     torch.cuda.synchronize()
     scale = max(w.float().abs().max().item() for w in want)
@@ -713,14 +749,16 @@ def test_vit_attention_backward_tile_boundaries(cuda_device, n, folded):
         assert (a.reshape(b, stride, d)[:, n:] == 0).all(), name
 
 
-def test_vit_attention_kernels_are_deterministic(cuda_device):
+@pytest.mark.parametrize("heads", [16, 8, 2])
+def test_vit_attention_kernels_are_deterministic(cuda_device, heads):
     """Two launches on the same inputs give bit-equal outputs, forward (both
-    flavours) and backward, at the ViT-L/14 head shape (16 heads, 257
-    tokens): no atomics, a fixed order of sums."""
+    flavours) and backward, at the ViT-L/14 width (1024 columns, 257
+    tokens) in heads of 64, 128 and 512: no atomics, a fixed order of
+    sums."""
     from situation_recognition_tpu_torch.ops import vit_kernel as vk
 
-    b, n, heads = 2, 257, 16
-    d = 64 * heads
+    b, n = 2, 257
+    d = 1024
     g = torch.Generator().manual_seed(5)
     q, k, v, do = (torch.randn(b * n, d, generator=g).to(torch.bfloat16)
                    .to(cuda_device) for _ in range(4))
@@ -1148,6 +1186,34 @@ def test_custom_ops_match_their_twins(cuda_device):
                           (q, k, v, heads, True, n, n, True))
     torch.library.opcheck(torch.ops.srtorch.vit_out_mlp,
                           (x, ctx, *w[4:], 1e-6, False))
+
+
+def test_vit_attention_op_at_heads_of_128(cuda_device):
+    """The attention op at ViT-L/14's 1024 columns in 8 heads of 128 on the
+    card: K5 and K7 against the twin (VIT_MAX_REL / VIT_MEAN_REL), each
+    launch counted under its wrapper, and ``opcheck`` (the fake's shape
+    and type against the kernel's)."""
+    from situation_recognition_tpu_torch.ops import vit as tv
+    from situation_recognition_tpu_torch.ops import vit_kernel as vk
+
+    d, heads, n, b = 1024, 8, 257, 2
+    g = torch.Generator().manual_seed(17)
+    q, k, v = (torch.randn(b * n, d, generator=g).to(torch.bfloat16)
+               .to(cuda_device) for _ in range(3))
+    counts = (vk.vit_attention_forward.launches,
+              vk.vit_attention_stream_forward.launches)
+    want = tv.attn_core_reference(q, k, v, heads, (d // heads) ** -0.5,
+                                  True, n, n)
+    for stream in (False, True):
+        ctx = torch.ops.srtorch.vit_attention(q, k, v, heads, True, n, n,
+                                              stream)
+        _assert_close_rel(ctx, want)
+    torch.cuda.synchronize()
+    assert (vk.vit_attention_forward.launches,
+            vk.vit_attention_stream_forward.launches) == tuple(
+                c + 1 for c in counts)
+    torch.library.opcheck(torch.ops.srtorch.vit_attention,
+                          (q, k, v, heads, True, n, n, True))
 
 
 @pytest.mark.parametrize("backbone,hidden,size", [("mini", 128, 224),

@@ -20,7 +20,7 @@ _FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
 #: the port's scripts under the repository's ``tools/`` (the rest of that
 #: directory is the JAX package's)
 _PORT_TOOLS = ("ggnn_tile_sweep.py", "vit_gemm_variants.py",
-               "serving_program_profile.py")
+               "serving_program_profile.py", "vit_attention_variants.py")
 
 
 def _port_files():

@@ -249,6 +249,27 @@ def test_custom_ops_pass_opcheck_on_the_cpu():
                           (x, ctx, *w[4:], 1e-6, False))
 
 
+def test_vit_attention_op_passes_opcheck_at_heads_of_128():
+    """The attention op at ViT-L/14's 1024 columns in 8 heads of 128 (and
+    its stream form with pad rows): its fake implementation gives the
+    real one's shape and type, and on CPU tensors it runs the twin."""
+    from situation_recognition_tpu_torch.ops import vit as tv
+
+    g = torch.Generator().manual_seed(1)
+    d, heads, n, stride = 1024, 8, 5, 8
+    q, k, v = (torch.randn(2 * stride, d, generator=g).bfloat16()
+               for _ in range(3))
+    for stream, rows in ((True, stride), (False, n)):
+        args = (q[:2 * rows], k[:2 * rows], v[:2 * rows])
+        torch.library.opcheck(torch.ops.srtorch.vit_attention,
+                              (*args, heads, True, rows, n, stream))
+        got = torch.ops.srtorch.vit_attention(*args, heads, True, rows, n,
+                                              stream)
+        assert got.shape == (2 * rows, d)
+        assert torch.equal(got, tv.attn_core_reference(
+            *args, heads, (d // heads) ** -0.5, True, rows, n))
+
+
 def test_k1_program_takes_the_folded_operands_as_arguments(monkeypatch):
     """A program traced through K1 (the kernel path resolved on the CPU,
     where the op runs the twin) calls the op on placeholders: the fold is

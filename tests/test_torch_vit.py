@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from situation_recognition_tpu.models.vit import ViT as JaxViT
+from situation_recognition_tpu.ops import vit_pallas as jv
 from situation_recognition_tpu.utils.torch_convert import convert_vit
 from situation_recognition_tpu_torch import convert
 from situation_recognition_tpu_torch.models.backbone import build_backbone
@@ -93,23 +94,21 @@ def test_clip_state_dict_round_trips():
         np.testing.assert_array_equal(leaf, want[path], err_msg=str(path))
 
 
-@pytest.mark.parametrize("stream", ["1", "0"], ids=["stream", "per_block"])
-def test_kernel_path_matches_jax_pallas_path(stream, monkeypatch):
+def _kernel_path_case(width, heads, stream, monkeypatch, seed):
     """The kernel path at bf16 (the kernels' twins on the CPU) against the
-    JAX ViT's Pallas path in interpret mode, the stream stack and the
-    per-block kernels: width 128 (2 heads of 64), 257 tokens (patch 8 on
-    128²) as ViT-L/14 has, 4 images (1028 token rows, above the JAX gate's
-    1024).  Both keep the stream in bf16 between blocks; the bound is the
-    encoder paths' of tests/test_torch_vit_ops.py, on the final-LN
-    features."""
+    JAX ViT's Pallas path in interpret mode over two blocks, 257 tokens
+    (patch 8 on 128²) as ViT-L/14 has, 4 images (1028 token rows, above
+    the JAX gate's 1024).  Both keep the stream in bf16 between blocks;
+    the bound is the encoder paths' of tests/test_torch_vit_ops.py, on the
+    final-LN features."""
     monkeypatch.setenv("SRTPU_VIT_STREAM", stream)
-    jm = JaxViT(patch=8, width=128, depth=2, heads=2, dtype=jnp.bfloat16,
-                block_impl="pallas", interpret=True)
-    params = _jax_params(jm, 128, seed=6)
-    x = _images(4, 128, 7)
+    jm = JaxViT(patch=8, width=width, depth=2, heads=heads,
+                dtype=jnp.bfloat16, block_impl="pallas", interpret=True)
+    params = _jax_params(jm, 128, seed=seed)
+    x = _images(4, 128, seed + 1)
     want = np.asarray(jm.apply({"params": params}, jnp.asarray(x))
                       .astype(jnp.float32))
-    port = _port(params, 8, 128, 2, 2, 128, dtype=torch.bfloat16,
+    port = _port(params, 8, width, 2, heads, 128, dtype=torch.bfloat16,
                  block_impl="kernel")
     counts = (vk.vit_attention_stream_forward.launches,
               vk.vit_attention_forward.launches)
@@ -126,11 +125,27 @@ def test_kernel_path_matches_jax_pallas_path(stream, monkeypatch):
     assert diff.mean() <= 2 ** -9 * scale, (diff.mean(), scale)
 
 
+@pytest.mark.parametrize("stream", ["1", "0"], ids=["stream", "per_block"])
+def test_kernel_path_matches_jax_pallas_path(stream, monkeypatch):
+    """``_kernel_path_case`` through the stream stack and the per-block
+    kernels at width 128 (2 heads of 64)."""
+    _kernel_path_case(128, 2, stream, monkeypatch, seed=6)
+
+
+@pytest.mark.parametrize("stream", ["1", "0"], ids=["stream", "per_block"])
+def test_kernel_path_matches_jax_pallas_path_heads_of_128(stream,
+                                                          monkeypatch):
+    """``_kernel_path_case`` at width 256 in 2 heads of 128, a head width
+    the JAX kernels take (scale 1/sqrt(128)), with the same bounds."""
+    _kernel_path_case(256, 2, stream, monkeypatch, seed=16)
+
+
 def test_resolve_block_impl():
     """'auto' takes the kernels on the card at bf16 for every ViT of the
-    repo; it runs plain only where the JAX package also runs without its
-    kernels, and raises for a width that the JAX kernels take and the
-    port's do not."""
+    repo and for heads wider than 64 (128, 256); it runs plain only where
+    the JAX package also runs without its kernels, and never raises.  A
+    forced 'kernel' raises where the kernels cannot run, naming the head
+    width rule."""
     bf, f32 = torch.bfloat16, torch.float32
     ok = (1024, 16)
     assert resolve_block_impl("auto", bf, "cuda", *ok) == "kernel"
@@ -138,17 +153,41 @@ def test_resolve_block_impl():
     assert resolve_block_impl("auto", bf, "cpu", *ok) == "plain"
     assert resolve_block_impl("auto", f32, "cuda", *ok) == "plain"
     assert resolve_block_impl("auto", bf, "cuda", 64, 2) == "plain"
-    with pytest.raises(ValueError, match="block_impl='plain'"):
-        resolve_block_impl("auto", bf, "cuda", 1024, 8)      # heads of 128
+    assert resolve_block_impl("auto", bf, "cuda", 1024, 8) == "kernel"
+    assert resolve_block_impl("auto", bf, "cuda", 1024, 4) == "kernel"
     assert resolve_block_impl("auto", bf, "cpu", 1024, 8) == "plain"
     assert resolve_block_impl("plain", bf, "cuda", 1024, 8) == "plain"
     assert resolve_block_impl("plain", bf, "cuda", *ok) == "plain"
     assert resolve_block_impl("kernel", bf, "cpu", *ok) == "kernel"
-    for bad in ((f32, 1024, 16), (bf, 64, 2), (bf, 768, 16), (bf, 1024, 8)):
+    assert resolve_block_impl("kernel", bf, "cuda", 1024, 8) == "kernel"
+    for bad in ((f32, 1024, 16), (bf, 64, 2), (bf, 768, 16), (bf, 192, 2)):
         with pytest.raises(ValueError, match="forced"):
             resolve_block_impl("kernel", bad[0], "cuda", *bad[1:])
+    with pytest.raises(ValueError,
+                       match="heads whose width is a multiple of 64"):
+        resolve_block_impl("kernel", bf, "cuda", 192, 2)    # heads of 96
     with pytest.raises(ValueError, match="auto\\|kernel\\|plain"):
         resolve_block_impl("pallas", bf, "cuda", *ok)
+
+
+@pytest.mark.parametrize("width", [128, 256, 384, 768, 1024, 1280])
+def test_auto_takes_every_width_the_jax_kernels_take(width):
+    """Over every head count of a width: where the JAX package's kernel
+    gate (``fused_block_supported`` at ViT-L/14's 257 tokens, batch 256)
+    takes the model, 'auto' on the card at bf16 resolves to the kernels;
+    it resolves to them exactly where the gate's width terms pass (heads
+    whose width is a multiple of 64), and to 'plain' elsewhere."""
+    taken = 0
+    for heads in range(1, width + 1):
+        terms = width % heads == 0 and (width // heads) % 64 == 0
+        got = resolve_block_impl("auto", torch.bfloat16, "cuda", width,
+                                 heads)
+        assert got == ("kernel" if terms else "plain"), (width, heads)
+        if jv.fused_block_supported(width, heads, 257, 256):
+            assert terms, (width, heads)
+            taken += 1
+    assert taken == sum(1 for h in range(1, width + 1)
+                        if width % h == 0 and (width // h) % 64 == 0)
 
 
 def test_path_selection(monkeypatch):

@@ -12,7 +12,7 @@ Tolerances:
   (a last-bit flip of a bf16 ds or e element), pad rows exactly zero;
 * ``DiffAttention`` against ``_make_diff_attn``: the same twins' casts
   of the same inputs (bit-equal at this shape), so the context and the
-  gradients are held to the K8 twin's 2^-8;
+  gradients are held to the K8 twin's 2^-8, at heads of 64 and of 128;
 * the ft stack against the JAX ft stream over two blocks and a squared
   loss: the bounds of ``tests/test_vit_pallas.py``'s ft test — x within
   0.03 and every weight within 0.08 of its largest element, and the key
@@ -91,26 +91,60 @@ def test_attn_bwd_twin_matches_pallas_kernel(b, stride, n_valid):
         assert (_np(w).reshape(b, stride, D)[:, n_valid:] == 0).all(), name
 
 
-@pytest.mark.parametrize("folded", [True, False])
-def test_diff_attention_grads_match_jax(folded):
+def _diff_attention_case(d, heads, folded):
     """``DiffAttention`` (the K7 and K8 twins) against ``jax.grad`` through
     ``_make_diff_attn(interpret=True)`` with a squared loss, at stride 16
     with 13 real rows (the pad rows' gradients exactly zero)."""
     b, stride, nv = 2, 16, 13
-    qkv = [_bf16((b * stride, D), 50 + i) for i in range(3)]
-    attn = jv._make_diff_attn(HEADS, SCALE, stride, nv, folded, True)
+    scale = 1.0 / math.sqrt(d // heads)
+    qkv = [_bf16((b * stride, d), 50 + i) for i in range(3)]
+    attn = jv._make_diff_attn(heads, scale, stride, nv, folded, True)
     o_j = attn(*[j for j, _ in qkv])
     g_j = jax.grad(lambda q, k, v: jnp.sum(
         attn(q, k, v).astype(jnp.float32) ** 2), argnums=(0, 1, 2))(
         *[j for j, _ in qkv])
     leaves = [t.clone().requires_grad_() for _, t in qkv]
-    o_t = tt.DiffAttention.apply(*leaves, HEADS, folded, stride, nv)
+    o_t = tt.DiffAttention.apply(*leaves, heads, folded, stride, nv)
     (o_t.float() ** 2).sum().backward()
     assert _rel(o_t, o_j) <= 2 ** -8
     for name, leaf, want in zip("qkv", leaves, g_j):
         assert leaf.grad.dtype == torch.bfloat16
         assert _rel(leaf.grad, want) <= 2 ** -8, name
-        assert (leaf.grad.reshape(b, stride, D)[:, nv:] == 0).all(), name
+        assert (leaf.grad.reshape(b, stride, d)[:, nv:] == 0).all(), name
+
+
+@pytest.mark.parametrize("folded", [True, False])
+def test_diff_attention_grads_match_jax(folded):
+    """``_diff_attention_case`` at width 128 in 2 heads of 64."""
+    _diff_attention_case(D, HEADS, folded)
+
+
+@pytest.mark.parametrize("folded", [True, False])
+def test_diff_attention_grads_match_jax_heads_of_128(folded):
+    """``_diff_attention_case`` at width 256 in 2 heads of 128 (scale
+    1/sqrt(128)), a head width the JAX kernels take; the same 2^-8."""
+    _diff_attention_case(256, 2, folded)
+
+
+def test_attn_bwd_twin_matches_pallas_kernel_heads_of_128():
+    """K8's twin and the port's wrapper (the twin on the CPU) against
+    ``_attn_bwd_stream_kernel`` at width 256 in 2 heads of 128, 129 real
+    rows of a 136-row stride; the same 2^-8, pad rows exactly zero."""
+    b, stride, n_valid, d, heads = 2, 136, 129, 256, 2
+    scale = 1.0 / math.sqrt(d // heads)
+    ins = [_bf16((b * stride, d), 70 + i) for i in range(5)]
+    spec = pl.BlockSpec((stride, d), lambda i: (i, 0))
+    want = pl.pallas_call(
+        functools.partial(jv._attn_bwd_stream_kernel, heads=heads,
+                          scale=scale, n_valid=n_valid),
+        grid=(b,), in_specs=[spec] * 5, out_specs=[spec] * 3,
+        out_shape=[jax.ShapeDtypeStruct((b * stride, d), jnp.bfloat16)] * 3,
+        interpret=True)(*[j for j, _ in ins])
+    got = vk.vit_attention_backward(*[t for _, t in ins], heads, stride,
+                                    n_valid)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _rel(g, w) <= 2 ** -8, name
+        assert (g.reshape(b, stride, d)[:, n_valid:] == 0).all(), name
 
 
 def _block_params(seed):

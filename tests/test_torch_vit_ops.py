@@ -2,7 +2,8 @@
 paths (``ops/vit_kernel.py``, which run the twins on the CPU) against the
 JAX package's Pallas kernels in interpret mode, on the same numpy-seeded
 inputs, at ``tests/test_vit_pallas.py``'s smallest supported shape (width
-128, 2 heads of 64, more than 1024 token rows).
+128, 2 heads of 64, more than 1024 token rows); the attention cores also
+at heads of 128 (width 256 in 2 heads, 128 in 1).
 
 Tolerances: the twins and the interpret-mode kernels multiply the same
 bf16 operands in f32 and sum in f32 in other orders, so a bf16 output may
@@ -14,6 +15,7 @@ Through a whole block or stack those flips feed the next products, so the
 encoder paths are held to 2^-5 and 2^-9."""
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -175,6 +177,48 @@ def test_attention_twin_matches_stream_kernel(folded):
     _close(got, want)
     assert (got.reshape(B, N8, D)[:, N:] == 0).all()
     assert (_np(want).reshape(B, N8, D)[:, N:] == 0).all()
+
+
+# heads of 128, a head width the JAX kernels take: D=256 in 2 heads and
+# D=128 in 1 head, scale 1/sqrt(128); the same bounds as at 64
+WIDE_HEADS = [(256, 2), (128, 1)]
+
+
+@pytest.mark.parametrize("folded", [True, False])
+@pytest.mark.parametrize("d,heads", WIDE_HEADS, ids=["2x128", "1x128"])
+def test_attention_block_kernel_heads_of_128(d, heads, folded):
+    """K5 at heads of 128: the twin and the port's wrapper (the twin on
+    the CPU) against ``_attn_core_kernel`` in interpret mode."""
+    scale = 1.0 / math.sqrt(d // heads)
+    qkv = [_bf16((B, N, d), 30 + i) for i in range(3)]
+    want = _call(functools.partial(jv._attn_core_kernel, heads=heads,
+                                   scale=scale, folded=folded),
+                 [a for a, _ in qkv], [(B, N, d)], grid=(B,),
+                 block=(1, N, d))
+    got = tv.attn_core_reference(*(t.reshape(B * N, d) for _, t in qkv),
+                                 heads, scale, folded, N, N)
+    _close(got.reshape(B, N, d), want)
+    got = vk.vit_attention_forward(*(t for _, t in qkv), heads, folded)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("folded", [True, False])
+@pytest.mark.parametrize("d,heads", WIDE_HEADS, ids=["2x128", "1x128"])
+def test_attention_stream_kernel_heads_of_128(d, heads, folded):
+    """K7 at heads of 128 on the (B·n8, D) stream with N real rows per
+    example against ``_attn_core_stream_kernel`` in interpret mode; the
+    pad rows come out zero."""
+    scale = 1.0 / math.sqrt(d // heads)
+    qkv = [_bf16((B * N8, d), 40 + i) for i in range(3)]
+    want = _call(functools.partial(jv._attn_core_stream_kernel, heads=heads,
+                                   scale=scale, folded=folded, n_valid=N),
+                 [a for a, _ in qkv], [(B * N8, d)], grid=(B,),
+                 block=(N8, d))
+    got = vk.vit_attention_stream_forward(*(t for _, t in qkv), heads,
+                                          folded, N8, N)
+    _close(got, want)
+    assert (got.reshape(B, N8, d)[:, N:] == 0).all()
+    assert (_np(want).reshape(B, N8, d)[:, N:] == 0).all()
 
 
 @pytest.mark.parametrize("quick", [False, True])
