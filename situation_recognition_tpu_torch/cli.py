@@ -55,8 +55,11 @@ budgets against, in place of ``torch.cuda.mem_get_info``),
 ``SRTPU_HBM_CHUNK_BYTES`` (the window cache's upload chunk, 256 MB),
 ``SRTPU_PIPELINE_DEPTH`` (train and eval steps in flight, 2),
 ``SRTPU_STEP_TRACE=1`` (the host's ``[trace]`` lines of the first 16
-train steps), ``SRTPU_PROFILE_DIR`` (a ``torch.profiler`` trace of the
-first epoch's training), ``SRTPU_UPLOAD_DEPTH`` (batches staged ahead,
+train steps, read from the spans ``train.readback`` and ``train.fetch``
+that the steps record then), ``SRTPU_PROFILE_DIR`` (a ``torch.profiler``
+trace of the first epoch's training, with the training loop's and the
+uploader's spans, ``utils/trace.py``, which record while a profiler
+does), ``SRTPU_UPLOAD_DEPTH`` (batches staged ahead,
 2), ``SRTPU_GGNN_BWD=pallas`` (the K2/K3 route) and the ViT's
 ``SRTPU_VIT_STREAM`` / ``SRTPU_ATTN_CORE`` (``models/vit.py``).
 """

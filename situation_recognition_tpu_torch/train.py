@@ -66,12 +66,25 @@ in chunks of ``SRTPU_HBM_CHUNK_BYTES`` (default 256 MB), and each batch is
 a gather on the device.  The step loop keeps up to
 ``SRTPU_PIPELINE_DEPTH`` (default 2; 0 is synchronous) steps in flight
 before it reads their losses and top-k back and scores them, so the host
-scores step k while the card runs step k+1; ``SRTPU_STEP_TRACE=1`` prints
-the host's time to read the first 16 consumed train steps back (the JAX
-package's ``[trace]`` lines).  ``SRTPU_PROFILE_DIR`` puts a
-``torch.profiler`` trace of ``fit``'s first epoch of training into that
-directory (``utils/logging.profile_trace``).  The JAX package's switches,
-read where it reads them, with its defaults.
+scores step k while the card runs step k+1.
+
+``train_epoch`` and its uploader record spans (``utils/trace.py``) while a
+``torch.profiler`` session records in the process, or inside
+``trace.recording()``, and are silent otherwise: ``train.step`` (one
+iteration of the loop) over ``train.fwd_bwd`` (``accum_step``),
+``train.apply`` (``apply_step``), ``train.readback`` (the losses read back:
+the wait on the card), ``train.fetch`` (the top-k read back) and
+``train.score``; ``train.batch_wait`` (the loop waiting on the uploader
+and taking the batch over);
+on the uploader thread ``upload.next`` (the loader), ``upload.stage``
+(with its ``upload.slot_wait`` on a pinned slot) and ``upload.put_wait``
+(the queue full).  Each carries its batch's index in the epoch.
+``SRTPU_STEP_TRACE=1`` records the first 16 consumed train steps and
+prints their ``train.readback`` and ``train.fetch`` (the JAX package's
+``[trace]`` lines).  ``SRTPU_PROFILE_DIR`` puts a ``torch.profiler`` trace
+of ``fit``'s first epoch of training into that directory, the spans with
+it (``utils/logging.profile_trace``).  The JAX package's switches, read
+where it reads them, with its defaults.
 
 A frozen backbone's convolutions are cast to the compute type in place on
 the card; the f32 parameters they came from are kept on the host (taken
@@ -110,6 +123,7 @@ with the same parameters, Adamax state and BN statistics.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -145,6 +159,7 @@ from situation_recognition_tpu_torch.parallel.mesh import (
 from situation_recognition_tpu_torch.utils.checkpoint import (
     HISTORY_KEYS, copy_checkpoint, history_list, restore_tolerant,
     save_checkpoint)
+from situation_recognition_tpu_torch.utils import trace
 from situation_recognition_tpu_torch.utils.logging import (
     StepTimer, format_dict, profile_trace)
 
@@ -161,6 +176,11 @@ HBM_CHUNK_BYTES = 256 << 20
 STEP_TRACE_BATCHES = 16
 #: the bytes at which a gradient bucket (one all-reduce) closes
 GRAD_BUCKET_BYTES = 256 << 20
+
+
+def _no_span(name: str, batch: Optional[int] = None):
+    """``trace.span``'s stand-in where nothing is to be recorded."""
+    return trace.OFF
 
 
 @dataclasses.dataclass
@@ -709,41 +729,45 @@ class Trainer:
         the backward sums this batch's gradients into ``.grad``, which
         ``first`` (a group's first microbatch) clears beforehand; BN
         updates its running statistics.  Returns what ``train_step``
-        returns."""
-        feats = self._features(images, flip, True, grad=self._ft)
-        head = self.head
-        if first:
-            self.optimizer.zero_grad(set_to_none=True)
-        den = self._denominators(labels, valid)
-        pred_verb, pred_nouns = head.predict_train(
-            feats, self.role_ids, self.role_mask, train=True,
-            generator=self._generator(0))
-        vloss = self._verb_loss(pred_verb, verbs, valid, den)
-        nloss = self._nouns_loss(pred_nouns, labels, valid, den)
-        (vloss + nloss).backward()
-        with torch.no_grad():
-            gt_pred_nouns = head.predict_nouns(
-                feats.detach(), verbs, self.role_ids, self.role_mask,
-                train=True, generator=self._generator(1))
-            gloss = self._nouns_loss(gt_pred_nouns, labels, valid, den)
-        losses = torch.stack([vloss.detach(), nloss.detach(), gloss])
-        return self._global(losses, self._topk(
-            (pred_verb.detach(), pred_nouns.detach(), gt_pred_nouns)))
+        returns.  Span ``train.fwd_bwd``."""
+        with trace.span("train.fwd_bwd"):
+            feats = self._features(images, flip, True, grad=self._ft)
+            head = self.head
+            if first:
+                self.optimizer.zero_grad(set_to_none=True)
+            den = self._denominators(labels, valid)
+            pred_verb, pred_nouns = head.predict_train(
+                feats, self.role_ids, self.role_mask, train=True,
+                generator=self._generator(0))
+            vloss = self._verb_loss(pred_verb, verbs, valid, den)
+            nloss = self._nouns_loss(pred_nouns, labels, valid, den)
+            (vloss + nloss).backward()
+            with torch.no_grad():
+                gt_pred_nouns = head.predict_nouns(
+                    feats.detach(), verbs, self.role_ids, self.role_mask,
+                    train=True, generator=self._generator(1))
+                gloss = self._nouns_loss(gt_pred_nouns, labels, valid, den)
+            losses = torch.stack([vloss.detach(), nloss.detach(), gloss])
+            return self._global(losses, self._topk(
+                (pred_verb.detach(), pred_nouns.detach(), gt_pred_nouns)))
 
     def apply_step(self, count: int) -> None:
         """The optimizer step on the gradients that ``count`` microbatches
         summed into ``.grad`` (JAX ``grad_accum_final_step`` /
         ``apply_accum_step``): their mean, one global-norm-1 clip over
         every trainable parameter, the rate of this optimizer step and
-        Adamax; the schedule's count ticks once.  No host sync."""
-        self._reduce_grads()
-        if count > 1:
-            grads = [p.grad for p in self._trainable if p.grad is not None]
-            torch._foreach_div_(grads, float(count))
-        self._clip()
-        self._set_lr()
-        self.optimizer.step()
-        self.opt_steps += 1
+        Adamax; the schedule's count ticks once.  No host sync.  Span
+        ``train.apply``."""
+        with trace.span("train.apply"):
+            self._reduce_grads()
+            if count > 1:
+                grads = [p.grad for p in self._trainable
+                         if p.grad is not None]
+                torch._foreach_div_(grads, float(count))
+            self._clip()
+            self._set_lr()
+            self.optimizer.step()
+            self.opt_steps += 1
 
     def _reduce_grads(self) -> None:
         """Sum ``.grad`` over the data axis: the flat gradients in buckets,
@@ -900,11 +924,16 @@ class Trainer:
         self._window_caches[id(dataset)] = (weakref.ref(host), dev)
         return dev
 
-    def _device_batches(self, loader):
+    def _device_batches(self, loader, first: Optional[int] = None):
         """Iterate (device args (images, flip, verbs, labels, valid), host
         batch, n) with the next batches staged ahead by an uploader thread
         (see the module docstring).  A loader error is raised here, on the
-        consumer's thread, however full the queue is."""
+        consumer's thread, however full the queue is.  ``first``, the
+        epoch's index of the loader's first batch, turns on the spans
+        (``utils/trace.py``): the uploader's ``upload.*`` and this
+        thread's ``train.batch_wait``, each with its batch's index."""
+        span = trace.span if first is not None else _no_span
+        first = first or 0
         ds = getattr(loader, "dataset", None)
         cache = (self._device_window_cache(ds)
                  if getattr(ds, "window_cached", False) else None)
@@ -940,7 +969,8 @@ class Trainer:
             slot = pool[count % len(pool)]
             if slot.event is not None:
                 # its buffers' last copies must land before the refill
-                slot.event.synchronize()
+                with span("upload.slot_wait"):
+                    slot.event.synchronize()
             with torch.cuda.stream(side):
                 dev = {}
                 for k, v in host.items():
@@ -959,9 +989,19 @@ class Trainer:
             try:
                 if cuda:
                     torch.cuda.set_device(index)
-                for count, batch in enumerate(it):
-                    if not put_until_stopped(q, stage(batch, count), stop):
-                        return
+                count = 0
+                while True:
+                    b = first + count
+                    with span("upload.next", b):
+                        batch = next(it, end)
+                    if batch is end:
+                        break
+                    with span("upload.stage", b):
+                        item = stage(batch, count)
+                    with span("upload.put_wait", b):
+                        if not put_until_stopped(q, item, stop):
+                            return
+                    count += 1
                 put_until_stopped(q, end, stop)
             except BaseException as e:  # raised on the consumer's thread
                 put_until_stopped(q, e, stop)
@@ -974,19 +1014,24 @@ class Trainer:
                              daemon=True)
         t.start()
         try:
+            got = 0
             while True:
-                item = q.get()
-                if item is end:
-                    break
-                if isinstance(item, BaseException):
-                    raise item
-                dev, batch, n, event = item
-                if event is not None:
-                    cur = torch.cuda.current_stream(self.device)
-                    cur.wait_event(event)
-                    # made on the side stream, used on this one
-                    for x in dev.values():
-                        x.record_stream(cur)
+                # the wait for the batch and its hand-over to this stream
+                # (the uploader's Python may hold the interpreter then)
+                with span("train.batch_wait", first + got):
+                    item = q.get()
+                    if item is end:
+                        break
+                    if isinstance(item, BaseException):
+                        raise item
+                    dev, batch, n, event = item
+                    if event is not None:
+                        cur = torch.cuda.current_stream(self.device)
+                        cur.wait_event(event)
+                        # made on the side stream, used on this one
+                        for x in dev.values():
+                            x.record_stream(cur)
+                got += 1
                 yield ((dev["images"], dev["flip"], dev["verbs"],
                         dev["labels"], dev["valid"]), batch, n)
         finally:
@@ -1061,22 +1106,31 @@ class Trainer:
         micros = 0
         inflight: deque = deque()
         depth = pipeline_depth()
-        trace = os.environ.get("SRTPU_STEP_TRACE") == "1"
+        # SRTPU_STEP_TRACE=1: the first consumed steps' spans, recorded
+        # whatever the profiler does, make the [trace] lines
+        tracing = contextlib.ExitStack()
+        step_trace = (os.environ.get("SRTPU_STEP_TRACE") == "1"
+                      and num_batches < STEP_TRACE_BATCHES)
+        if step_trace:
+            tracing.enter_context(trace.recording())
 
         def consume_one():
             nonlocal num_batches, sums
-            losses, topk, verbs, labels, n = inflight.popleft()
-            t0 = time.perf_counter()
-            sums += losses.cpu().numpy()
-            t1 = time.perf_counter()
-            host_topk = self._fetch(topk, n)
+            losses, topk, verbs, labels, n, b = inflight.popleft()
+            with trace.span("train.readback", b) as read:
+                sums += losses.cpu().numpy()
+            with trace.span("train.fetch", b) as fetch:
+                host_topk = self._fetch(topk, n)
             lap = timer.lap(n) if timer is not None else 0.0
-            if trace and num_batches < STEP_TRACE_BATCHES:
+            if step_trace and num_batches < STEP_TRACE_BATCHES:
                 print(f"[trace] b{num_batches}: loss_block="
-                      f"{(t1 - t0) * 1e3:.0f}ms topk_fetch="
-                      f"{(time.perf_counter() - t1) * 1e3:.0f}ms "
+                      f"{read.seconds * 1e3:.0f}ms topk_fetch="
+                      f"{fetch.seconds * 1e3:.0f}ms "
                       f"lap={lap * 1e3:.0f}ms", file=sys.stderr)
-            self._score(top1, top5, host_topk, verbs, labels)
+                if num_batches + 1 == STEP_TRACE_BATCHES:
+                    tracing.close()
+            with trace.span("train.score", b):
+                self._score(top1, top5, host_topk, verbs, labels)
             num_batches += 1
 
         def mid():
@@ -1087,39 +1141,45 @@ class Trainer:
                     "loss_sums": [float(x) for x in sums],
                     "num_batches": num_batches}
 
-        for args, batch, n in self._device_batches(loader):
-            losses, topk = self.accum_step(*args, first=micros == 0)
-            micros += 1
-            if micros == accum:
-                self.apply_step(accum)
-                micros = 0
-            # the sidecars are taken now: the in-flight window keeps
-            # nothing else of the host batch
-            inflight.append((losses, topk, *_sidecars(batch, n), n))
-            self.step_count += 1
-            batch_idx += 1
-            while len(inflight) > depth:
+        with tracing:
+            for args, batch, n in self._device_batches(loader, start_batch):
+                with trace.span("train.step", batch_idx):
+                    losses, topk = self.accum_step(*args,
+                                                   first=micros == 0)
+                    micros += 1
+                    if micros == accum:
+                        self.apply_step(accum)
+                        micros = 0
+                    # the sidecars are taken now: the in-flight window
+                    # keeps nothing else of the host batch
+                    inflight.append((losses, topk, *_sidecars(batch, n), n,
+                                     batch_idx))
+                    self.step_count += 1
+                    batch_idx += 1
+                    while len(inflight) > depth:
+                        consume_one()
+                    dispatched = num_batches + len(inflight)
+                    want_save = bool(save_every and save_callback
+                                     and dispatched % save_every == 0
+                                     and micros == 0)
+                    # every rank asks at every group end (the ranks agree)
+                    want_stop = micros == 0 and distributed.preempt_agreed(
+                        preempt, self._data_group is not None)
+                    if want_save or want_stop:
+                        # a snapshot's scores cover exactly batch_in_epoch
+                        # batches
+                        while inflight:
+                            consume_one()
+                        if save_callback:
+                            save_callback(mid())
+                        if want_stop:
+                            raise Preempted(epoch, batch_idx, saved=bool(
+                                save_callback
+                                and distributed.is_main_process()))
+            while inflight:
                 consume_one()
-            dispatched = num_batches + len(inflight)
-            want_save = bool(save_every and save_callback
-                             and dispatched % save_every == 0
-                             and micros == 0)
-            # every rank asks at every group end (the ranks agree)
-            want_stop = micros == 0 and distributed.preempt_agreed(
-                preempt, self._data_group is not None)
-            if want_save or want_stop:
-                # a snapshot's scores cover exactly batch_in_epoch batches
-                while inflight:
-                    consume_one()
-                if save_callback:
-                    save_callback(mid())
-                if want_stop:
-                    raise Preempted(epoch, batch_idx, saved=bool(
-                        save_callback and distributed.is_main_process()))
-        while inflight:
-            consume_one()
-        if micros:
-            self.apply_step(micros)
+            if micros:
+                self.apply_step(micros)
         return top1, top5, tuple(sums / max(num_batches, 1))
 
     def evaluate(self, loader, logging: bool = False, preempt=None):
