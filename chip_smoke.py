@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card (H100).
 
-    python3 chip_smoke.py [--seed 0] [--phase dist|export|remat|bench]
+    python3 chip_smoke.py [--seed 0]
+        [--phase dist|export|remat|bench|batchnorm]
 
 (``--phase`` runs that phase alone, after the device and its kernels'
 build, and prints its result as the last line: ``remat`` is the train
@@ -34,6 +35,19 @@ Phases, each printing its seconds:
              whole differentiated propagate (forward + backward, the
              parameter products included) through each route: the K2/K3
              autograd Function and autograd over the masked-sum math.
+3b. batchnorm — the train-mode BN pair of the frozen ResNet
+             (``ops/batchnorm.py``: ``batchnorm_stats_kernel`` and
+             ``batchnorm_apply_kernel``) at the r152 cell's shapes, batch
+             1536 at 224², bf16 channels-last: the stem, a bn1 and the
+             downsample of the first stage and a bn3 (residual and ReLU)
+             of each stage against the twin (torch's composition) on the
+             same operands (and the stem and a bn3 in plain NCHW, the
+             kernels' planar layout), outputs within an ulp of each rounding
+             (``bn_excess``), statistics and running statistics within f32
+             rounding, one launch a call; then each distinct BN layer of
+             ResNet-152 timed (statistics alone, apply alone, the pair,
+             the twin) with its TB/s, and a step's totals beside the least
+             time of its bytes.
 4. path    — a full-width ResNet-152 + FCGGNN at bf16 with random weights
              from ``--seed`` and the ``synthetic_full`` vocabulary:
              ``export_inference`` into a temporary directory outside the
@@ -53,7 +67,8 @@ Phases, each printing its seconds:
              per-step losses, step-1 gradients and the parameter updates
              agreeing between the routes; launch counts per step (K1 once,
              for the gt branch; K2 and K3 twice each under ``pallas``,
-             never under ``xla``) and per eval batch (K1 three times); 8
+             never under ``xla``; the BN pair once a BN layer, 155) and
+             per eval batch (K1 three times, the BN pair never); 8
              finite scores in [0, 100]; training and eval img/s.  Then a
              step with ``ggnn_remat`` beside one without, from the same
              state and batch: losses equal, head gradients within
@@ -77,7 +92,8 @@ Phases, each printing its seconds:
              512, 512, 2048, 2048) and depths + FCGGNN, bf16, batch 256,
              random weights from ``--seed``: a warm train step and a loop
              of 20, a warm eval batch and a loop of 20; finite losses, K1
-             once a train step and 3 times an eval batch, train and eval
+             once a train step and 3 times an eval batch, the BN pair once
+             a BN layer of a train step and never in eval, train and eval
              img/s of the steady loops (the fill left out) beside a
              profiled step's and batch's device time.
 6. cli     — the reference CLI's path through ``cli.main`` in this
@@ -246,13 +262,13 @@ Phases, each printing its seconds:
              stream stack against the per-block path, slopes of CUDA
              event times.
 
-Then a ``kernels`` JSON line (the entries of K1–K3 and of the ViT kernels
-with the registers, spills and shared memory that ``-Xptxas -v``
-reported, and for the GEMMs of K1–K3 and K4/K6 the ``setmaxnreg`` split,
-the dynamic shared memory that the library states and the HGMMA count of
-each instantiation's SASS; a GEMM without HGMMA, a K1–K3 kernel that
-spills, or an attention instantiation that runs heads of 128 and spills,
-fails the run), the
+Then a ``kernels`` JSON line (the entries of K1–K3, of the ViT kernels
+and of the BN pair with the registers, spills and shared memory that
+``-Xptxas -v`` reported, and for the GEMMs of K1–K3 and K4/K6 the
+``setmaxnreg`` split, the dynamic shared memory that the library states
+and the HGMMA count of each instantiation's SASS; a GEMM without HGMMA, a
+K1–K3 kernel that spills, or an attention instantiation that runs heads
+of 128 and spills, fails the run), the
 card's ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``.  Any failure exits non-zero
 before that line is printed.
@@ -323,7 +339,7 @@ BURSTS = 3
 BATCH = 256
 # every kernel source of the serving and training paths, ResNet and ViT
 SOURCES = ("ggnn_folded.cu", "ggnn_folded_bwd.cu", "vit_block.cu",
-           "vit_attention.cu", "vit_attention_bwd.cu")
+           "vit_attention.cu", "vit_attention_bwd.cu", "batchnorm.cu")
 
 
 def _log(msg: str) -> None:
@@ -898,6 +914,249 @@ def _check_bursts(bursts: dict, plain, images, gt_verb: int,
     return errs["verb"], errs["noun"], gt_err
 
 
+# ------------------------------------------------ the train-mode BN pair
+
+#: the r152 cell's batch and crop, at which the BN pair is checked and timed
+BN_BATCH, BN_IMAGE = 1536, 224
+#: (C, H, W, residual, ReLU) held against the twin at ``BN_BATCH`` in
+#: bf16: the stem, a bn1 and the downsample of the first stage, and a bn3
+#: (residual and ReLU) of each stage
+BN_CHECKED = ((64, 112, 112, False, True), (64, 56, 56, False, True),
+              (256, 56, 56, False, False), (256, 56, 56, True, True),
+              (512, 28, 28, True, True), (1024, 14, 14, True, True),
+              (2048, 7, 7, True, True))
+#: held alike in plain NCHW (the kernels' planar layout, for convolutions
+#: that return NCHW): the stem and a bn3 of the first stage
+BN_CHECKED_PLANAR = ((64, 112, 112, False, True), (256, 56, 56, True, True))
+#: images a chunk of ``bn_excess``'s f32 arithmetic; timed calls a pass
+BN_CHUNK, BN_REPS = 128, 20
+#: the pair's statistics against torch's: f32 sums in other orders
+BN_STATS_REL = 1e-5
+
+
+def bn_excess(got, want, pre, dtype, residual: bool) -> tuple:
+    """(largest |got - want|, largest excess over the tolerance) of the BN
+    pair's output ``got`` against its twin's ``want``, ``pre`` the twin's
+    normalised value before any add.  With statistics a rounding apart
+    (``BN_STATS_REL``), each rounding of the composition may land an ulp of
+    ``dtype`` the other way: the output's, and with a residual the
+    normalised value's before the add; beside them the shift such
+    statistics give, ``BN_STATS_REL`` · (|pre| + 1).  In chunks of
+    ``BN_CHUNK`` images along the batch."""
+    import math
+
+    import torch
+
+    # significant bits: bf16 keeps 8, f32 24
+    bits = 1 - round(math.log2(torch.finfo(dtype).eps))
+
+    def ulp(v):
+        _, e = torch.frexp(v.abs())
+        return torch.ldexp(torch.ones_like(v), e - bits)
+
+    err = excess = float("-inf")
+    for i in range(0, got.shape[0], BN_CHUNK):
+        g, w, p = (t[i:i + BN_CHUNK].float() for t in (got, want, pre))
+        tol = ulp(torch.maximum(g.abs(), w.abs())) \
+            + BN_STATS_REL * (p.abs() + 1)
+        if residual:
+            tol += ulp(p)
+        diff = (g - w).abs()
+        err = max(err, diff.max().item())
+        excess = max(excess, (diff - tol).max().item())
+    return err, excess
+
+
+def _bn_operands(c: int, h: int, w: int, residual: bool, seed: int,
+                 planar: bool = False):
+    """(x, residual or None, three BatchNorms alike) on the card at
+    ``BN_BATCH`` images, bf16, channels-last or with ``planar`` plain
+    NCHW: x with per-channel means and scales; random f32 scale, shift and
+    running statistics."""
+    import torch
+
+    from situation_recognition_tpu_torch.models.resnet import BatchNorm
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def draw(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device=DEVICE, dtype=dtype)
+
+    def uniform(lo, hi):
+        return torch.rand(c, generator=g, device=DEVICE) * (hi - lo) + lo
+
+    bf16 = torch.bfloat16
+    # (N, H, W, C) viewed as NCHW is channels-last, as a convolution gives
+    # it; planar draws (N, C, H, W)
+    shape, view = ((BN_BATCH, c, h, w), (0, 1, 2, 3)) if planar else \
+        ((BN_BATCH, h, w, c), (0, 3, 1, 2))
+    at = (c, 1, 1) if planar else (c,)
+    x = draw(*shape, dtype=bf16)
+    x.mul_(uniform(0.5, 2.5).to(bf16).view(at)).add_(
+        draw(c).to(bf16).view(at))
+    res = draw(*shape, dtype=bf16) if residual else None
+    state = {"weight": uniform(0.5, 1.5), "bias": uniform(-0.3, 0.3),
+             "running_mean": draw(c), "running_var": uniform(0.5, 1.5)}
+    bns = []
+    for _ in range(3):
+        bn = BatchNorm(c).to(DEVICE).train()
+        bn.requires_grad_(False)
+        with torch.no_grad():
+            for k, v in state.items():
+                getattr(bn, k).copy_(v)
+        bns.append(bn)
+    return (x.permute(*view),
+            None if res is None else res.permute(*view), bns)
+
+
+def _bn_check(c, h, w, residual, relu, seed, planar=False) -> dict:
+    """One layer of ``BN_CHECKED`` (or, ``planar``, of
+    ``BN_CHECKED_PLANAR``): the pair (``batchnorm_act``) against the
+    twin on the same operands (``bn_excess`` at most 0), the statistics
+    kernel alone against torch's mean and invstd (``BN_STATS_REL``), and
+    the running statistics: the pair's bit-equal to the lone statistics
+    kernel's, within ``BN_STATS_REL`` of the twin's, each batch counted
+    once."""
+    import torch
+
+    from situation_recognition_tpu_torch.ops import batchnorm as bk
+
+    x, res, (bn_k, bn_t, bn_s) = _bn_operands(c, h, w, residual, seed,
+                                              planar)
+    with torch.no_grad():
+        pre, mean, invstd = torch.native_batch_norm(
+            x, bn_t.weight, bn_t.bias, None, None, True, 0.0, bn_t.eps)
+        want = bk.batchnorm_act_reference(x, bn_t, res, relu)
+        before = _bn_launches()
+        got = bk.batchnorm_act(x.clone(), bn_k, res, relu)
+        launched = _bn_launches() - before
+        stats = bk._lone_stats(x, bn_s)
+    torch.cuda.synchronize()
+    err, excess = bn_excess(got, want, pre, x.dtype, residual)
+    std = (1 / invstd).max().item()
+    mean_gap = ((stats[0] - mean).abs()
+                / (mean.abs() + std)).max().item()
+    invstd_gap = ((stats[1] - invstd).abs() / invstd).max().item()
+    run_gap = max(((bn_k.running_mean - bn_t.running_mean).abs()
+                   / (bn_t.running_mean.abs() + std)).max().item(),
+                  ((bn_k.running_var - bn_t.running_var).abs()
+                   / bn_t.running_var).max().item())
+    same = all(torch.equal(a, b) for a, b in zip(bn_k.buffers(),
+                                                 bn_s.buffers()))
+    counted = [int(bn.num_batches_tracked) for bn in (bn_k, bn_t, bn_s)]
+    row = {"shape": f"{BN_BATCH}x{c}x{h}x{w}",
+           "layout": "nchw" if planar else "channels_last",
+           "residual": residual,
+           "relu": relu, "max_abs_err": err, "tol_excess": excess,
+           "mean_gap": mean_gap, "invstd_gap": invstd_gap,
+           "running_gap": run_gap, "running_same_as_lone": same,
+           "counted": counted, "launches": launched}
+    _log("[batchnorm] check " + json.dumps(row))
+    if (launched != 1 or not excess <= 0 or not same or counted != [1] * 3
+            or not max(mean_gap, invstd_gap, run_gap) <= BN_STATS_REL):
+        raise SystemExit(f"the BN pair is off its twin at {row['shape']}")
+    return row
+
+
+def _bn_shapes(batch: int, image: int) -> dict:
+    """{(C, H, W, residual, ReLU): count} of ResNet-152's BN layers at
+    ``batch`` images of ``image``², read off the port's module on meta
+    tensors (``bn_act``'s calls)."""
+    import torch
+
+    from situation_recognition_tpu_torch.models import resnet
+
+    seen: dict = {}
+    act = resnet.bn_act
+
+    def record(bn, x, residual=None, relu=True):
+        _, c, h, w = x.shape
+        key = (c, h, w, residual is not None, relu)
+        seen[key] = seen.get(key, 0) + 1
+        return act(bn, x, residual, relu)
+
+    model = resnet.resnet152().train().to("meta")
+    resnet.bn_act = record
+    try:
+        with torch.no_grad():
+            model(torch.empty(batch, image, image, 3, device="meta"))
+    finally:
+        resnet.bn_act = act
+    return seen
+
+
+def phase_batchnorm(seed: int) -> dict:
+    """The train-mode BN pair (``ops/batchnorm.py``) at the r152 cell's
+    shapes, ``BN_BATCH`` images of ``BN_IMAGE``², bf16: each of
+    ``BN_CHECKED`` against the twin (``_bn_check``), and
+    ``BN_CHECKED_PLANAR`` in plain NCHW; then each distinct
+    (C, H, W, residual, ReLU) of ResNet-152's BN layers timed with CUDA
+    events over ``BN_REPS`` calls: the statistics kernel alone, the apply
+    kernel alone, the pair, and the twin (torch's composition), with the
+    bytes of each pass (statistics: x read; apply: x and the residual read,
+    y written) and the rate reached; the step's totals (each shape times
+    its layer count) beside the least time of those bytes."""
+    import torch
+
+    from situation_recognition_tpu_torch.ops import batchnorm as bk
+
+    checked = [_bn_check(*layer, seed=seed + i)
+               for i, layer in enumerate(BN_CHECKED)]
+    checked += [_bn_check(*layer, seed=seed + 100 + i, planar=True)
+                for i, layer in enumerate(BN_CHECKED_PLANAR)]
+    torch.cuda.empty_cache()
+    step = {"stats_ms": 0.0, "apply_ms": 0.0, "pair_ms": 0.0,
+            "torch_ms": 0.0, "least_ms": 0.0, "layers": 0}
+    shapes = []
+    for (c, h, w, residual, relu), count in sorted(
+            _bn_shapes(BN_BATCH, BN_IMAGE).items()):
+        x, res, (bn, twin, _) = _bn_operands(c, h, w, residual, seed + c)
+        xc = x.clone()
+        with torch.no_grad():
+            stats = bk._lone_stats(x, bn)
+            row = {"c": c, "h": h, "w": w, "residual": residual,
+                   "relu": relu, "layers": count,
+                   "stats_ms": _time_ms(lambda: bk._lone_stats(x, bn),
+                                        BN_REPS),
+                   "apply_ms": _time_ms(lambda: bk._lone_apply(
+                       x, bn, stats, res, relu), BN_REPS),
+                   "pair_ms": _time_ms(lambda: bk.batchnorm_act(
+                       xc, bn, res, relu), BN_REPS),
+                   "torch_ms": _time_ms(lambda: bk.batchnorm_act_reference(
+                       x, twin, res, relu), BN_REPS)}
+        stats_bytes = x.numel() * x.element_size()
+        apply_bytes = stats_bytes * (3 if residual else 2)
+        row["least_ms"] = (stats_bytes + apply_bytes) / PEAK_BYTES_PER_S \
+            * 1e3
+        row["stats_tb_s"] = stats_bytes / row["stats_ms"] / 1e9
+        row["apply_tb_s"] = apply_bytes / row["apply_ms"] / 1e9
+        _log("[batchnorm] " + json.dumps(row))
+        shapes.append(row)
+        for k in ("stats_ms", "apply_ms", "pair_ms", "torch_ms", "least_ms"):
+            step[k] += row[k] * count
+        step["layers"] += count
+        del x, xc, res, stats
+        torch.cuda.empty_cache()
+    step["pair_share_of_bound"] = step["least_ms"] / step["pair_ms"]
+    _log("[batchnorm] a step " + json.dumps(step))
+    return {"checked": checked, "shapes": shapes, "step": step}
+
+
+def _bn_resources() -> dict:
+    """Registers, spills and stack frame per thread and static shared
+    memory of ``batchnorm.cu``'s kernel instantiations as ``nvcc -Xptxas
+    -v`` reported them, by mangled name."""
+    from situation_recognition_tpu_torch.ops import _build
+
+    found = _build.kernel_resources(_build.build_log("batchnorm.cu"),
+                                    "batchnorm_")
+    if not found:
+        raise SystemExit("no -Xptxas -v report of the batchnorm kernels in "
+                         "the build log of batchnorm.cu")
+    _log("[batchnorm] kernel resources " + json.dumps(found))
+    return found
+
+
 def phase_path(enc, seed: int, batch: int, card: str) -> dict:
     import numpy as np
     import torch
@@ -1006,11 +1265,25 @@ def _counts() -> dict:
 
 
 def _zero_counts() -> None:
+    from situation_recognition_tpu_torch.ops import batchnorm as bk
     from situation_recognition_tpu_torch.ops import ggnn_kernel as tk
 
     tk.folded_rows.launches = 0
     tk.folded_rows_res.launches = 0
     tk.folded_bwd_rows.launches = 0
+    bk.batchnorm_act.launches = 0
+
+
+def _bn_launches() -> int:
+    from situation_recognition_tpu_torch.ops import batchnorm as bk
+
+    return bk.batchnorm_act.launches
+
+
+def _bn_layers(model) -> int:
+    from situation_recognition_tpu_torch.models.resnet import BatchNorm
+
+    return sum(isinstance(m, BatchNorm) for m in model.modules())
 
 
 def _fixed_verb_grads(trainer, batch) -> dict:
@@ -1168,6 +1441,7 @@ def phase_train(enc, seed: int, batch: int) -> dict:
         dtype=torch.bfloat16))
     start = {"head": copy.deepcopy(trainer.head.state_dict()),
              "backbone": copy.deepcopy(trainer.backbone.state_dict())}
+    bn_layers = _bn_layers(trainer.backbone)
     _phase("train: trainer + BN statistics", t)
 
     def launches(before):
@@ -1187,13 +1461,14 @@ def phase_train(enc, seed: int, batch: int) -> dict:
             trainer.backbone.load_state_dict(start["backbone"])
             trainer.optimizer.state.clear()
             trainer.step_count = trainer.opt_steps = 0
-            losses, per_step = [], []
+            losses, per_step, per_step_bn = [], [], []
             for i in range(TRAIN_STEPS):
                 torch.cuda.synchronize()
-                before = _counts()
+                before, bn_before = _counts(), _bn_launches()
                 _, _, step_losses = trainer.train_epoch([batches[i % 3]], i)
                 torch.cuda.synchronize()
                 per_step.append(launches(before))
+                per_step_bn.append(_bn_launches() - bn_before)
                 losses.append(list(step_losses))
             params = [p.detach().float().clone()
                       for p in trainer.head.parameters()]
@@ -1208,11 +1483,12 @@ def phase_train(enc, seed: int, batch: int) -> dict:
                 f"one {route} train step",
                 lambda: trainer.train_epoch([batches[0]], TRAIN_STEPS + 1))}
             eval_loader = batches[:EVAL_BATCHES]
-            before = _counts()
+            before, bn_before = _counts(), _bn_launches()
             top1, top5, val_losses, avg = trainer.evaluate(eval_loader,
                                                            logging=True)
             torch.cuda.synchronize()
             eval_launches = launches(before)
+            eval_bn = _bn_launches() - bn_before
             t0 = time.perf_counter()
             trainer.evaluate(eval_loader)
             torch.cuda.synchronize()
@@ -1225,6 +1501,8 @@ def phase_train(enc, seed: int, batch: int) -> dict:
             runs[route] = {"losses": losses, "params": params}
             row = {"per_step_launches": per_step,
                    "eval_launches": eval_launches,
+                   "per_step_bn_launches": per_step_bn,
+                   "eval_bn_launches": eval_bn,
                    "losses": losses, "val_losses": val_losses,
                    "scores": scores, "mean_of_eight": avg,
                    "train_step_ms": train_s * 1e3,
@@ -1248,6 +1526,10 @@ def phase_train(enc, seed: int, batch: int) -> dict:
             if eval_launches != {"K1": 3 * EVAL_BATCHES, "K2": 0, "K3": 0}:
                 raise SystemExit(f"launches over {EVAL_BATCHES} eval batches"
                                  f" under {route}: {eval_launches}")
+            if per_step_bn != [bn_layers] * TRAIN_STEPS or eval_bn:
+                raise SystemExit(f"BN pair launches under {route}: "
+                                 f"{per_step_bn} a train step (want "
+                                 f"{bn_layers}), {eval_bn} in eval")
     finally:
         if old_env is None:
             os.environ.pop("SRTPU_GGNN_BWD", None)
@@ -1273,6 +1555,8 @@ def phase_train(enc, seed: int, batch: int) -> dict:
     if (loss_rel > ROUTE_LOSS_REL or grad_rel > ROUTE_GRAD_REL
             or cos < ROUTE_UPDATE_COS):
         raise SystemExit("the two GGNN backward routes disagree")
+    result["bn_launches"] = sum(sum(r["per_step_bn_launches"])
+                                for r in result["routes"].values())
     result["remat"] = _remat_pair(trainer, batches[0])
     return result
 
@@ -1668,6 +1952,7 @@ def phase_resnets(enc, seed: int, batch: int) -> dict:
 
             loop = _steady_loop(trainer, method, run, RESNET_FILL)
             row[f"{kind}_launches"] = _counts()
+            row[f"{kind}_bn_launches"] = _bn_launches()
             row[f"{kind}_ms"] = loop["steady_ms"]
             row[f"{kind}_img_per_s"] = batch * 1e3 / loop["steady_ms"]
             prof = _profile(f"one {name} {kind} batch",
@@ -1689,6 +1974,12 @@ def phase_resnets(enc, seed: int, batch: int) -> dict:
             raise SystemExit(f"{name} launches: train "
                              f"{row['train_launches']}, eval "
                              f"{row['eval_launches']}")
+        layers = _bn_layers(trainer.backbone)
+        if row["train_bn_launches"] != layers * RESNET_STEPS \
+                or row["eval_bn_launches"]:
+            raise SystemExit(f"{name} BN pair launches: train "
+                             f"{row['train_bn_launches']} (want {layers} a "
+                             f"step), eval {row['eval_bn_launches']}")
         del trainer
         torch.cuda.empty_cache()
     _log("[resnets] steady over " + f"{RESNET_STEPS} batches less "
@@ -4711,7 +5002,7 @@ def phase_bench(enc, seed: int, card: str) -> dict:
 
 
 #: the phases ``--phase`` runs alone
-PHASES_ALONE = ("dist", "export", "remat", "bench")
+PHASES_ALONE = ("dist", "export", "remat", "bench", "batchnorm")
 
 
 def main(argv=None) -> int:
@@ -4765,7 +5056,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t = time.perf_counter()
-    sources = ("ggnn_folded.cu",) if args.phase == "dist" else SOURCES
+    sources = {"dist": ("ggnn_folded.cu",),
+               "batchnorm": ("batchnorm.cu",)}.get(args.phase, SOURCES)
     _build.build(sources)
     for src in sources:
         _build.load(src)
@@ -4781,7 +5073,8 @@ def main(argv=None) -> int:
         alone = {"dist": lambda: phase_dist(enc, args.seed, BATCH, smi),
                  "export": lambda: phase_export(enc, args.seed, BATCH, smi),
                  "remat": lambda: phase_remat(enc, args.seed, BATCH),
-                 "bench": lambda: phase_bench(enc, args.seed, smi)
+                 "bench": lambda: phase_bench(enc, args.seed, smi),
+                 "batchnorm": lambda: phase_batchnorm(args.seed)
                  }[args.phase]()
         _phase(args.phase, t)
         print(json.dumps(alone, default=str), flush=True)
@@ -4789,6 +5082,11 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     kernel = phase_kernel(enc, args.seed, BATCH)
     _phase("kernel", t)
+
+    t = time.perf_counter()
+    bn = phase_batchnorm(args.seed)
+    _phase("batchnorm", t)
+    torch.cuda.empty_cache()
 
     t = time.perf_counter()
     path = phase_path(enc, args.seed, BATCH, smi)
@@ -4953,6 +5251,9 @@ def main(argv=None) -> int:
                      replaces=vit_pallas, ft_stack=vit_ft_stack,
                      ft_stack_h8=vit_h8["ft_stack"],
                      resources=res["vit_attention_bwd.cu"]),
+        _bn_line(bn, {"train": train["bn_launches"],
+                      **{f"resnets_{n}": r["train_bn_launches"]
+                         for n, r in resnets.items()}}, _bn_resources()),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -4977,6 +5278,25 @@ def _kernel_line(name, source, line, shapes, launches,
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head.get("library_ms"),
             "timed_shape": head["shape"], "shapes": shapes, **extra}
+
+
+def _bn_line(bn: dict, launches: dict, resources: dict) -> dict:
+    """The BN pair's entry of the ``kernels`` line: a port-only kernel
+    (it replaces torch's train-mode BN, running update, add and ReLU, no
+    TPU kernel), timed over ResNet-152's BN layers of a step at the r152
+    cell's shapes (``phase_batchnorm``), launches by path (statistics and
+    apply once each a launch)."""
+    step = bn["step"]
+    return {"name": "batchnorm_pair", "route": "cuda",
+            "source": "situation_recognition_tpu_torch/csrc/batchnorm.cu",
+            "replaces": None, "launches": sum(launches.values()),
+            "launches_by_path": launches, "checked": True,
+            "max_abs_err": max(r["max_abs_err"] for r in bn["checked"]),
+            "ms": step["pair_ms"], "plain_ms": step["torch_ms"],
+            "bound_ms": step["least_ms"], "bound_by": "bytes",
+            "timed_shape": f"ResNet-152's {step['layers']} BN layers at "
+                           f"{BN_BATCH} x {BN_IMAGE}^2, a step",
+            "shapes": bn["checked"], "resources": resources}
 
 
 if __name__ == "__main__":

@@ -18,6 +18,17 @@ cuDNN prefers.  In eval mode BN normalises with the running statistics
 cast their weights to the input's type at use, as flax's ``Conv(dtype=)``
 does, so a fine-tuned backbone keeps f32 weights and computes in bf16.
 
+Each BN of a block, of the stem and of a downsample runs through
+``bn_act`` with the ReLU and the residual add that follow it.  On the
+card, where no gradient is needed and the layer takes this batch's own
+statistics (the frozen backbone's train-mode BN, ``fused``), that is
+``ops.batchnorm.batchnorm_act``: one statistics kernel and one kernel of
+normalisation, add and ReLU written over the convolution's output, in
+place of torch's BN, its running update, the add and the ReLU as separate
+passes; it raises for a layout or type its kernels do not take.
+Elsewhere (the CPU, fine-tuning, eval mode, a ``stats_group``) the module
+and the torch ops run as they are.
+
 In a world of processes (``parallel/``) train-mode BN takes its statistics
 over the global batch, as JAX's jit step does over its mesh (flax's E[x²] -
 E[x]² over every shard): each BatchNorm's ``stats_group`` is the data
@@ -48,6 +59,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from situation_recognition_tpu_torch.ops import batchnorm
 from situation_recognition_tpu_torch.parallel import distributed
 
 #: stage sizes by backbone name (``mini`` is the test-sized stack)
@@ -204,30 +216,46 @@ class BatchNorm(nn.BatchNorm2d):
             return super().forward(x)
         group = self.stats_group
         if group is None:
-            y, mean, invstd = torch.native_batch_norm(
-                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
-        elif torch.is_grad_enabled() and (x.requires_grad
-                                          or self.weight.requires_grad):
+            return batchnorm.batch_norm_train(x, self, self.update_stats)
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or self.weight.requires_grad):
             y, mean, var = _GlobalBatchNorm.apply(
                 x, self.weight, self.bias, self.eps, group)
         else:
             y, mean, var = _forms(x)[0](x, self.weight, self.bias,
                                         self.eps, group)
-        if not self.update_stats:
-            return y
-        with torch.no_grad():
-            m = self.momentum
-            if group is None:
-                var = torch.clamp_min(torch.reciprocal(invstd * invstd)
-                                      - self.eps, 0.0)
-                self.running_mean.copy_((1 - m) * self.running_mean
-                                        + m * mean)
-                self.running_var.copy_((1 - m) * self.running_var + m * var)
-            else:
+        if self.update_stats:
+            with torch.no_grad():
                 torch._foreach_lerp_([self.running_mean, self.running_var],
-                                     [mean, var], m)
-            self.num_batches_tracked.add_(1)
+                                     [mean, var], self.momentum)
+                self.num_batches_tracked.add_(1)
         return y
+
+
+def fused(bn: BatchNorm, x: torch.Tensor) -> bool:
+    """True where ``bn_act`` hands a card tensor to
+    ``ops.batchnorm.batchnorm_act``: ``bn`` in train mode on this batch's
+    own statistics (no ``stats_group``), its running statistics updated,
+    and no gradient needed.  The layout and type are not asked: the kernels
+    raise for a tensor they do not take."""
+    if not bn.training or bn.stats_group is not None or not bn.update_stats:
+        return False
+    return not (torch.is_grad_enabled() and (x.requires_grad
+                                             or bn.weight.requires_grad))
+
+
+def bn_act(bn: BatchNorm, x: torch.Tensor, residual=None,
+           relu: bool = True) -> torch.Tensor:
+    """``relu?(bn(x) + residual?)`` for x a convolution's output that
+    nothing else reads: on the card where ``fused`` holds, one statistics
+    pass and one pass of normalisation, residual add and ReLU written over
+    x; otherwise (the CPU included) the module and the torch ops."""
+    if x.device.type == "cuda" and fused(bn, x):
+        return batchnorm.batchnorm_act(x, bn, residual, relu)
+    y = bn(x)
+    if residual is not None:
+        y = y + residual
+    return torch.relu(y) if relu else y
 
 
 class Conv2d(nn.Conv2d):
@@ -267,6 +295,15 @@ def _checkpointed(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
         contextlib.nullcontext(), _stats_frozen(block)))
 
 
+def _shortcut(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A residual block's shortcut: x, or its downsample (a 1x1 convolution
+    and a BatchNorm, no ReLU)."""
+    if block.downsample is None:
+        return x
+    conv, bn = block.downsample
+    return bn_act(bn, conv(x), relu=False)
+
+
 class Bottleneck(nn.Module):
     """torchvision-style bottleneck block (expansion 4, stride on the 3x3)."""
 
@@ -285,11 +322,9 @@ class Bottleneck(nn.Module):
         self.downsample = downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = torch.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        residual = x if self.downsample is None else self.downsample(x)
-        return torch.relu(y + residual)
+        y = bn_act(self.bn1, self.conv1(x))
+        y = bn_act(self.bn2, self.conv2(y))
+        return bn_act(self.bn3, self.conv3(y), _shortcut(self, x))
 
 
 class BasicBlock(nn.Module):
@@ -309,10 +344,8 @@ class BasicBlock(nn.Module):
         self.downsample = downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        residual = x if self.downsample is None else self.downsample(x)
-        return torch.relu(y + residual)
+        y = bn_act(self.bn1, self.conv1(x))
+        return bn_act(self.bn2, self.conv2(y), _shortcut(self, x))
 
 
 class ResNet(nn.Module):
@@ -359,7 +392,7 @@ class ResNet(nn.Module):
             # weights crashes (segfaults, heap corruption) at some widths;
             # the CPU computes in contiguous NCHW
             x = x.contiguous()
-        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
+        x = self.maxpool(bn_act(self.bn1, self.conv1(x)))
         remat = self.remat and torch.is_grad_enabled() and any(
             p.requires_grad for p in self.parameters())
         for i in range(1, len(self.stage_sizes) + 1):

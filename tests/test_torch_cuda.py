@@ -1356,3 +1356,254 @@ def test_global_batch_norm_in_a_world_of_one_matches_native(nccl_world,
         scale = max(1.0, b.abs().max().item())
         torch.testing.assert_close(a, b, rtol=tol, atol=tol * scale,
                                    msg=what)
+
+
+# ------------------------------------------ train-mode BN, ReLU and add
+
+# (C, H·W) of ResNet-152's 155 BN layers at 224² (the 12 distinct ones),
+# then the mini stack's widths (C = 2, 8) and widths that leave a lane of
+# a vector idle (24) or take one channel a thread (12 in bf16), at a
+# prime H·W
+BN_SHAPES = [(64, 12544), (64, 3136), (256, 3136), (128, 3136), (128, 784),
+             (512, 784), (256, 784), (256, 196), (1024, 196), (512, 196),
+             (512, 49), (2048, 49), (2, 256), (8, 64), (12, 61), (24, 61)]
+BN_MODES = {"relu": (False, True), "residual_relu": (True, True),
+            "neither": (False, False)}
+def _bn_case(device, dtype, n, c, hw, residual, seed,
+             fmt=torch.channels_last):
+    """(x, residual or None, two BatchNorms alike) on the card: x in
+    ``fmt`` (channels-last, or plain NCHW) with per-channel means and
+    scales, random f32 scale, shift and running statistics."""
+    from situation_recognition_tpu_torch.models.resnet import BatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    h = int(hw ** 0.5)
+    shape = (n, c, h, hw // h) if h * (hw // h) == hw else (n, c, hw, 1)
+    x = (torch.randn(shape, generator=g) * (0.5 + torch.rand(
+        1, c, 1, 1, generator=g) * 2) + torch.randn(1, c, 1, 1, generator=g))
+    x = x.to(device, dtype).contiguous(memory_format=fmt)
+    res = None
+    if residual:
+        res = torch.randn(shape, generator=g).to(device, dtype).contiguous(
+            memory_format=fmt)
+    state = {"weight": torch.rand(c, generator=g) + 0.5,
+             "bias": torch.rand(c, generator=g) * 0.6 - 0.3,
+             "running_mean": torch.randn(c, generator=g),
+             "running_var": torch.rand(c, generator=g) + 0.5}
+    bns = []
+    for _ in range(2):
+        bn = BatchNorm(c).to(device).train()
+        bn.requires_grad_(False)
+        with torch.no_grad():
+            for k, v in state.items():
+                getattr(bn, k).copy_(v)
+        bns.append(bn)
+    return x, res, bns
+
+
+def _check_bn_pair(device, dtype, n, c, hw, mode, seed,
+                   fmt=torch.channels_last):
+    from chip_smoke import bn_excess
+    from situation_recognition_tpu_torch.ops import batchnorm as bk
+
+    residual, relu = BN_MODES[mode]
+    x, res, (bn_k, bn_t) = _bn_case(device, dtype, n, c, hw, residual, seed,
+                                    fmt)
+    with torch.no_grad():
+        pre, mean, invstd = torch.native_batch_norm(
+            x, bn_t.weight, bn_t.bias, None, None, True, 0.0, bn_t.eps)
+        want = bk.batchnorm_act_reference(x, bn_t, res, relu)
+        # the apply kernel on torch's statistics: bit-equal
+        same = bk._lone_apply(x, bn_k, torch.stack([mean, invstd]), res,
+                              relu)
+        before = bk.batchnorm_act.launches
+        got = bk.batchnorm_act(x.clone(), bn_k, res, relu)
+        torch.cuda.synchronize()
+    assert bk.batchnorm_act.launches == before + 1
+    assert got.dtype == dtype and got.is_contiguous(memory_format=fmt)
+    assert torch.equal(same, want)
+    # the pair's own statistics: f32 sums in another order
+    with torch.no_grad():
+        stats = bk._lone_stats(x, bn_k)
+    std = (1 / invstd).max().item()
+    torch.testing.assert_close(stats[0], mean, rtol=1e-5, atol=1e-5 * std)
+    torch.testing.assert_close(stats[1], invstd, rtol=1e-5, atol=0)
+    # so each rounding of the composition may land an ulp the other way:
+    # the output's, and with a residual the normalised value's before the
+    # add; beside the shift that statistics a rounding apart give
+    err, excess = bn_excess(got, want, pre, dtype, res is not None)
+    assert excess <= 0, (err, excess)
+    # the running statistics advanced once by the pair (twice by the pair
+    # and the lone statistics call above): against the twin's once
+    assert int(bn_k.num_batches_tracked) == 2
+    assert int(bn_t.num_batches_tracked) == 1
+    return bn_k, bn_t, mean, std
+
+
+@pytest.mark.parametrize("mode", list(BN_MODES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c,hw", BN_SHAPES)
+def test_batchnorm_kernels_match_twin(cuda_device, c, hw, dtype, mode):
+    """The pair against the twin (``native_batch_norm``, the running
+    update, ``add``, ``relu``) at every layer shape of ResNet-152 at batch
+    4 and the mini stack's widths: the apply kernel on torch's statistics
+    bit-equal; the pair's statistics within f32 rounding, its output
+    within an ulp, the running statistics and the batch count advanced."""
+    _check_bn_pair(cuda_device, dtype, 4, c, hw, mode, seed=c + hw)
+
+
+@pytest.mark.parametrize("mode", list(BN_MODES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c,hw", [(64, 3136), (256, 784), (2048, 49),
+                                  (2, 256), (12, 61)])
+def test_batchnorm_kernels_match_twin_on_plain_nchw(cuda_device, c, hw,
+                                                    dtype, mode):
+    """The planar layout (a plain contiguous NCHW x and residual) held as
+    the channels-last one: the apply on torch's statistics bit-equal, the
+    pair's statistics within f32 rounding, its output within an ulp."""
+    _check_bn_pair(cuda_device, dtype, 4, c, hw, mode, seed=c + hw + 1,
+                   fmt=torch.contiguous_format)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_batchnorm_kernels_at_the_last_stage_of_the_cell(cuda_device,
+                                                         dtype):
+    """1536 x 7 x 7 x 2048: ResNet-152's last bn3 at the benchmark's
+    batch, residual and ReLU; the running statistics against the twin's."""
+    bn_k, bn_t, mean, std = _check_bn_pair(cuda_device, dtype, 1536, 2048,
+                                           49, "residual_relu", seed=9)
+    from situation_recognition_tpu_torch.ops import batchnorm as bk
+
+    # the twin's running statistics after a second update, as bn_k's
+    x, _, _ = _bn_case(cuda_device, dtype, 1536, 2048, 49, False, seed=9)
+    with torch.no_grad():
+        bk.batch_norm_train(x, bn_t)
+    torch.testing.assert_close(bn_k.running_mean, bn_t.running_mean,
+                               rtol=1e-5, atol=1e-5 * std)
+    torch.testing.assert_close(bn_k.running_var, bn_t.running_var,
+                               rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("c,hw,fmt", [
+    (64, 12544, torch.channels_last), (2048, 49, torch.channels_last),
+    (12, 61, torch.channels_last), (64, 3136, torch.contiguous_format)])
+def test_batchnorm_kernels_are_deterministic(cuda_device, c, hw, fmt):
+    """Two runs of the pair on one input: outputs, statistics and running
+    statistics bit-equal (integer tickets, partials merged in index
+    order)."""
+    from situation_recognition_tpu_torch.ops import batchnorm as bk
+
+    x, res, bns = _bn_case(cuda_device, torch.bfloat16, 64, c, hw, True, 3,
+                           fmt)
+    with torch.no_grad():
+        outs = [bk.batchnorm_act(x.clone(), bn, res) for bn in bns]
+        stats = [bk._lone_stats(x, bn) for bn in bns]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(stats[0], stats[1])
+    for a, b in zip(bns[0].buffers(), bns[1].buffers()):
+        assert torch.equal(a, b)
+
+
+def test_batchnorm_kernels_refuse_other_layouts(cuda_device):
+    from situation_recognition_tpu_torch.ops import batchnorm as bk
+
+    x, res, (bn, _) = _bn_case(cuda_device, torch.bfloat16, 2, 16, 49,
+                               True, 1)
+    with pytest.raises(ValueError, match="channels-last"):
+        bk.batchnorm_act(x[:, :, :, ::2], bn)
+    with pytest.raises(ValueError, match="channels-last"):
+        bk.batchnorm_act(x, bn, res.contiguous())
+    with pytest.raises(ValueError, match="channels-last"):
+        bk.batchnorm_act(x.contiguous(), bn, res)
+    with pytest.raises(ValueError, match="channels-last"):
+        bk.batchnorm_act(x.half(), bn)
+    assert int(bn.num_batches_tracked) == 0
+
+
+@pytest.mark.parametrize("case", ["frozen", "train_backbone", "eval"])
+def test_batchnorm_launches_only_in_frozen_train_steps(cuda_device, case):
+    """The pair runs once a BN layer of a frozen train step (the mini
+    stack's 17 layers), never when the backbone is fine-tuned (autograd
+    keeps torch's BN) or in eval mode."""
+    from situation_recognition_tpu_torch.models.resnet import BatchNorm
+    from situation_recognition_tpu_torch.ops import batchnorm as bk
+
+    tr = _mini_trainer(cuda_device, torch.bfloat16,
+                       train_backbone=case == "train_backbone")
+    layers = sum(isinstance(m, BatchNorm) for m in tr.backbone.modules())
+    assert layers == 17
+    batches = _host_batches(tr.encoder, (8, 8), seed=4)
+    before = bk.batchnorm_act.launches
+    if case == "eval":
+        tr.evaluate(batches)
+    else:
+        _, _, losses = tr.train_epoch(batches, 0)
+        assert np.isfinite(losses).all()
+    torch.cuda.synchronize()
+    assert bk.batchnorm_act.launches - before == (
+        2 * layers if case == "frozen" else 0)
+    for m in tr.backbone.modules():
+        if isinstance(m, BatchNorm):
+            assert int(m.num_batches_tracked) == (0 if case == "eval" else 2)
+            assert torch.isfinite(m.running_var).all()
+
+
+def test_batchnorm_launches_none_with_a_stats_group(nccl_world):
+    """A global-statistics world keeps its all-reduced BN: no launch."""
+    from situation_recognition_tpu_torch.models import resnet
+    from situation_recognition_tpu_torch.ops import batchnorm as bk
+
+    dev = torch.device("cuda:0")
+    model = resnet.mini(64).to(dev).train().to(
+        memory_format=torch.channels_last)
+    model.requires_grad_(False)
+    resnet.set_stats_group(model, nccl_world)
+    x = torch.rand(4, 32, 32, 3, device=dev)
+    before = bk.batchnorm_act.launches
+    with torch.no_grad():
+        model(x)
+    torch.cuda.synchronize()
+    assert bk.batchnorm_act.launches == before
+    resnet.set_stats_group(model, None)
+    with torch.no_grad():
+        model(x)
+    torch.cuda.synchronize()
+    assert bk.batchnorm_act.launches == before + 17
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+def test_batchnorm_frozen_step_on_plain_nchw_launches_the_pair(cuda_device,
+                                                               layout,
+                                                               monkeypatch):
+    """A frozen train-mode ResNet on the card whose weights were never made
+    channels-last: fed (B, H, W, 3) windows its convolutions give
+    channels-last outputs, fed windows that are an NCHW tensor's view they
+    give plain NCHW; either way each BN launches the pair, and the
+    features agree with torch's BN (the module's path) on the same weights
+    and input."""
+    from situation_recognition_tpu_torch.models import resnet
+    from situation_recognition_tpu_torch.ops import batchnorm as bk
+
+    models = [resnet.mini(64).to(cuda_device).train() for _ in range(2)]
+    models[1].load_state_dict(models[0].state_dict())
+    for m in models:
+        m.requires_grad_(False)
+    images = torch.rand(4, 32, 32, 3, device=cuda_device)
+    if layout == "nchw":
+        images = images.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    before = bk.batchnorm_act.launches
+    with torch.no_grad():
+        got = models[0](images)
+        torch.cuda.synchronize()
+        assert bk.batchnorm_act.launches - before == 17
+        monkeypatch.setattr(resnet, "fused", lambda bn, x: False)
+        want = models[1](images)
+    torch.cuda.synchronize()
+    assert bk.batchnorm_act.launches - before == 17
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    for a, b in zip(models[0].buffers(), models[1].buffers()):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    counted = [int(m.num_batches_tracked) for m in models[0].modules()
+               if isinstance(m, resnet.BatchNorm)]
+    assert counted == [1] * 17
