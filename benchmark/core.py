@@ -6,6 +6,9 @@ Everything that belongs to one configuration, traffic mix or per-layer
 metric lives in a file of its own, found by its name:
 
 * ``configs/<config>.json`` — the configuration, its source and cuts;
+* ``reference/backbones/<kind>.py`` — the plain reference's backbone of
+  a configuration's ``backbone.kind``: its leaves (what ``seeded`` draws)
+  and its features;
 * ``traffic/<traffic>.json`` — a traffic mix: its ``kind`` (the driver in
   ``drivers/<kind>.py`` that runs it) and its parameters;
 * ``limits/<workload>.json`` — the limits of a cell's correctness check;
@@ -70,6 +73,16 @@ def limits(cell: str, here: str = HERE) -> dict:
     return load_json(here, "limits", cell + ".json")
 
 
+def backbone_fault(name: str, cfg: dict, here: str = HERE):
+    """The fault of configuration ``name`` whose backbone kind has no file
+    of the reference, or None."""
+    kind = cfg["backbone"]["kind"]
+    if isinstance(kind, str) and kind.isidentifier() and os.path.exists(
+            os.path.join(here, "reference", "backbones", kind + ".py")):
+        return None
+    return f"config {name}: no backbone file reference/backbones/{kind}.py"
+
+
 def load_file(path: str, name: str):
     """A module from a file whose name need not be an identifier."""
     mod_spec = importlib.util.spec_from_file_location(name, path)
@@ -113,8 +126,11 @@ def validate(sp: dict, here: str = HERE) -> list:
         name_ok(c["name"], "config")
         for k in c.get("reduced", []):
             name_ok(k, "reduced key")
-        if not os.path.exists(os.path.join(os.path.dirname(here), c["file"])):
+        path = os.path.join(os.path.dirname(here), c["file"])
+        if not os.path.exists(path):
             bad.append(f"config file {c['file']} is missing")
+        elif fault := backbone_fault(c["name"], load_json(path), here):
+            bad.append(fault)
         if set(c) != {"name", "source", "file", "reduced", "why"}:
             bad.append(f"config {c['name']} has keys {sorted(c)}")
     used = set()

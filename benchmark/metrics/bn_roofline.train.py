@@ -22,7 +22,8 @@ def _bn_work(cfg_json: str, batch: int) -> tuple:
     from torch.overrides import TorchFunctionMode
 
     import seeded
-    from reference import nets
+    from reference.backbones import resnet
+    from reference.nets import Precision
 
     cfg = json.loads(cfg_json)
     meta = torch.device("meta")
@@ -50,8 +51,8 @@ def _bn_work(cfg_json: str, batch: int) -> tuple:
 
     x = torch.empty((batch, crop, crop, 3), device=meta)
     with Count():
-        nets.resnet_features(bb, x, cfg["backbone"]["stage_sizes"],
-                             nets.Precision("f32"), bn="train")
+        resnet.forward(bb, x, cfg["backbone"]["stage_sizes"],
+                       Precision("f32"), bn="train")
     item = _ITEM_BYTES[cfg["compute_dtype"]]
     return item * (3 * seen["bn"] + seen["residual"]), seen["layers"]
 

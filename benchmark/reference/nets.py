@@ -1,6 +1,7 @@
-"""The networks in plain PyTorch: the device transform, ResNet v1.5, ViT
-and the FCGGNN head, each a function of a state dict in torchvision's and
-the reference FCGGNN's names.
+"""What the reference's networks share, in plain PyTorch: the rounding of
+activations, the linear layer, the device transform, and the FCGGNN head
+and its losses, a function of a state dict in the reference FCGGNN's
+names.  The backbones are files of their own (``reference/backbones/``).
 
 Every tensor a layer hands on (a product's operands and result, a norm's
 or an activation's output, the residual stream after each add, the GGNN's
@@ -14,12 +15,8 @@ inside a product or a reduction stay float32 in every case, with TF32 off
 
 from __future__ import annotations
 
-import functools
-import math
-
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
@@ -93,109 +90,6 @@ def transform(images_u8: torch.Tensor, flip, crop: int) -> torch.Tensor:
     mean = torch.tensor(MEAN, device=dev)
     std = torch.tensor(STD, device=dev)
     return (y / 255.0 - mean) / std
-
-
-
-# ---------------------------------------------------------------- ResNet
-
-
-def _bn(x, sd, name, mode, stats, eps=1e-5):
-    """Batch norm: in ``train`` mode the batch's mean and biased variance
-    (recorded in ``stats`` by layer name when given), in ``eval`` mode the
-    running ones of the state dict."""
-    if mode == "train":
-        mean = x.mean(dim=(0, 2, 3))
-        var = x.var(dim=(0, 2, 3), unbiased=False)
-        if stats is not None:
-            stats[name] = (mean, var)
-    else:
-        mean, var = sd[name + ".running_mean"], sd[name + ".running_var"]
-    scale = sd[name + ".weight"] * torch.rsqrt(var + eps)
-    return x * scale[None, :, None, None] \
-        + (sd[name + ".bias"] - mean * scale)[None, :, None, None]
-
-
-def _conv_bn(x, sd, conv, bn, p, mode, stats, stride=1, padding=0):
-    y = p(F.conv2d(p(x), p(sd[conv + ".weight"]), None, stride, padding))
-    return p(_bn(y, sd, bn, mode, stats))
-
-
-def resnet_features(sd: dict, x_nhwc: torch.Tensor, stages, p: Precision,
-                    bn: str = "train", stats: dict | None = None):
-    """ResNet v1.5 of Bottleneck blocks (expansion 4, stride on the 3x3)
-    → pooled features (B, 32·base width); batch norm in ``bn`` mode
-    (``train``: batch statistics, recorded in ``stats`` if given;
-    ``eval``: the running statistics)."""
-    x = p(x_nhwc.permute(0, 3, 1, 2).contiguous())
-    cb = functools.partial(_conv_bn, sd=sd, p=p, mode=bn, stats=stats)
-    x = torch.relu(cb(x, conv="conv1", bn="bn1", stride=2, padding=3))
-    x = F.max_pool2d(x, 3, 2, 1)
-    for i, blocks in enumerate(stages):
-        for j in range(blocks):
-            pre = f"layer{i + 1}.{j}."
-            stride = 2 if i > 0 and j == 0 else 1
-            y = torch.relu(cb(x, conv=pre + "conv1", bn=pre + "bn1"))
-            y = torch.relu(cb(y, conv=pre + "conv2", bn=pre + "bn2",
-                              stride=stride, padding=1))
-            y = cb(y, conv=pre + "conv3", bn=pre + "bn3")
-            if pre + "downsample.0.weight" in sd:
-                x = cb(x, conv=pre + "downsample.0", bn=pre + "downsample.1",
-                       stride=stride)
-            x = p(torch.relu(y + x))
-            del y
-    return p(x.mean(dim=(2, 3)))
-
-
-# ------------------------------------------------------------------- ViT
-
-
-def _vit_block(t, sd, pre, heads, eps, p):
-    b, n, d = t.shape
-    dh = d // heads
-    y = p(F.layer_norm(t, (d,), sd[pre + "ln_1.weight"],
-                       sd[pre + "ln_1.bias"], eps))
-    qkv = linear(y, sd[pre + "self_attention.in_proj_weight"],
-                 sd[pre + "self_attention.in_proj_bias"], p)
-    q, k, v = (z.reshape(b, n, heads, dh).transpose(1, 2)
-               for z in qkv.chunk(3, dim=-1))
-    s = (p(q) @ p(k).transpose(-1, -2)) / math.sqrt(dh)
-    o = p(p(torch.softmax(s, dim=-1)) @ p(v))
-    o = o.transpose(1, 2).reshape(b, n, d)
-    t = p(t + linear(o, sd[pre + "self_attention.out_proj.weight"],
-                     sd[pre + "self_attention.out_proj.bias"], p))
-    y = p(F.layer_norm(t, (d,), sd[pre + "ln_2.weight"],
-                       sd[pre + "ln_2.bias"], eps))
-    h = p(F.gelu(linear(y, sd[pre + "mlp.0.weight"], sd[pre + "mlp.0.bias"],
-                        p)))
-    return p(t + linear(h, sd[pre + "mlp.3.weight"], sd[pre + "mlp.3.bias"],
-                        p))
-
-
-def vit_features(sd: dict, x_nhwc: torch.Tensor, patch: int, depth: int,
-                 heads: int, p: Precision, remat: bool = False,
-                 eps: float = 1e-6):
-    """Pre-LN ViT (torchvision's): patch embedding, class token, position
-    embedding, ``depth`` blocks (exact-erf GELU), the final LayerNorm's
-    class-token row → (B, width).  ``remat`` recomputes each block in the
-    backward (memory only; the same numbers)."""
-    b, s = x_nhwc.shape[0], x_nhwc.shape[1]
-    g = s // patch
-    w = sd["conv_proj.weight"]
-    d = w.shape[0]
-    pt = x_nhwc.reshape(b, g, patch, g, patch, 3).permute(0, 1, 3, 5, 2, 4)
-    t = linear(pt.reshape(b, g * g, 3 * patch * patch), w.reshape(d, -1),
-               sd["conv_proj.bias"], p)
-    t = torch.cat([sd["class_token"].expand(b, 1, d), t], dim=1)
-    t = p(t + sd["encoder.pos_embedding"])
-    for i in range(depth):
-        pre = f"encoder.layers.encoder_layer_{i}."
-        if remat and torch.is_grad_enabled():
-            t = checkpoint(_vit_block, t, sd, pre, heads, eps, p,
-                           use_reentrant=False)
-        else:
-            t = _vit_block(t, sd, pre, heads, eps, p)
-    return p(F.layer_norm(t[:, 0], (d,), sd["encoder.ln.weight"],
-                          sd["encoder.ln.bias"], eps))
 
 
 # ------------------------------------------------------------ the head

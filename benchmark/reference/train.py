@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from reference import nets
+from reference import backbones, nets
 
 DROPOUT_STREAM = 1_000_003
 
@@ -28,13 +28,10 @@ def dropout_generator(seed: int, step: int, stream: int, device):
 
 
 def features(cfg: dict, bb: dict, images_u8, flip, p: nets.Precision):
-    """The backbone's features (B, D) of a batch of uint8 windows."""
+    """The backbone's features (B, D) of a batch of uint8 windows, by the
+    file of the configuration's backbone kind."""
     x = p(nets.transform(images_u8, flip, cfg["image"]["crop"]))
-    b = cfg["backbone"]
-    if b["kind"] == "resnet":
-        return nets.resnet_features(bb, x, b["stage_sizes"], p)
-    return nets.vit_features(bb, x, b["patch"], b["depth"], b["heads"], p,
-                             remat=b.get("remat", False))
+    return backbones.of(cfg).features(cfg, bb, x, p)
 
 
 def clip_(grads, max_norm: float) -> None:

@@ -4,13 +4,14 @@
         --trace <0|1>
 
 The cell (``BENCHMARK.json``) names a configuration
-(``benchmark/configs/<config>.json``) and a traffic mix
-(``benchmark/traffic/<traffic>.json``), whose ``kind`` is the driver that
-runs it (``benchmark/drivers/<kind>.py``).  The driver builds the
-program's system under test from the seed, warms every shape the cell
-uses, measures for ``--seconds``, then checks what the timed path
-produced against the plain reference (``benchmark/reference/``) within
-the cell's limits (``benchmark/limits/<cell>.json``).
+(``benchmark/configs/<config>.json``), whose ``backbone.kind`` is the
+plain reference's backbone (``benchmark/reference/backbones/<kind>.py``),
+and a traffic mix (``benchmark/traffic/<traffic>.json``), whose ``kind``
+is the driver that runs it (``benchmark/drivers/<kind>.py``).  The driver
+builds the program's system under test from the seed, warms every shape
+the cell uses, measures for ``--seconds``, then checks what the timed
+path produced against the plain reference (``benchmark/reference/``)
+within the cell's limits (``benchmark/limits/<cell>.json``).
 
 With ``--trace 0`` the result carries the cell's end-to-end metrics, with
 ``--trace 1`` its per-layer metrics, each read by its own reader
@@ -23,7 +24,9 @@ line of standard output is the result:
 
 The run needs a CUDA card (it exits 2 without one, printing no result),
 and it exits 3, printing no result, if JAX, flax or the JAX package was
-loaded, or if the reference holds anything of the program.  ``--fault``
+loaded, or if the reference holds anything of the program.  A
+configuration whose backbone kind has no file ends the run before it
+starts (exit 1, the fault on standard error, no result).  ``--fault``
 breaks the timed path on purpose (the fault checks of
 ``benchmark/tests/`` and the faults' readings on the card); ``--device
 cpu`` runs a cell on the CPU, for those tests only.
@@ -104,6 +107,9 @@ def main(argv=None) -> int:
     sp = core.spec()
     cell = core.workload(sp, args.workload)
     cfg = core.config(cell["config"])
+    fault = core.backbone_fault(cell["config"], cfg)
+    if fault:
+        raise SystemExit(fault)
     tr = core.traffic(cell["traffic"])
     lim = core.limits(cell["name"])
 

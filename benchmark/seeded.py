@@ -14,6 +14,8 @@ import math
 import numpy as np
 import torch
 
+from reference import backbones
+
 #: a seed of up to 64 bits folded into a generator seed
 _MASK = (1 << 63) - 1
 
@@ -84,80 +86,6 @@ def role_counts(ts: dict) -> np.ndarray:
 # ---------------------------------------------------------------- weights
 
 
-def resnet_leaves(stages, base: int, branch_scale: float = 1.0):
-    """(name, shape, init) of a Bottleneck ResNet v1.5 in torchvision's
-    names: convolutions normal with std sqrt(2 / fan_out), BN scale 1 and
-    shift 0, running mean 0 and variance 1; the last BN of each residual
-    branch (``bn3``) scaled ``branch_scale``."""
-    out = []
-
-    def conv(name, cout, cin, k):
-        out.append((name + ".weight", (cout, cin, k, k),
-                    ("normal", math.sqrt(2.0 / (cout * k * k)))))
-
-    def bn(name, c, scale=1.0):
-        out.extend([(name + ".weight", (c,), ("const", scale)),
-                    (name + ".bias", (c,), ("const", 0.0)),
-                    (name + ".running_mean", (c,), ("const", 0.0)),
-                    (name + ".running_var", (c,), ("const", 1.0)),
-                    (name + ".num_batches_tracked", (), ("count", 0))])
-
-    conv("conv1", base, 3, 7)
-    bn("bn1", base)
-    cin, planes = base, base
-    for i, blocks in enumerate(stages):
-        for j in range(blocks):
-            pre = f"layer{i + 1}.{j}."
-            conv(pre + "conv1", planes, cin, 1)
-            bn(pre + "bn1", planes)
-            conv(pre + "conv2", planes, planes, 3)
-            bn(pre + "bn2", planes)
-            conv(pre + "conv3", planes * 4, planes, 1)
-            bn(pre + "bn3", planes * 4, branch_scale)
-            if j == 0:
-                conv(pre + "downsample.0", planes * 4, cin, 1)
-                bn(pre + "downsample.1", planes * 4)
-            cin = planes * 4
-        planes *= 2
-    return out
-
-
-def vit_leaves(patch: int, width: int, depth: int, image: int,
-               mlp_ratio: int = 4):
-    """(name, shape, init) of torchvision's ViT: normal(0.02) position
-    embedding, zero class token, LayerNorms 1 and 0, uniform ±1/sqrt(fan
-    in) projections and patch convolution."""
-    d, n = width, (image // patch) ** 2 + 1
-    fan = 3 * patch * patch
-    out = [("class_token", (1, 1, d), ("const", 0.0)),
-           ("conv_proj.weight", (d, 3, patch, patch),
-            ("uniform", fan ** -0.5)),
-           ("conv_proj.bias", (d,), ("uniform", fan ** -0.5)),
-           ("encoder.pos_embedding", (1, n, d), ("normal", 0.02))]
-    h = d * mlp_ratio
-    for i in range(depth):
-        pre = f"encoder.layers.encoder_layer_{i}."
-        out += [(pre + "ln_1.weight", (d,), ("const", 1.0)),
-                (pre + "ln_1.bias", (d,), ("const", 0.0)),
-                (pre + "self_attention.in_proj_weight", (3 * d, d),
-                 ("uniform", d ** -0.5)),
-                (pre + "self_attention.in_proj_bias", (3 * d,),
-                 ("uniform", d ** -0.5)),
-                (pre + "self_attention.out_proj.weight", (d, d),
-                 ("uniform", d ** -0.5)),
-                (pre + "self_attention.out_proj.bias", (d,),
-                 ("uniform", d ** -0.5)),
-                (pre + "ln_2.weight", (d,), ("const", 1.0)),
-                (pre + "ln_2.bias", (d,), ("const", 0.0)),
-                (pre + "mlp.0.weight", (h, d), ("uniform", d ** -0.5)),
-                (pre + "mlp.0.bias", (h,), ("uniform", d ** -0.5)),
-                (pre + "mlp.3.weight", (d, h), ("uniform", h ** -0.5)),
-                (pre + "mlp.3.bias", (d,), ("uniform", h ** -0.5))]
-    out += [("encoder.ln.weight", (d,), ("const", 1.0)),
-            ("encoder.ln.bias", (d,), ("const", 0.0))]
-    return out
-
-
 def head_leaves(head: dict):
     """(name, shape, init) of the FCGGNN head in the reference's names:
     normal(0, 1) role and verb embeddings (the role table's padding row,
@@ -211,12 +139,9 @@ def make_state(leaves, seed: int, stream: int, device) -> dict:
 
 
 def backbone_leaves(cfg: dict):
-    b = cfg["backbone"]
-    if b["kind"] == "resnet":
-        return resnet_leaves(b["stage_sizes"], b["base_width"],
-                             b.get("branch_bn_scale", 1.0))
-    return vit_leaves(b["patch"], b["width"], b["depth"],
-                      cfg["image"]["crop"])
+    """(name, shape, init) of ``cfg``'s backbone, from the reference's
+    file of its kind (``reference/backbones/<kind>.py``)."""
+    return backbones.of(cfg).leaves(cfg)
 
 
 def weights(cfg: dict, seed: int, device):

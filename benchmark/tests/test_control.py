@@ -6,10 +6,10 @@ import pytest
 import torch
 
 import control
-from conftest import REPO
+from conftest import REPO, TRAIN_CELLS
 
 
-@pytest.mark.parametrize("cell", ["tiny-r", "tiny-v"])
+@pytest.mark.parametrize("cell", TRAIN_CELLS)
 @pytest.mark.parametrize("seed", [1, 2, 3])
 def test_the_control_is_not_correct(checkout, cell, seed):
     torch.set_num_threads(2)

@@ -4,9 +4,9 @@ each fault a cell can have, with the harness's look for a card skipped
 
 import pytest
 
-from conftest import run_cell
+from conftest import TRAIN_CELLS, run_cell
 
-FAULTS = [(cell, fault) for cell in ("tiny-r", "tiny-v")
+FAULTS = [(cell, fault) for cell in TRAIN_CELLS
           for fault in ("unchanged", "half_batch", "altered", "altered_gt")]
 
 

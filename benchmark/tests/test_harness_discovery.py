@@ -1,6 +1,6 @@
-"""The harness finds configurations, cells, traffic mixes and per-layer
-metrics by name: adding each takes new files and the spec's entries, and
-no file that is there is edited."""
+"""The harness finds configurations, backbone kinds, cells, traffic mixes
+and per-layer metrics by name: adding each takes new files and the spec's
+entries, and no file that is there is edited."""
 
 import hashlib
 import json
@@ -10,7 +10,7 @@ import shutil
 import pytest
 
 import core
-from conftest import make_checkout
+from conftest import add_backbone_cell, copy_bench, make_checkout, run_cell
 
 
 def _digests(root):
@@ -67,6 +67,27 @@ def test_new_cell_config_traffic_and_metric_are_new_files_only(tmp_path):
 
     assert reader.read(Ctx) == 7
     assert core.driver("train_epoch", bench).run
+
+
+def test_a_new_backbone_kind_is_new_files_only(tmp_path):
+    # a kind that is a copy of vit.py: its reference file, a tiny
+    # configuration of it, its limits and its fixture cell, all new
+    bench = copy_bench(str(tmp_path))
+    before = _digests(bench)
+    with open(os.path.join(bench, "reference", "backbones", "vit.py")) as f:
+        add_backbone_cell(bench, "vitcopy", "tiny-vc", f.read())
+    after = _digests(bench)
+    assert all(after[k] == v for k, v in before.items())
+    assert len(after) == len(before) + 4
+    root = make_checkout(str(tmp_path / "checkout"), bench)
+    assert core.validate(core.spec(root), os.path.join(root,
+                                                        "benchmark")) == []
+    rc, res, err = run_cell(root, "tiny-vc", seed=2**32 + 5, seconds=1.0)
+    assert rc == 0, err[-3000:]
+    assert res["correct"] is True, res["checks"]
+    assert res["attempted"] > 0 and res["failed"] == 0
+    for c in res["checks"].values():
+        assert c["value"] <= c["limit"]
 
 
 @pytest.mark.parametrize("bad", [

@@ -5,10 +5,10 @@ correct under limits a thousand times tighter than the chip cells'."""
 
 import pytest
 
-from conftest import run_cell
+from conftest import TRAIN_CELLS, run_cell
 
 
-@pytest.mark.parametrize("cell", ["tiny-r", "tiny-v"])
+@pytest.mark.parametrize("cell", TRAIN_CELLS)
 def test_the_port_matches_the_reference_at_f32(checkout, cell):
     rc, res, err = run_cell(checkout, cell, seed=2**31 + 12345, seconds=1.5)
     assert rc == 0, err[-3000:]
