@@ -1,0 +1,22 @@
+"""The Swin window-attention forward's share of its roofline in a
+fine-tuning step: the least time of a step's launches
+(``window_work.step_least_ms``: every block at its shape, twice under
+remat) over the device time a step of ``swin_wattn_fwd_kernel`` in the
+profiled sub-window, a step being ``window_work.launches_a_step`` of its
+launches, in %.  None on a configuration whose backbone kind is not
+``swin``."""
+
+import devtrace
+import window_work
+
+
+def read(ctx):
+    red, c, cfg = ctx.trace, ctx.counters, ctx.config
+    if not red or not ctx.peaks or cfg["backbone"]["kind"] != "swin":
+        return None
+    sec, n = devtrace.kernel_time(red, ("swin_wattn_fwd_kernel",))
+    if not n:
+        return None
+    steps = n / window_work.launches_a_step(cfg, False)
+    least = window_work.step_least_ms(cfg, c["batch"], *ctx.peaks, False)
+    return 100.0 * least / (sec / steps * 1e3)

@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA card (H100).
 
     python3 chip_smoke.py [--seed 0]
-        [--phase dist|export|remat|bench|batchnorm]
+        [--phase dist|export|remat|bench|batchnorm|swin]
 
 (``--phase`` runs that phase alone, after the device and its kernels'
 build, and prints its result as the last line: ``remat`` is the train
@@ -48,6 +48,20 @@ Phases, each printing its seconds:
              ResNet-152 timed (statistics alone, apply alone, the pair,
              the twin) with its TB/s, and a step's totals beside the least
              time of its bytes.
+3c. swin   — the Swin window-attention pair (``ops/swin_kernel.py``:
+             ``swin_wattn_fwd_kernel``, ``swin_wattn_bwd_kernel`` with
+             ``swin_wattn_dbias_kernel``) at Swin-L's block shapes in the
+             ``swinl-ft-256`` cell, batch 256 at 224² (stages of 64, 16, 4
+             and 1 windows of 49 in 6, 12, 24 and 48 heads of 32), masked
+             (shifted) and unmasked: context and dqkv against the twins
+             within ``SWIN_MAX_REL`` / ``SWIN_MEAN_REL``, dbias within
+             ``SWIN_DBIAS_REL``, one launch of each wrapper a call; each
+             timed with CUDA events beside the twins and SDPA's forward
+             (the bias and mask as an additive mask), and a step's totals
+             (the forward twice a block under remat) beside the least time
+             of the work; then a Swin-L + FCGGNN(1536) ``Trainer`` step at
+             batch 256 (fine-tuning, remat) from zeroed counters: finite
+             losses, 48 forward and 24 backward launches.
 4. path    — a full-width ResNet-152 + FCGGNN at bf16 with random weights
              from ``--seed`` and the ``synthetic_full`` vocabulary:
              ``export_inference`` into a temporary directory outside the
@@ -262,9 +276,9 @@ Phases, each printing its seconds:
              stream stack against the per-block path, slopes of CUDA
              event times.
 
-Then a ``kernels`` JSON line (the entries of K1–K3, of the ViT kernels
-and of the BN pair with the registers, spills and shared memory that
-``-Xptxas -v`` reported, and for the GEMMs of K1–K3 and K4/K6 the
+Then a ``kernels`` JSON line (the entries of K1–K3, of the ViT kernels,
+of the BN pair and of the window-attention pair with the registers,
+spills and shared memory that ``-Xptxas -v`` reported, and for the GEMMs of K1–K3 and K4/K6 the
 ``setmaxnreg`` split, the dynamic shared memory that the library states
 and the HGMMA count of each instantiation's SASS; a GEMM without HGMMA, a
 K1–K3 kernel that spills, or an attention instantiation that runs heads
@@ -337,9 +351,11 @@ BURSTS = 3
 # batch of the kernel phase's noun and verb shapes, of the throughput run
 # and of the trainer
 BATCH = 256
-# every kernel source of the serving and training paths, ResNet and ViT
+# every kernel source of the serving and training paths, ResNet, ViT and
+# Swin
 SOURCES = ("ggnn_folded.cu", "ggnn_folded_bwd.cu", "vit_block.cu",
-           "vit_attention.cu", "vit_attention_bwd.cu", "batchnorm.cu")
+           "vit_attention.cu", "vit_attention_bwd.cu", "batchnorm.cu",
+           "swin_attention.cu")
 
 
 def _log(msg: str) -> None:
@@ -1155,6 +1171,240 @@ def _bn_resources() -> dict:
                          "the build log of batchnorm.cu")
     _log("[batchnorm] kernel resources " + json.dumps(found))
     return found
+
+
+# the window-attention pair against its twins (tests/test_torch_cuda.py's
+# tolerances): the same bf16 operands with the scores' f32 sums in other
+# orders, which flips the last bit of a bf16 P, dS or output now and then;
+# dbias, f32 sums of f32 dS over every window, within f32 rounding
+SWIN_MAX_REL = 2 ** -6
+SWIN_MEAN_REL = 2 ** -10
+SWIN_DBIAS_REL = 1e-4
+#: timed calls a shape
+SWIN_REPS = 10
+
+
+def _swin_shapes() -> dict:
+    """{(windows an image, heads, C, tokens a window, masked): blocks} of
+    Swin-L at 224², read off the port's module on meta tensors."""
+    import torch
+
+    from situation_recognition_tpu_torch.models.swin import build_swin
+
+    with torch.device("meta"):
+        model = build_swin("swin_l", 224)
+    out: dict = {}
+    for layer in model.layers:
+        for blk in layer.blocks:
+            key = ((blk.resolution // blk.window) ** 2, blk.attn.heads,
+                   blk.attn.qkv.in_features, blk.window ** 2,
+                   bool(blk.shift))
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def _swin_work(batch: int, nw: int, heads: int, c: int, n: int,
+               masked: bool, backward: bool) -> tuple:
+    """(operations, bytes) of one launch (``benchmark/window_work.py``'s
+    count): q·kᵀ and p·v forward, five products backward; qkv read and the
+    context written (forward), qkv and dO read and dqkv written
+    (backward); the bias, the mask and dbias once."""
+    bw = batch * nw
+    per = bw * heads * n * n * (c // heads)
+    row = bw * n * c * 2
+    consts = heads * n * n * 4 + (nw * n * n * 4 if masked else 0)
+    if backward:
+        return 10 * per, 7 * row + consts + heads * n * n * 4
+    return 4 * per, 4 * row + consts
+
+
+def _swin_case(nw, heads, c, n, masked, seed):
+    """qkv, bias, mask and a cotangent of the core on the card at
+    ``BATCH`` images: qkv N(0, 1) bf16, the gathered bias N(0, 1), the
+    shifted map's mask (√nW windows a side) or None."""
+    import torch
+
+    from situation_recognition_tpu_torch.ops import swin
+
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    m = BATCH * nw * n
+    qkv = torch.randn(m, 3 * c, generator=g, device=DEVICE).to(
+        torch.bfloat16)
+    bias = torch.randn(heads, n, n, generator=g, device=DEVICE)
+    dout = torch.randn(m, c, generator=g, device=DEVICE).to(torch.bfloat16)
+    w = round(n ** 0.5)
+    side = round(nw ** 0.5) * w
+    mask = swin.shift_mask(side, side, w, w // 2).to(DEVICE) if masked \
+        else None
+    return qkv, bias, mask, dout
+
+
+def _swin_sdpa(qkv, bias, mask, heads: int, n: int):
+    """SDPA's forward of the same core: q, k, v as views of qkv, the bias
+    and the window's mask as one bf16 additive mask of (BW, h, N, N)."""
+    import torch
+    import torch.nn.functional as F
+
+    from situation_recognition_tpu_torch.ops import swin
+
+    q, k, v = swin._split(qkv, heads, n)
+    am = bias[None]
+    if mask is not None:
+        am = am + mask[:, None]
+    am = am.expand(q.shape[0] // am.shape[0], *am.shape).reshape(
+        q.shape[0], heads, n, n).to(qkv.dtype)
+    scale = (qkv.shape[1] // 3 // heads) ** -0.5
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am,
+                                                  scale=scale)
+
+
+def _swin_check(key, count: int, seed: int) -> dict:
+    """One block shape of ``_swin_shapes``: the pair against the twins,
+    one launch a call, then each timed."""
+    import torch
+
+    from situation_recognition_tpu_torch.ops import swin
+    from situation_recognition_tpu_torch.ops import swin_kernel as sk
+
+    nw, heads, c, n, masked = key
+    qkv, bias, mask, dout = _swin_case(*key, seed)
+    scale = (c // heads) ** -0.5
+    before = (sk.wattn_forward.launches, sk.wattn_backward.launches)
+    with torch.no_grad():
+        got = sk.wattn_forward(qkv, bias, mask, heads, n)
+        dqkv, dbias = sk.wattn_backward(qkv, bias, mask, dout, heads, n)
+        launched = (sk.wattn_forward.launches - before[0],
+                    sk.wattn_backward.launches - before[1])
+        want = swin.wattn_reference(qkv, bias, mask, heads, n, scale)
+        wdqkv, wdbias = swin.wattn_bwd_reference(qkv, bias, mask, dout,
+                                                 heads, n, scale)
+    torch.cuda.synchronize()
+    errs = {"out": _rel_errors(got, want)}
+    for name, a, b in zip(("dq", "dk", "dv"), dqkv.chunk(3, dim=1),
+                          wdqkv.chunk(3, dim=1)):
+        errs[name] = _rel_errors(a, b)
+    dbias_rel = ((dbias - wdbias).abs().max()
+                 / wdbias.abs().max()).item()
+    del got, dqkv, dbias, want, wdqkv, wdbias
+    torch.cuda.empty_cache()
+    shape = f"{BATCH}x{nw} windows x{heads}x{n} C={c}"
+    bad = [k for k, e in errs.items()
+           if e["max_rel"] > SWIN_MAX_REL or e["mean_rel"] > SWIN_MEAN_REL]
+    if bad or launched != (1, 1) or not dbias_rel <= SWIN_DBIAS_REL:
+        _log(f"[swin] {shape} masked={masked} errors {json.dumps(errs)} "
+             f"dbias_rel {dbias_rel} launches {launched}")
+        raise SystemExit(f"the window-attention pair is off its twins at "
+                         f"{shape}, masked={masked}: {bad}")
+    with torch.no_grad():
+        row = {"shape": shape, "masked": masked, "blocks": count,
+               "errors": errs, "dbias_rel": dbias_rel,
+               "max_abs_err": max(e["max"] for e in errs.values()),
+               "fwd_ms": _time_ms(lambda: sk.wattn_forward(
+                   qkv, bias, mask, heads, n), SWIN_REPS),
+               "bwd_ms": _time_ms(lambda: sk.wattn_backward(
+                   qkv, bias, mask, dout, heads, n), SWIN_REPS),
+               "twin_fwd_ms": _time_ms(lambda: swin.wattn_reference(
+                   qkv, bias, mask, heads, n, scale), 3, 1),
+               "twin_bwd_ms": _time_ms(lambda: swin.wattn_bwd_reference(
+                   qkv, bias, mask, dout, heads, n, scale), 3, 1),
+               "sdpa_fwd_ms": _time_ms(_swin_sdpa(qkv, bias, mask, heads,
+                                                  n), 3, 1)}
+    for kind in ("fwd", "bwd"):
+        ms, by, flops, nbytes = _bound(*_swin_work(
+            BATCH, nw, heads, c, n, masked, kind == "bwd"))
+        row.update({f"{kind}_bound_ms": ms, f"{kind}_bound_by": by,
+                    f"{kind}_flop": flops, f"{kind}_bytes": nbytes})
+    _log("[swin] " + json.dumps(row))
+    del qkv, bias, mask, dout
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_swin(enc, seed: int) -> dict:
+    """The window-attention pair at Swin-L's block shapes, ``BATCH`` images
+    of 224² (``_swin_check`` each), a step's totals (each shape times its
+    blocks, the forward twice under remat), then a Swin-L + FCGGNN(1536)
+    fine-tuning ``Trainer`` step at ``BATCH`` with remat from zeroed
+    counters: 48 forward and 24 backward launches, finite losses."""
+    import numpy as np
+    import torch
+
+    from situation_recognition_tpu_torch.ops import swin_kernel as sk
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+
+    rows = [_swin_check(key, count, seed + i) for i, (key, count) in
+            enumerate(sorted(_swin_shapes().items()))]
+    blocks = sum(r["blocks"] for r in rows)
+    step = {"blocks": blocks}
+    for k, times in (("fwd_ms", 2), ("bwd_ms", 1), ("twin_fwd_ms", 2),
+                     ("twin_bwd_ms", 1), ("sdpa_fwd_ms", 2),
+                     ("fwd_bound_ms", 2), ("bwd_bound_ms", 1)):
+        step[k] = sum(r[k] * r["blocks"] for r in rows) * times
+    step["fwd_share_of_bound"] = step["fwd_bound_ms"] / step["fwd_ms"]
+    step["bwd_share_of_bound"] = step["bwd_bound_ms"] / step["bwd_ms"]
+    _log("[swin] a step " + json.dumps(step))
+
+    sk.wattn_forward.launches = sk.wattn_backward.launches = 0
+    tr = Trainer(enc, TrainerConfig(hidden=1536, batch_size=BATCH,
+                                    backbone="swin_l", train_backbone=True,
+                                    remat_backbone=True, seed=seed))
+    _, _, losses = tr.train_epoch(_train_batches(enc, seed, BATCH, 1), 0)
+    torch.cuda.synchronize()
+    launches = {"forward": sk.wattn_forward.launches,
+                "backward": sk.wattn_backward.launches}
+    _log(f"[swin] a Swin-L train step: launches {json.dumps(launches)}, "
+         f"losses {[float(x) for x in losses]}")
+    if launches != {"forward": 2 * blocks, "backward": blocks} \
+            or not np.all(np.isfinite(losses)):
+        raise SystemExit(f"a Swin-L train step launched {launches}, not "
+                         f"{2 * blocks} + {blocks}, or lost finite losses")
+    del tr
+    torch.cuda.empty_cache()
+    out = {"shapes": rows, "step": step, "train_launches": launches}
+    out["line"] = _swin_line(out, _swin_resources())
+    return out
+
+
+def _swin_resources() -> dict:
+    """``-Xptxas -v``'s registers, spills and static shared memory of
+    ``swin_attention.cu``'s kernels, by name."""
+    from situation_recognition_tpu_torch.ops import _build
+
+    found = _build.kernel_resources(_build.build_log("swin_attention.cu"),
+                                    "swin_wattn_")
+    if not found:
+        raise SystemExit("no -Xptxas -v report of the window-attention "
+                         "kernels in the build log of swin_attention.cu")
+    _log("[swin] kernel resources " + json.dumps(found))
+    return found
+
+
+def _swin_line(sw: dict, resources: dict) -> dict:
+    """The window-attention pair's entry of the ``kernels`` line: a
+    port-only kernel (the JAX package has no Swin), timed over a Swin-L
+    fine-tuning step's blocks at ``BATCH`` (``phase_swin``): the forward
+    (twice a block under remat) as ``ms``, the backward with dbias apart;
+    SDPA's forward of the same core as the library's time."""
+    step = sw["step"]
+    return {"name": "swin_window_attention_pair", "route": "cuda",
+            "source": "situation_recognition_tpu_torch/csrc/"
+                      "swin_attention.cu",
+            "replaces": None,
+            "launches": sum(sw["train_launches"].values()),
+            "launches_by_path": {"ft_train_" + k: v
+                                 for k, v in sw["train_launches"].items()},
+            "checked": True,
+            "max_abs_err": max(r["max_abs_err"] for r in sw["shapes"]),
+            "ms": step["fwd_ms"], "plain_ms": step["twin_fwd_ms"],
+            "bound_ms": step["fwd_bound_ms"], "bound_by": "bytes"
+            if all(r["fwd_bound_by"] == "bytes" for r in sw["shapes"])
+            else "operations",
+            "library_ms": step["sdpa_fwd_ms"],
+            "bwd_ms": step["bwd_ms"], "bwd_plain_ms": step["twin_bwd_ms"],
+            "bwd_bound_ms": step["bwd_bound_ms"],
+            "timed_shape": f"Swin-L's {step['blocks']} blocks at {BATCH} x "
+                           f"224^2, a fine-tuning step",
+            "shapes": sw["shapes"], "resources": resources}
 
 
 def phase_path(enc, seed: int, batch: int, card: str) -> dict:
@@ -5002,7 +5252,7 @@ def phase_bench(enc, seed: int, card: str) -> dict:
 
 
 #: the phases ``--phase`` runs alone
-PHASES_ALONE = ("dist", "export", "remat", "bench", "batchnorm")
+PHASES_ALONE = ("dist", "export", "remat", "bench", "batchnorm", "swin")
 
 
 def main(argv=None) -> int:
@@ -5057,7 +5307,9 @@ def main(argv=None) -> int:
 
     t = time.perf_counter()
     sources = {"dist": ("ggnn_folded.cu",),
-               "batchnorm": ("batchnorm.cu",)}.get(args.phase, SOURCES)
+               "batchnorm": ("batchnorm.cu",),
+               "swin": ("swin_attention.cu", "ggnn_folded.cu")
+               }.get(args.phase, SOURCES)
     _build.build(sources)
     for src in sources:
         _build.load(src)
@@ -5074,7 +5326,8 @@ def main(argv=None) -> int:
                  "export": lambda: phase_export(enc, args.seed, BATCH, smi),
                  "remat": lambda: phase_remat(enc, args.seed, BATCH),
                  "bench": lambda: phase_bench(enc, args.seed, smi),
-                 "batchnorm": lambda: phase_batchnorm(args.seed)
+                 "batchnorm": lambda: phase_batchnorm(args.seed),
+                 "swin": lambda: phase_swin(enc, args.seed)
                  }[args.phase]()
         _phase(args.phase, t)
         print(json.dumps(alone, default=str), flush=True)
@@ -5086,6 +5339,11 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     bn = phase_batchnorm(args.seed)
     _phase("batchnorm", t)
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    sw = phase_swin(enc, args.seed)
+    _phase("swin", t)
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
@@ -5254,6 +5512,7 @@ def main(argv=None) -> int:
         _bn_line(bn, {"train": train["bn_launches"],
                       **{f"resnets_{n}": r["train_bn_launches"]
                          for n, r in resnets.items()}}, _bn_resources()),
+        sw["line"],
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

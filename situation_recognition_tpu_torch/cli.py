@@ -120,7 +120,7 @@ def build_parser() -> ArgumentParser:
                         choices=['resnet18', 'resnet34', 'resnet50',
                                  'resnet101', 'resnet152', 'mini',
                                  'vit_l14', 'vit_l14_clip', 'vit_b16',
-                                 'vit_tiny'],
+                                 'vit_tiny', 'swin_l'],
                         help='Backbone architecture')
     parser.add_argument('--precision', type=str, default='auto',
                         choices=['auto', 'bf16', 'fp32'],
@@ -279,10 +279,13 @@ def _default_hidden(backbone: str) -> int:
     """The head's width for a backbone: its feature width (JAX
     ``default_hidden``)."""
     from situation_recognition_tpu_torch.models.resnet import BASIC_STACKS
+    from situation_recognition_tpu_torch.models.swin import SWIN_WIDTHS
     from situation_recognition_tpu_torch.models.vit import VIT_WIDTHS
 
     if backbone in VIT_WIDTHS:
         return VIT_WIDTHS[backbone]
+    if backbone in SWIN_WIDTHS:
+        return SWIN_WIDTHS[backbone]
     if backbone in BASIC_STACKS:
         return 512
     return 64 if backbone == 'mini' else 2048

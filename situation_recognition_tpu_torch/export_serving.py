@@ -15,7 +15,8 @@ none).  ``--target cuda`` keeps the CUDA kernels in the programs and needs
 the card (bf16 compute for the kernels); ``portable`` exports the plain
 paths, on the card unless ``--platform cpu``.  As in the JAX tool the
 weights are baked into the programs unless ``--external`` writes them to
-``weights.pt`` beside programs that take them as their argument.
+``weights.pt`` beside programs that take them as their argument.  A Swin
+backbone is refused: the serving programs have no Swin path.
 """
 
 from __future__ import annotations
@@ -91,6 +92,11 @@ def main(argv=None) -> None:
                     help="where the programs are traced: auto, the card; "
                          "cpu for a portable artifact without one")
     args = ap.parse_args(argv)
+    from situation_recognition_tpu_torch.models.swin import SWIN_CONFIGS
+
+    if args.backbone in SWIN_CONFIGS:
+        ap.error("a Swin backbone cannot be exported: the serving programs "
+                 "have no Swin path (train and evaluate it with the CLI)")
     if args.target == "cuda" and args.platform == "cpu":
         ap.error("--target cuda traces the CUDA kernels: it needs the card")
 

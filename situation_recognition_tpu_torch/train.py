@@ -71,7 +71,8 @@ scores step k while the card runs step k+1.
 ``train_epoch`` and its uploader record spans (``utils/trace.py``) while a
 ``torch.profiler`` session records in the process, or inside
 ``trace.recording()``, and are silent otherwise: ``train.step`` (one
-iteration of the loop) over ``train.fwd_bwd`` (``accum_step``),
+iteration of the loop) over ``train.fwd_bwd`` (``accum_step``; within
+it ``backbone.forward``, the backbone's call),
 ``train.apply`` (``apply_step``), ``train.readback`` (the losses read back:
 the wait on the card), ``train.fetch`` (the top-k read back) and
 ``train.score``; ``train.batch_wait`` (the loop waiting on the uploader
@@ -657,7 +658,10 @@ class Trainer:
         # BN keeps its true train flag
         self.backbone.train(train and (
             not self._has_bn or self.config.frozen_backbone_bn != "eval"))
-        with torch.set_grad_enabled(grad):
+        # span ``backbone.forward``: train steps only, as evaluation
+        # records none
+        span = trace.span if train else _no_span
+        with torch.set_grad_enabled(grad), span("backbone.forward"):
             return self.backbone(x).float()
 
     def _denominators(self, labels, valid):

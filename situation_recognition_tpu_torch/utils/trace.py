@@ -22,7 +22,9 @@ doing; the profiler does not see the threads Python starts, and
 ``utils/logging.profile_trace`` writes their spans into its trace.
 
 The spans of ``train.py``: ``train.step`` (one iteration of
-``train_epoch``'s loop, parent of ``train.fwd_bwd`` (``accum_step``),
+``train_epoch``'s loop, parent of ``train.fwd_bwd`` (``accum_step``, parent
+of ``backbone.forward``, the backbone's call in ``Trainer._features`` in
+a train step, on every backbone kind: the host's issue of its forward),
 ``train.apply`` (``apply_step``), ``train.readback`` (the losses read back:
 the host waiting on the device), ``train.fetch`` (the top-k read back) and
 ``train.score``), ``train.batch_wait`` (the step loop waiting for the next

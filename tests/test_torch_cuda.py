@@ -1607,3 +1607,197 @@ def test_batchnorm_frozen_step_on_plain_nchw_launches_the_pair(cuda_device,
     counted = [int(m.num_batches_tracked) for m in models[0].modules()
                if isinstance(m, resnet.BatchNorm)]
     assert counted == [1] * 17
+
+
+# ------------------------------------------------------------- the Swin
+
+# Swin-L's four stages at 224: (windows an image, heads, C, window,
+# shifted); the last stage's map is its one window and never shifts
+SWIN_L_STAGES = [(64, 6, 192, 7, True), (16, 12, 384, 7, True),
+                 (4, 24, 768, 7, True), (1, 48, 1536, 7, False)]
+
+
+def _swin_case(images, nw, heads, c, window, masked, seed, device):
+    """qkv, bias, mask and a cotangent of the window-attention core on the
+    card: qkv N(0, 1) in bf16, a bias table's gather N(0, 1), the shifted
+    map's mask (a map of √nW windows a side) or None."""
+    from situation_recognition_tpu_torch.ops import swin
+
+    g = torch.Generator().manual_seed(seed)
+    n = window * window
+    m = images * nw * n
+    qkv = torch.randn(m, 3 * c, generator=g).to(torch.bfloat16)
+    bias = torch.randn(heads, n, n, generator=g)
+    dout = torch.randn(m, c, generator=g).to(torch.bfloat16)
+    side = int(round(nw ** 0.5)) * window
+    mask = (swin.shift_mask(side, side, window, window // 2).to(device)
+            if masked else None)
+    return qkv.to(device), bias.to(device), mask, dout.to(device)
+
+
+# kernel vs twin on the same bf16 operands: the scores' f32 sums run in
+# another order, which flips the last bit of a bf16 P, dS or output now
+# and then (2^-7 of its size at most); dbias is an f32 sum of f32 dS over
+# every window, equal to f32 rounding; a wrong fragment or tile moves
+# elements by the order of the largest one
+SWIN_MAX_REL = 2 ** -6
+SWIN_MEAN_REL = 2 ** -10
+SWIN_DBIAS_REL = 1e-4
+
+
+def _check_swin(qkv, bias, mask, dout, heads, n):
+    from situation_recognition_tpu_torch.ops import swin
+    from situation_recognition_tpu_torch.ops import swin_kernel as sk
+
+    scale = (qkv.shape[1] // 3 // heads) ** -0.5
+    got = sk.wattn_forward(qkv, bias, mask, heads, n)
+    dqkv, dbias = sk.wattn_backward(qkv, bias, mask, dout, heads, n)
+    want = swin.wattn_reference(qkv, bias, mask, heads, n, scale)
+    wdqkv, wdbias = swin.wattn_bwd_reference(qkv, bias, mask, dout, heads,
+                                             n, scale)
+    torch.cuda.synchronize()
+    _assert_close_rel(got, want)
+    for third, want_third in zip(dqkv.chunk(3, dim=1),
+                                 wdqkv.chunk(3, dim=1)):
+        _assert_close_rel(third, want_third)
+    scale_b = wdbias.abs().max().item()
+    err = (dbias - wdbias).abs().max().item()
+    assert err <= SWIN_DBIAS_REL * scale_b, (err, scale_b)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("stage", range(4))
+def test_swin_attention_pair_matches_twins_at_swin_l_stages(cuda_device,
+                                                            stage, masked):
+    """The forward and backward kernels, dbias included, against the twins
+    at each of Swin-L's stage shapes (3 images), with and without the
+    shifted mask."""
+    nw, heads, c, window, shifted = SWIN_L_STAGES[stage]
+    if masked and not shifted:
+        pytest.skip("the last stage never shifts")
+    _check_swin(*_swin_case(3, nw, heads, c, window, masked, stage,
+                            cuda_device), heads, window * window)
+
+
+@pytest.mark.parametrize("nw,heads,window", [(16, 1, 4), (4, 2, 8),
+                                              (1, 3, 1), (4, 2, 2)])
+def test_swin_attention_pair_at_other_windows(cuda_device, nw, heads,
+                                              window):
+    """Windows of 16, 64, 1 and 4 tokens: one whole tile, and tiles of
+    mostly pad rows."""
+    masked = window > 1
+    _check_swin(*_swin_case(2, nw, heads, heads * 32, window, masked, 7,
+                            cuda_device), heads, window * window)
+
+
+def test_swin_attention_pair_is_deterministic(cuda_device):
+    """Two calls of each kernel on the same inputs are bit-equal: dbias is
+    summed over fixed groups of windows, then over the groups in order."""
+    from situation_recognition_tpu_torch.ops import swin_kernel as sk
+
+    qkv, bias, mask, dout = _swin_case(8, 64, 6, 192, 7, True, 3,
+                                       cuda_device)
+    a = sk.wattn_forward(qkv, bias, mask, 6, 49)
+    b = sk.wattn_forward(qkv, bias, mask, 6, 49)
+    da, ba = sk.wattn_backward(qkv, bias, mask, dout, 6, 49)
+    db, bb = sk.wattn_backward(qkv, bias, mask, dout, 6, 49)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(da, db)
+    assert torch.equal(ba, bb)
+
+
+def test_swin_attention_pair_refuses_what_it_does_not_take(cuda_device):
+    from situation_recognition_tpu_torch.ops import swin_kernel as sk
+
+    qkv, bias, mask, dout = _swin_case(1, 4, 2, 64, 7, True, 1, cuda_device)
+    with pytest.raises(ValueError, match="bf16 heads of 32"):
+        sk.wattn_forward(qkv.float(), bias, mask, 2, 49)
+    with pytest.raises(ValueError, match="bf16 heads of 32"):
+        sk.wattn_forward(qkv, bias, mask, 1, 49)
+    big = torch.zeros(81, 3 * 64, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="1..64 tokens"):
+        sk.wattn_forward(big, torch.zeros(2, 81, 81, device=cuda_device),
+                         None, 2, 81)
+    with pytest.raises(ValueError, match="whole images"):
+        sk.wattn_backward(qkv[:3 * 49], bias, mask, dout[:3 * 49], 2, 49)
+
+
+def test_swin_module_kernel_path_matches_plain_on_the_card(cuda_device,
+                                                          monkeypatch):
+    """Swin-micro at bf16 on the card: the kernel path's features and
+    gradients against the same model and weights with the core's twin
+    (plain torch, under autograd) in the pair's place, and a
+    differentiated call under remat launches the forward kernel twice and
+    the backward once a block."""
+    from situation_recognition_tpu_torch.models.swin import build_swin
+    from situation_recognition_tpu_torch.ops import swin
+    from situation_recognition_tpu_torch.ops import swin_kernel as sk
+
+    model = build_swin("swin_micro", 64, torch.bfloat16, remat=True)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to(cuda_device)
+    x = torch.rand(4, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    x = x.to(cuda_device)
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        y = model(x)
+        y.float().square().sum().backward()
+        return y.detach(), [p.grad for p in model.parameters()]
+
+    before = (sk.wattn_forward.launches, sk.wattn_backward.launches)
+    got, got_grads = run()
+    torch.cuda.synchronize()
+    assert (sk.wattn_forward.launches - before[0],
+            sk.wattn_backward.launches - before[1]) == (12, 6)
+    monkeypatch.setattr(
+        sk, "window_attention", lambda qkv, bias, mask, heads, n:
+        swin.wattn_reference(qkv, bias, mask, heads, n,
+                             (qkv.shape[1] // 3 // heads) ** -0.5))
+    want, want_grads = run()
+    torch.cuda.synchronize()
+    _assert_close_rel(got, want)
+    for (name, _), a, b in zip(model.named_parameters(), got_grads,
+                               want_grads):
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        assert err <= 0.05 * scale, (name, err, scale)
+
+
+def test_swin_l_fine_tuning_step_launches_the_pair(cuda_device):
+    """``build_backbone("swin_l", 1536)`` through ``Trainer.train_epoch``
+    with ``train_backbone`` and ``remat_backbone`` on the card: 48 forward
+    and 24 backward launches a step, finite losses."""
+    from situation_recognition_tpu_torch.data.encoder import ImsituEncoder
+    from situation_recognition_tpu_torch.ops import swin_kernel as sk
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+
+    enc = ImsituEncoder.synthetic_full(0)
+    rng = np.random.default_rng(0)
+    n = 4
+    verbs = rng.integers(0, 504, n)
+    labels = np.where(np.arange(6)[None, None, :]
+                      < enc.role_counts[verbs][:, None, None],
+                      rng.integers(0, 2001, (n, 3, 6)), 2001)
+    batch = {"images": rng.integers(0, 256, (n, 256, 256, 3),
+                                    dtype=np.uint8),
+             "flip": rng.random(n) < 0.5, "verbs": verbs, "labels": labels}
+    tr = Trainer(enc, TrainerConfig(hidden=1536, batch_size=n,
+                                    backbone="swin_l", train_backbone=True,
+                                    remat_backbone=True))
+    before = (sk.wattn_forward.launches, sk.wattn_backward.launches)
+    _, _, losses = tr.train_epoch([batch, batch], 0)
+    torch.cuda.synchronize()
+    assert np.isfinite(losses).all()
+    assert (sk.wattn_forward.launches - before[0],
+            sk.wattn_backward.launches - before[1]) == (96, 48)
+
+
+@pytest.mark.parametrize("b,r,verb", [(43, 6, False), (256, 6, False),
+                                      (256, 1, True), (1, 6, False)])
+def test_folded_forward_at_the_swin_head_width(cuda_device, b, r, verb):
+    """K1 and K2 at d = 1536, the Swin-L head's width, which no other
+    configuration runs."""
+    weights, h, mask = _card_case(b, r, 1536, b * r + 1536, cuda_device,
+                                  verb)
+    _check_folded(weights, h, mask, r)

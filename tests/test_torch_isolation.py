@@ -58,8 +58,9 @@ def test_importing_the_port_loads_no_jax():
         "data.native_decoder", "utils.checkpoint", "utils.logging",
         "metrics.scorer", "ops.ggnn", "ops.ggnn_kernel",
         "ops.ggnn_train", "ops._build", "ops.vit", "ops.vit_kernel",
-        "ops.vit_train",
-        "models.resnet", "models.vit", "models.backbone", "models.fcggnn",
+        "ops.vit_train", "ops.swin", "ops.swin_kernel",
+        "models.resnet", "models.vit", "models.swin", "models.backbone",
+        "models.fcggnn",
         "bench", "export_serving", "inference", "utils.msgpack",
         "parallel.distributed", "parallel.mesh", "parallel.spmd",
         "tools.common", "tools.profile_step", "tools.perf_guard",

@@ -96,7 +96,14 @@ def test_a_profiled_epoch_records_every_span_nested_by_batch(setup):
     _, spans = _profiled_epoch(tr, batches)
     names = {s.name for s in spans}
     # upload.slot_wait waits on a pinned slot's CUDA event: the card's
-    assert names == {"train.step", "train.batch_wait", *STEP, *UPLOAD}
+    assert names == {"train.step", "train.batch_wait", "backbone.forward",
+                     *STEP, *UPLOAD}
+    backbone = [s for s in spans if s.name == "backbone.forward"]
+    assert len(backbone) == len(batches)
+    for s in backbone:
+        assert s.parent.name == "train.fwd_bwd" and s.thread == "MainThread"
+        assert s.batch == s.parent.batch
+        assert s.parent.start <= s.start <= s.end <= s.parent.end
     main = [s for s in spans if s.name.startswith("train.")]
     assert {s.thread for s in main} == {"MainThread"}
     assert {s.thread for s in spans if s.name.startswith("upload.")} == \
