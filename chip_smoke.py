@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA card (H100).
 
     python3 chip_smoke.py [--seed 0]
-        [--phase dist|export|remat|bench|batchnorm|swin]
+        [--phase dist|export|remat|bench|batchnorm|swin|layernorm]
 
 (``--phase`` runs that phase alone, after the device and its kernels'
 build, and prints its result as the last line: ``remat`` is the train
@@ -62,6 +62,20 @@ Phases, each printing its seconds:
              of the work; then a Swin-L + FCGGNN(1536) ``Trainer`` step at
              batch 256 (fine-tuning, remat) from zeroed counters: finite
              losses, 48 forward and 24 backward launches.
+3d. layernorm — the LayerNorm pair of the fine-tuning paths
+             (``ops/layernorm.py``: ``ln_rows_fwd_kernel``,
+             ``ln_rows_bwd_kernel`` with ``ln_rows_dparam_kernel``) at every
+             norm shape of the ``vitl14-ft-256`` and ``swinl-ft-256``
+             cells, batch 256 at 224²: y, the row statistics, dx, dgamma
+             and dbeta against the twins within ``LN_MAX_REL``,
+             ``LN_STATS_REL`` and ``LN_DPARAM_REL``, the backward twice
+             bit-equal, one launch a call; each timed with CUDA events
+             beside the twins and ATen's ``native_layer_norm`` and its
+             backward (the library's yardstick), and each model's totals a
+             step beside the least time of the bytes; then one fine-tuning
+             ``Trainer`` step of Swin-L (101 forward, 53 backward
+             launches) and of the smoke's ViT-L/14 (4 forward and 2
+             backward launches a block) from zeroed counters.
 4. path    — a full-width ResNet-152 + FCGGNN at bf16 with random weights
              from ``--seed`` and the ``synthetic_full`` vocabulary:
              ``export_inference`` into a temporary directory outside the
@@ -355,7 +369,7 @@ BATCH = 256
 # Swin
 SOURCES = ("ggnn_folded.cu", "ggnn_folded_bwd.cu", "vit_block.cu",
            "vit_attention.cu", "vit_attention_bwd.cu", "batchnorm.cu",
-           "swin_attention.cu")
+           "swin_attention.cu", "layernorm.cu")
 
 
 def _log(msg: str) -> None:
@@ -1405,6 +1419,257 @@ def _swin_line(sw: dict, resources: dict) -> dict:
             "timed_shape": f"Swin-L's {step['blocks']} blocks at {BATCH} x "
                            f"224^2, a fine-tuning step",
             "shapes": sw["shapes"], "resources": resources}
+
+
+# the LayerNorm pair against its twins: y and dx are one bf16 rounding of
+# f32 values that differ by f32 sums in another order, so an element may
+# land one bf16 step away (2^-7 of the largest element at most); the row
+# statistics are f32 sums in another order (1e-5 relative); dgamma and
+# dbeta are f32 sums over up to 802,816 rows in another order (1e-4 of the
+# largest element)
+LN_MAX_REL = 2 ** -7
+LN_STATS_REL = 1e-5
+LN_DPARAM_REL = 1e-4
+LN_EPS = 1e-5
+#: timed calls a shape; ViT-L/14's published depth (the smoke's models
+#: run ``VIT_DEPTH``, the step counts below use theirs)
+LN_REPS, LN_VIT_BLOCKS = 20, 24
+
+
+def _ln_shapes() -> dict:
+    """{(model, rows an image, D, output type): [forward, backward launches
+    a fine-tuning step]} of ViT-L/14 (its block norms, 257 tokens) and of
+    Swin-L at 224² (every norm: read off the port's module on meta
+    tensors), the blocks' forwards twice under remat."""
+    import torch
+
+    from situation_recognition_tpu_torch.models.swin import build_swin
+
+    out = {("vit_l14", VIT_N, VIT_D, "bf16"): [4 * LN_VIT_BLOCKS,
+                                               2 * LN_VIT_BLOCKS]}
+
+    def add(key, forwards):
+        n = out.setdefault(key, [0, 0])
+        n[0] += forwards
+        n[1] += 1
+
+    with torch.device("meta"):
+        model = build_swin("swin_l", 224)
+    res = 224 // model.cfg.patch
+    add(("swin_l", res * res, model.cfg.embed, "bf16"), 1)
+    for layer in model.layers:
+        for blk in layer.blocks:
+            res = blk.resolution
+            for norm in (blk.norm1, blk.norm2):
+                add(("swin_l", res * res, norm.normalized_shape[0], "bf16"),
+                    2)
+        if layer.downsample is not None:
+            res //= 2
+            add(("swin_l", res * res,
+                 layer.downsample.norm.normalized_shape[0], "bf16"), 1)
+    add(("swin_l", res * res, model.width, "f32"), 1)
+    return out
+
+
+def _ln_check(key, counts, seed: int) -> dict:
+    """One LayerNorm shape of ``_ln_shapes`` at ``BATCH`` images: the pair
+    against its twins (the backward twice, bit-equal), then the forward,
+    the backward, the twins and ATen's ``native_layer_norm`` and its
+    backward (bf16 parameters; the library's yardstick, which the port
+    never calls) timed with CUDA events, beside the bytes' bound."""
+    import torch
+
+    from situation_recognition_tpu_torch.ops import layernorm as lk
+
+    model, per, d, out = key
+    rows = BATCH * per
+    od = torch.float32 if out == "f32" else torch.bfloat16
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = (torch.randn(rows, d, generator=g, device=DEVICE) * 2 + 0.5).to(
+        torch.bfloat16)
+    gamma = 1 + 0.1 * torch.randn(d, generator=g, device=DEVICE)
+    beta = 0.1 * torch.randn(d, generator=g, device=DEVICE)
+    dy = torch.randn(rows, d, generator=g, device=DEVICE).to(od)
+    before = (lk.layer_norm.launches, lk.layer_norm.bwd_launches)
+    y, mean, rstd = lk.ln_forward(x, gamma, beta, LN_EPS, od)
+    dx, dg, db = lk.ln_backward(x, dy, gamma, mean, rstd)
+    again = lk.ln_backward(x, dy, gamma, mean, rstd)
+    torch.cuda.synchronize()
+    launched = (lk.layer_norm.launches - before[0],
+                lk.layer_norm.bwd_launches - before[1])
+    wy, wmean, wrstd = lk.ln_fwd_reference(x, gamma, beta, LN_EPS, od)
+    wdx, wdg, wdb = lk.ln_bwd_reference(x, dy, gamma, wmean, wrstd)
+
+    def rel(a, w):
+        return ((a.float() - w.float()).abs().max()
+                / w.float().abs().max()).item()
+
+    errs = {"y": rel(y, wy), "dx": rel(dx, wdx), "mean": rel(mean, wmean),
+            "rstd": rel(rstd, wrstd), "dgamma": rel(dg, wdg),
+            "dbeta": rel(db, wdb)}
+    limits = {"y": LN_MAX_REL, "dx": LN_MAX_REL, "mean": LN_STATS_REL,
+              "rstd": LN_STATS_REL, "dgamma": LN_DPARAM_REL,
+              "dbeta": LN_DPARAM_REL}
+    bitwise = all(torch.equal(a, b) for a, b in zip((dx, dg, db), again))
+    shape = f"{model} {BATCH}x{per} rows x {d} bf16 -> {out}"
+    bad = [k for k, e in errs.items() if not e <= limits[k]]
+    if bad or not bitwise or launched != (1, 2):
+        _log(f"[layernorm] {shape} errors {json.dumps(errs)} bit-equal "
+             f"backward {bitwise} launches {launched}")
+        raise SystemExit(f"the LayerNorm pair is off its twins at {shape}: "
+                         f"{bad}, bit-equal {bitwise}, launches {launched}")
+    del y, dx, dg, db, again, wy, wmean, wrstd, wdx, wdg, wdb
+    gb, bb, dyb = gamma.to(x.dtype), beta.to(x.dtype), dy.to(x.dtype)
+    _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [d], gb, bb,
+                                                       LN_EPS)
+    row = {"shape": shape, "model": model, "rows": rows, "d": d,
+           "out": out, "forwards": counts[0], "backwards": counts[1],
+           "errors": errs,
+           "fwd_ms": _time_ms(lambda: lk.ln_forward(x, gamma, beta, LN_EPS,
+                                                    od), LN_REPS),
+           "bwd_ms": _time_ms(lambda: lk.ln_backward(x, dy, gamma, mean,
+                                                     rstd), LN_REPS),
+           "twin_fwd_ms": _time_ms(lambda: lk.ln_fwd_reference(
+               x, gamma, beta, LN_EPS, od), 3, 1),
+           "twin_bwd_ms": _time_ms(lambda: lk.ln_bwd_reference(
+               x, dy, gamma, mean, rstd), 3, 1),
+           "library_fwd_ms": _time_ms(
+               lambda: torch.ops.aten.native_layer_norm(x, [d], gb, bb,
+                                                        LN_EPS), LN_REPS),
+           "library_bwd_ms": _time_ms(
+               lambda: torch.ops.aten.native_layer_norm_backward(
+                   dyb, x, [d], lmean, lrstd, gb, bb, [True, True, True]),
+               LN_REPS)}
+    item, out_item = x.element_size(), dy.element_size()
+    for kind, nbytes in (("fwd", rows * d * (item + out_item)),
+                         ("bwd", rows * d * (2 * item + out_item))):
+        row[f"{kind}_bytes"] = nbytes
+        row[f"{kind}_bound_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+        row[f"{kind}_tb_s"] = nbytes / row[f"{kind}_ms"] / 1e9
+    _log("[layernorm] " + json.dumps(row))
+    del x, dy, gamma, beta, mean, rstd, gb, bb, dyb, lmean, lrstd
+    torch.cuda.empty_cache()
+    return row
+
+
+def _ln_step_launches(enc, seed: int, model: str) -> dict:
+    """Forward and backward launches of the pair in one fine-tuning
+    ``Trainer`` step (remat) of ``model`` at 4 images, from zeroed
+    counters, and the blocks of its backbone."""
+    import numpy as np
+    import torch
+
+    from situation_recognition_tpu_torch.ops import layernorm as lk
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+
+    n = 4
+    if model == "swin_l":
+        cfg = TrainerConfig(hidden=1536, batch_size=n, backbone="swin_l",
+                            train_backbone=True, remat_backbone=True,
+                            seed=seed)
+    else:
+        cfg = TrainerConfig(hidden=VIT_D, batch_size=n, backbone=VIT,
+                            image_size=VIT_IMAGE,
+                            compute_dtype=torch.bfloat16, seed=seed,
+                            train_backbone=True, remat_backbone=True)
+    tr = Trainer(enc, cfg, device=DEVICE)
+    bb = tr.backbone
+    blocks = sum(len(layer.blocks) for layer in bb.layers) \
+        if model == "swin_l" else len(bb.encoder.layers)
+    lk.layer_norm.launches = lk.layer_norm.bwd_launches = 0
+    _, _, losses = tr.train_epoch(_train_batches(enc, seed, n, 1), 0)
+    torch.cuda.synchronize()
+    out = {"blocks": blocks, "forward": lk.layer_norm.launches,
+           "backward": lk.layer_norm.bwd_launches,
+           "finite": bool(np.all(np.isfinite(losses)))}
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_layernorm(enc, seed: int) -> dict:
+    """The LayerNorm pair at every shape the ViT-L/14 and Swin-L
+    fine-tuning cells run, ``BATCH`` images of 224² (``_ln_check`` each),
+    each model's totals a step (each shape times its launches), then one
+    fine-tuning ``Trainer`` step of each from zeroed counters: 4 forward
+    and 2 backward launches a ViT block; Swin-L's 101 forward and 53
+    backward."""
+    shapes = _ln_shapes()
+    rows = [_ln_check(key, counts, seed + i) for i, (key, counts) in
+            enumerate(sorted(shapes.items()))]
+    steps = {}
+    for model in ("vit_l14", "swin_l"):
+        mine = [r for r in rows if r["model"] == model]
+        step = {"forwards": sum(r["forwards"] for r in mine),
+                "backwards": sum(r["backwards"] for r in mine)}
+        for k in ("fwd", "bwd", "twin_fwd", "twin_bwd", "library_fwd",
+                  "library_bwd", "fwd_bound", "bwd_bound"):
+            times = "forwards" if k.endswith("fwd") or k == "fwd_bound" \
+                else "backwards"
+            step[k + "_ms"] = sum(r[k + "_ms"] * r[times] for r in mine)
+        step["pair_ms"] = step["fwd_ms"] + step["bwd_ms"]
+        step["bound_ms"] = step["fwd_bound_ms"] + step["bwd_bound_ms"]
+        step["share_of_bound"] = step["bound_ms"] / step["pair_ms"]
+        steps[model] = step
+        _log(f"[layernorm] a {model} step " + json.dumps(step))
+    launches = {m: _ln_step_launches(enc, seed, m)
+                for m in ("swin_l", "vit_l14")}
+    _log("[layernorm] fine-tuning steps " + json.dumps(launches))
+    want = {"swin_l": (steps["swin_l"]["forwards"],
+                       steps["swin_l"]["backwards"]),
+            "vit_l14": (4 * launches["vit_l14"]["blocks"],
+                        2 * launches["vit_l14"]["blocks"])}
+    for m, got in launches.items():
+        if (got["forward"], got["backward"]) != want[m] \
+                or not got["finite"]:
+            raise SystemExit(f"a {m} fine-tuning step launched {got}, not "
+                             f"{want[m]}, or lost finite losses")
+    out = {"shapes": rows, "steps": steps, "train_launches": launches}
+    out["line"] = _ln_line(out, _ln_resources())
+    return out
+
+
+def _ln_resources() -> dict:
+    """``-Xptxas -v``'s registers, spills and static shared memory of
+    ``layernorm.cu``'s kernels, by name."""
+    from situation_recognition_tpu_torch.ops import _build
+
+    found = _build.kernel_resources(_build.build_log("layernorm.cu"),
+                                    "ln_rows_")
+    if not found:
+        raise SystemExit("no -Xptxas -v report of the LayerNorm kernels in "
+                         "the build log of layernorm.cu")
+    _log("[layernorm] kernel resources " + json.dumps(found))
+    return found
+
+
+def _ln_line(ln: dict, resources: dict) -> dict:
+    """The LayerNorm pair's entry of the ``kernels`` line: a port-only
+    kernel (XLA fuses the JAX package's composed LayerNorm), timed over
+    the Swin-L fine-tuning step's norms at ``BATCH`` (``phase_layernorm``),
+    the forward as ``ms`` and the backward apart, ATen's LayerNorm as the
+    library's time; the ViT-L/14 step beside it."""
+    step = ln["steps"]["swin_l"]
+    return {"name": "layernorm_pair", "route": "cuda",
+            "source": "situation_recognition_tpu_torch/csrc/layernorm.cu",
+            "replaces": None,
+            "launches": sum(v["forward"] + v["backward"]
+                            for v in ln["train_launches"].values()),
+            "launches_by_path": {f"ft_train_{m}_{k}": v[k]
+                                 for m, v in ln["train_launches"].items()
+                                 for k in ("forward", "backward")},
+            "checked": True,
+            "ms": step["fwd_ms"], "plain_ms": step["twin_fwd_ms"],
+            "bound_ms": step["fwd_bound_ms"], "bound_by": "bytes",
+            "library_ms": step["library_fwd_ms"],
+            "bwd_ms": step["bwd_ms"], "bwd_plain_ms": step["twin_bwd_ms"],
+            "bwd_bound_ms": step["bwd_bound_ms"],
+            "bwd_library_ms": step["library_bwd_ms"],
+            "vit_l14_step": ln["steps"]["vit_l14"],
+            "timed_shape": f"Swin-L's {step['forwards']} forward and "
+                           f"{step['backwards']} backward LayerNorms at "
+                           f"{BATCH} x 224^2, a fine-tuning step",
+            "shapes": ln["shapes"], "resources": resources}
 
 
 def phase_path(enc, seed: int, batch: int, card: str) -> dict:
@@ -5252,7 +5517,8 @@ def phase_bench(enc, seed: int, card: str) -> dict:
 
 
 #: the phases ``--phase`` runs alone
-PHASES_ALONE = ("dist", "export", "remat", "bench", "batchnorm", "swin")
+PHASES_ALONE = ("dist", "export", "remat", "bench", "batchnorm", "swin",
+                "layernorm")
 
 
 def main(argv=None) -> int:
@@ -5308,7 +5574,11 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     sources = {"dist": ("ggnn_folded.cu",),
                "batchnorm": ("batchnorm.cu",),
-               "swin": ("swin_attention.cu", "ggnn_folded.cu")
+               "swin": ("swin_attention.cu", "ggnn_folded.cu",
+                        "layernorm.cu"),
+               "layernorm": ("layernorm.cu", "swin_attention.cu",
+                             "ggnn_folded.cu", "vit_attention.cu",
+                             "vit_attention_bwd.cu")
                }.get(args.phase, SOURCES)
     _build.build(sources)
     for src in sources:
@@ -5327,7 +5597,8 @@ def main(argv=None) -> int:
                  "remat": lambda: phase_remat(enc, args.seed, BATCH),
                  "bench": lambda: phase_bench(enc, args.seed, smi),
                  "batchnorm": lambda: phase_batchnorm(args.seed),
-                 "swin": lambda: phase_swin(enc, args.seed)
+                 "swin": lambda: phase_swin(enc, args.seed),
+                 "layernorm": lambda: phase_layernorm(enc, args.seed)
                  }[args.phase]()
         _phase(args.phase, t)
         print(json.dumps(alone, default=str), flush=True)
@@ -5344,6 +5615,11 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     sw = phase_swin(enc, args.seed)
     _phase("swin", t)
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    ln = phase_layernorm(enc, args.seed)
+    _phase("layernorm", t)
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
@@ -5513,6 +5789,7 @@ def main(argv=None) -> int:
                       **{f"resnets_{n}": r["train_bn_launches"]
                          for n, r in resnets.items()}}, _bn_resources()),
         sw["line"],
+        ln["line"],
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

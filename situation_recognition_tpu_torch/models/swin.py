@@ -27,8 +27,10 @@ the index in its state dict), so the state dict holds the parameters
 only.
 
 Parameters stay f32 and are cast to the compute type at use, as in
-``models/vit.py``: the LayerNorms in f32 (``ops.vit.ln_f32``) cast to the
-compute type, the projections and the MLP in the compute type under
+``models/vit.py``: the LayerNorms in f32 through ``ops.layernorm.
+layer_norm`` (on the card the hand pair, on the CPU ``ops.vit.ln_f32``)
+rounded to the compute type once (the final norm kept in f32 for the
+mean over the tokens), the projections and the MLP in the compute type under
 autograd, GELU by ``ops.vit.gelu``, the relative-position bias gathered
 from its table in f32 (``F.embedding``, differentiable).  The attention
 core is the window-attention pair of ``ops/swin_kernel.py``: a
@@ -52,9 +54,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from situation_recognition_tpu_torch.ops import swin_kernel
+from situation_recognition_tpu_torch.ops.layernorm import layer_norm
 from situation_recognition_tpu_torch.ops.swin import (
     relative_position_index, shift_mask, window_partition, window_reverse)
-from situation_recognition_tpu_torch.ops.vit import gelu, ln_f32
+from situation_recognition_tpu_torch.ops.vit import gelu
 
 EPS = 1e-5
 
@@ -160,7 +163,7 @@ def _block(x: torch.Tensor, blk: Block) -> torch.Tensor:
     dt = x.dtype
     _, h, w, _ = x.shape
     ws, shift, heads = blk.window, blk.shift, blk.attn.heads
-    y = ln_f32(x, blk.norm1.weight, blk.norm1.bias, EPS).to(dt)
+    y = layer_norm(x, blk.norm1.weight, blk.norm1.bias, EPS, dt)
     if shift:
         y = torch.roll(y, (-shift, -shift), (1, 2))
     qkv = _lin(window_partition(y, ws), blk.attn.qkv)
@@ -170,7 +173,7 @@ def _block(x: torch.Tensor, blk: Block) -> torch.Tensor:
     if shift:
         y = torch.roll(y, (shift, shift), (1, 2))
     x = x + y
-    y = ln_f32(x, blk.norm2.weight, blk.norm2.bias, EPS).to(dt)
+    y = layer_norm(x, blk.norm2.weight, blk.norm2.bias, EPS, dt)
     return x + _lin(gelu(_lin(y, blk.mlp.fc1), False), blk.mlp.fc2)
 
 
@@ -181,7 +184,7 @@ def _merge(x: torch.Tensor, m: PatchMerging) -> torch.Tensor:
     dt = x.dtype
     x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2],
                    x[:, 1::2, 1::2]], dim=-1)
-    return _lin(ln_f32(x, m.norm.weight, m.norm.bias, EPS).to(dt),
+    return _lin(layer_norm(x, m.norm.weight, m.norm.bias, EPS, dt),
                 m.reduction)
 
 
@@ -241,7 +244,7 @@ class SwinTransformer(nn.Module):
         if x.shape[1] != self.image_size // self.cfg.patch:
             raise ValueError(f"images of {images.shape[1]}² for a model of "
                              f"{self.image_size}²")
-        x = ln_f32(x, pe.norm.weight, pe.norm.bias, EPS).to(dt)
+        x = layer_norm(x, pe.norm.weight, pe.norm.bias, EPS, dt)
         remat = self.remat and self._differentiated(x)
         for layer in self.layers:
             for blk in layer.blocks:
@@ -251,7 +254,8 @@ class SwinTransformer(nn.Module):
                     x = _block(x, blk)
             if layer.downsample is not None:
                 x = _merge(x, layer.downsample)
-        x = ln_f32(x, self.norm.weight, self.norm.bias, EPS)
+        x = layer_norm(x, self.norm.weight, self.norm.bias, EPS,
+                       torch.float32)
         return x.mean(dim=(1, 2)).to(dt)
 
     def reset_parameters(self, generator: torch.Generator) -> None:

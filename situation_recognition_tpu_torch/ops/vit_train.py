@@ -5,7 +5,9 @@ Port of the differentiable half of
 ``_ft_block``, ``_ft_cls_stack``), as ``ops/ggnn_train.py`` is of the GGNN's
 backward route.  Only the attention core has a hand-written backward: it is
 the one operation whose autograd would keep (B, h, N, N) probabilities in
-device memory.  Everything else of a block (the LayerNorms, the q/k/v and
+device memory.  The LayerNorms go through ``ops/layernorm.py``
+``layer_norm`` (on the card the hand pair with its own backward; on the
+CPU ``ln_f32`` under autograd).  Everything else of a block (the q/k/v and
 out projections, the MLP) is plain torch on the flattened (B·N, D) stream,
 where autograd emits ordinary products, as XLA's AD does in JAX.
 
@@ -31,7 +33,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from situation_recognition_tpu_torch.ops import vit_kernel
-from situation_recognition_tpu_torch.ops.vit import BlockWeights, gelu, ln_f32
+from situation_recognition_tpu_torch.ops.layernorm import layer_norm
+from situation_recognition_tpu_torch.ops.vit import BlockWeights, gelu
 
 
 class DiffAttention(torch.autograd.Function):
@@ -59,18 +62,19 @@ class DiffAttention(torch.autograd.Function):
 def ft_block(x2: torch.Tensor, w: BlockWeights, heads: int, eps: float,
              quick: bool, folded: bool, n: int) -> torch.Tensor:
     """One encoder block on the (B·n, D) stream of n-token examples, in
-    its type: f32 LayerNorms, projections in the stream's type, the
-    attention core through ``DiffAttention``, GELU — ``reference_block``'s
-    math with the per-head reshapes inside the core."""
+    its type: f32 LayerNorms (``layer_norm``), projections in the
+    stream's type, the attention core through ``DiffAttention``, GELU —
+    ``reference_block``'s math with the per-head reshapes inside the
+    core."""
     dt = x2.dtype
     d = x2.shape[1]
-    y = ln_f32(x2, w.ln1_w, w.ln1_b, eps).to(dt)
+    y = layer_norm(x2, w.ln1_w, w.ln1_b, eps, dt)
     in_w, in_b = w.in_w.to(dt), w.in_b.to(dt)
     q, k, v = (y @ in_w[i * d:(i + 1) * d].t() + in_b[i * d:(i + 1) * d]
                for i in range(3))
     ctx = DiffAttention.apply(q, k, v, heads, folded, n, n)
     x2 = x2 + ctx @ w.out_w.to(dt).t() + w.out_b.to(dt)
-    y = ln_f32(x2, w.ln2_w, w.ln2_b, eps).to(dt)
+    y = layer_norm(x2, w.ln2_w, w.ln2_b, eps, dt)
     h = gelu(y @ w.fc1_w.to(dt).t() + w.fc1_b.to(dt), quick)
     return x2 + h @ w.fc2_w.to(dt).t() + w.fc2_b.to(dt)
 

@@ -1801,3 +1801,144 @@ def test_folded_forward_at_the_swin_head_width(cuda_device, b, r, verb):
     weights, h, mask = _card_case(b, r, 1536, b * r + 1536, cuda_device,
                                   verb)
     _check_folded(weights, h, mask, r)
+
+
+# -------------------------------------------------------- the LayerNorm
+
+# (rows an image, D, output type) of every LayerNorm the ViT-L/14 and
+# Swin-L fine-tuning cells run: ViT's block norms; Swin's patch embedding
+# and stage 1, the three mergings, stages 2-4 and the final norm (f32 out)
+LN_CELL_SHAPES = [(257, 1024, torch.bfloat16), (3136, 192, torch.bfloat16),
+                  (784, 768, torch.bfloat16), (784, 384, torch.bfloat16),
+                  (196, 1536, torch.bfloat16), (196, 768, torch.bfloat16),
+                  (49, 3072, torch.bfloat16), (49, 1536, torch.bfloat16),
+                  (49, 1536, torch.float32)]
+# y and dx against the twins: one rounding to bf16 of f32 values whose
+# sums ran in another order, so an element may land one bf16 step away,
+# 2^-7 of the largest element at most; the row statistics are f32 sums in
+# another order; dgamma and dbeta f32 sums over the rows in another order
+LN_MAX_REL = 2 ** -7
+LN_STATS_REL = 1e-5
+LN_DPARAM_REL = 1e-4
+
+
+def _ln_case(rows, d, out_dtype, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(rows, d, generator=g) * 2 + 0.5).to(torch.bfloat16)
+    gamma = 1 + 0.1 * torch.randn(d, generator=g)
+    beta = 0.1 * torch.randn(d, generator=g)
+    dy = torch.randn(rows, d, generator=g).to(out_dtype)
+    return tuple(t.to(device) for t in (x, gamma, beta, dy))
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("images", [3, 16])
+@pytest.mark.parametrize("per,d,out_dtype", LN_CELL_SHAPES)
+def test_layernorm_pair_matches_twins_at_the_cells_shapes(cuda_device, per, d,
+                                                         out_dtype, images):
+    """The pair at each norm shape of the fine-tuning cells (3 images: rows
+    that fill no whole grid; 16) against its twins on the same operands,
+    one launch of each a call."""
+    from situation_recognition_tpu_torch.ops import layernorm as lk
+
+    x, g, b, dy = _ln_case(images * per, d, out_dtype, per + d, cuda_device)
+    before = (lk.layer_norm.launches, lk.layer_norm.bwd_launches)
+    y, mean, rstd = lk.ln_forward(x, g, b, 1e-5, out_dtype)
+    dx, dg, db = lk.ln_backward(x, dy, g, mean, rstd)
+    torch.cuda.synchronize()
+    assert (lk.layer_norm.launches - before[0],
+            lk.layer_norm.bwd_launches - before[1]) == (1, 1)
+    wy, wmean, wrstd = lk.ln_fwd_reference(x, g, b, 1e-5, out_dtype)
+    wdx, wdg, wdb = lk.ln_bwd_reference(x, dy, g, wmean, wrstd)
+    assert y.dtype == out_dtype and dx.dtype == x.dtype
+    assert _rel(y, wy) <= LN_MAX_REL
+    assert _rel(dx, wdx) <= LN_MAX_REL
+    assert _rel(mean, wmean) <= LN_STATS_REL
+    assert _rel(rstd, wrstd) <= LN_STATS_REL
+    assert _rel(dg, wdg) <= LN_DPARAM_REL
+    assert _rel(db, wdb) <= LN_DPARAM_REL
+
+
+def test_layernorm_pair_is_deterministic(cuda_device):
+    from situation_recognition_tpu_torch.ops import layernorm as lk
+
+    x, g, b, dy = _ln_case(16 * 3136, 192, torch.bfloat16, 5, cuda_device)
+    _, mean, rstd = lk.ln_forward(x, g, b, 1e-5)
+    first = lk.ln_backward(x, dy, g, mean, rstd)
+    second = lk.ln_backward(x, dy, g, mean, rstd)
+    for a, w in zip(first, second):
+        assert torch.equal(a, w)
+
+
+def test_layernorm_pair_refuses_what_it_does_not_take(cuda_device):
+    from situation_recognition_tpu_torch.ops import layernorm as lk
+
+    x, g, b, dy = _ln_case(8, 192, torch.bfloat16, 1, cuda_device)
+    with pytest.raises(ValueError, match="take non-empty rows"):
+        lk.ln_forward(x[:, :40].contiguous(), g[:40], b[:40], 1e-5)
+    with pytest.raises(ValueError, match="take non-empty rows"):
+        lk.ln_forward(x.float(), g, b, 1e-5, torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        lk.ln_forward(x.t(), g[:8], b[:8], 1e-5)
+    with pytest.raises(ValueError, match="f32"):
+        lk.ln_forward(x, g.to(torch.bfloat16), b, 1e-5)
+
+
+def test_layernorm_under_autograd_matches_ln_f32_on_the_card(cuda_device):
+    """``layer_norm`` through ``LayerNormRows`` against autograd over
+    ``ln_f32`` on the card: the same values and gradients within the
+    twins' tolerances."""
+    from situation_recognition_tpu_torch.ops import layernorm as lk
+    from situation_recognition_tpu_torch.ops.vit import ln_f32
+
+    x0, g0, b0, dy = _ln_case(4 * 257, 1024, torch.bfloat16, 9, cuda_device)
+
+    def run(fn):
+        x, g, b = (t.clone().requires_grad_() for t in (x0, g0, b0))
+        y = fn(x, g, b)
+        y.backward(dy)
+        return y.detach(), x.grad, g.grad, b.grad
+
+    got = run(lambda x, g, b: lk.layer_norm(x, g, b, 1e-6))
+    want = run(lambda x, g, b: ln_f32(x, g, b, 1e-6).to(x.dtype))
+    for name, a, w, tol in zip(("y", "dx", "dgamma", "dbeta"), got, want,
+                               (LN_MAX_REL, LN_MAX_REL, LN_DPARAM_REL,
+                                LN_DPARAM_REL)):
+        assert _rel(a, w) <= tol, name
+
+
+@pytest.mark.parametrize("backbone,hidden,want", [
+    ("vit_l14", 1024, (96, 48)), ("swin_l", 1536, (101, 53))])
+def test_fine_tuning_steps_launch_the_layernorm_pair(cuda_device, backbone,
+                                                    hidden, want):
+    """One fine-tuning ``Trainer`` step (remat) launches the pair 4 + 2
+    times a ViT-L/14 block (96 + 48), and 101 + 53 times in Swin-L (its
+    blocks' norms twice forward, the patch embedding, the three mergings
+    and the final norm once)."""
+    from situation_recognition_tpu_torch.data.encoder import ImsituEncoder
+    from situation_recognition_tpu_torch.ops import layernorm as lk
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+
+    enc = ImsituEncoder.synthetic_full(0)
+    rng = np.random.default_rng(1)
+    n = 4
+    verbs = rng.integers(0, 504, n)
+    labels = np.where(np.arange(6)[None, None, :]
+                      < enc.role_counts[verbs][:, None, None],
+                      rng.integers(0, 2001, (n, 3, 6)), 2001)
+    batch = {"images": rng.integers(0, 256, (n, 256, 256, 3),
+                                    dtype=np.uint8),
+             "flip": rng.random(n) < 0.5, "verbs": verbs, "labels": labels}
+    tr = Trainer(enc, TrainerConfig(hidden=hidden, batch_size=n,
+                                    backbone=backbone, train_backbone=True,
+                                    remat_backbone=True))
+    before = (lk.layer_norm.launches, lk.layer_norm.bwd_launches)
+    _, _, losses = tr.train_epoch([batch], 0)
+    torch.cuda.synchronize()
+    assert np.isfinite(losses).all()
+    assert (lk.layer_norm.launches - before[0],
+            lk.layer_norm.bwd_launches - before[1]) == want
