@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA card (H100).
 
     python3 chip_smoke.py [--seed 0]
-        [--phase dist|export|remat|bench|batchnorm|swin|layernorm]
+        [--phase dist|export|remat|batchnorm|swin|layernorm]
 
 (``--phase`` runs that phase alone, after the device and its kernels'
 build, and prints its result as the last line: ``remat`` is the train
@@ -281,14 +281,6 @@ Phases, each printing its seconds:
              each held to its external program within ``LOGIT_TOL`` (bit
              equality printed) with its launches per batch, img/s and the
              host's ms before the first launch beside the external one's.
-10. bench  — ``python -m situation_recognition_tpu_torch.bench`` as a
-             child: the flagship's train step at ``BENCH_BATCH`` (768),
-             ``BENCH_STEPS`` timed, with its eval and serving numbers on
-             its one JSON line; rc 0, the line's keys and 0 < mfu < 1.
-             Then ``python -m situation_recognition_tpu_torch.tools.
-             perf_guard`` once: K1 against the masked GGNN and the ViT
-             stream stack against the per-block path, slopes of CUDA
-             event times.
 
 Then a ``kernels`` JSON line (the entries of K1–K3, of the ViT kernels,
 of the BN pair and of the window-attention pair with the registers,
@@ -3224,8 +3216,10 @@ def _attention_resources() -> dict:
     from situation_recognition_tpu_torch.ops import _build
     from situation_recognition_tpu_torch.ops import vit_kernel as vk
 
-    fwd = vk._lib("vit_attention.cu", "vit_attention_forward_smem")
-    bwd = vk._lib("vit_attention_bwd.cu", "vit_attention_backward_smem")
+    fwd = _build.bind("vit_attention.cu", "vit_attention_forward_smem",
+                      vk.SIGNATURES)
+    bwd = _build.bind("vit_attention_bwd.cu", "vit_attention_backward_smem",
+                      vk.SIGNATURES)
     out = {"vit_attention.cu": {}, "vit_attention_bwd.cu": {}}
     for src, kern in (("vit_attention.cu", "attn_kernel"),
                       ("vit_attention_bwd.cu", "dq_kernel"),
@@ -3237,10 +3231,9 @@ def _attention_resources() -> dict:
         for mangled, res in found.items():
             name, dh, runs = _attention_instance(kern, mangled)
             if kern == "attn_kernel":
-                dynamic = fwd.vit_attention_forward_smem(dh)
+                dynamic = fwd(dh)
             else:
-                dynamic = bwd.vit_attention_backward_smem(
-                    int(kern == "dkv_kernel"), dh)
+                dynamic = bwd(int(kern == "dkv_kernel"), dh)
             out[src][name] = {**res, "dynamic_smem": dynamic,
                               "head_widths": runs}
             at_128 = "dh=128" in name or name.endswith("<chunked>")
@@ -3289,10 +3282,9 @@ def _block_resources() -> dict:
     from situation_recognition_tpu_torch.ops import vit_kernel as vk
 
     src = "vit_block.cu"
-    lib = vk._lib(src, "vit_block_gemm_smem")
-    vk._lib(src, "vit_block_gemm_maxnreg")
-    split = {"producer": lib.vit_block_gemm_maxnreg(0),
-             "consumers": lib.vit_block_gemm_maxnreg(1)}
+    smem, maxnreg = (_build.bind(src, entry, vk.SIGNATURES) for entry in (
+        "vit_block_gemm_smem", "vit_block_gemm_maxnreg"))
+    split = {"producer": maxnreg(0), "consumers": maxnreg(1)}
     hgmma = _sass_hgmma(_build._target(src)[1])
     out = {}
     for kern in ("gemm_kernel", "layernorm_kernel"):
@@ -3309,8 +3301,8 @@ def _block_resources() -> dict:
                 if count == 0:
                     raise SystemExit(f"no HGMMA in the SASS of {name}")
                 out[name] = {**res, "setmaxnreg": split,
-                             "dynamic_smem": lib.vit_block_gemm_smem(
-                                 int(inst.group(1)), int(inst.group(2))),
+                             "dynamic_smem": smem(int(inst.group(1)),
+                                                  int(inst.group(2))),
                              "sass_hgmma": count}
             else:
                 name = ("layernorm_kernel<float>"
@@ -3338,10 +3330,8 @@ def _ggnn_resources(src: str, entry: str, kernels) -> dict:
     from situation_recognition_tpu_torch.ops import _build
     from situation_recognition_tpu_torch.ops import ggnn_kernel as tk
 
-    lib = tk._lib(src, f"{entry}_smem")
-    tk._lib(src, f"{entry}_maxnreg")
-    maxnreg = getattr(lib, f"{entry}_maxnreg")
-    smem = getattr(lib, f"{entry}_smem")
+    smem, maxnreg = (_build.bind(src, f"{entry}_{q}", tk.SIGNATURES)
+                     for q in ("smem", "maxnreg"))
     split = {"producer": maxnreg(0), "consumers": maxnreg(1)}
     hgmma = _sass_hgmma(_build._target(src)[1])
     out = {}
@@ -3380,9 +3370,9 @@ def _gemm_products(x, ctx, w) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from situation_recognition_tpu_torch.ops import _build
     from situation_recognition_tpu_torch.ops import vit_kernel as vk
 
-    lib = vk._lib("vit_block.cu", "vit_block_gemm")
     m, d = x.shape
     hid = w.fc1_w.shape[0]
     r = torch.empty((m, d), dtype=torch.float32, device=x.device)
@@ -3401,10 +3391,8 @@ def _gemm_products(x, ctx, w) -> dict:
                 n, k)
 
         def call():
-            rc = lib.vit_block_gemm(*args,
-                                    torch.cuda.current_stream().cuda_stream)
-            if rc:
-                raise SystemExit(f"vit_block_gemm {name} failed: {rc}")
+            _build.launch("vit_block.cu", "vit_block_gemm", vk.SIGNATURES,
+                          *args, _build.stream(x))
 
         flops = 2 * m * n * k
         ms = _time_ms(call, 10)
@@ -5432,93 +5420,8 @@ def phase_dist(enc, seed: int, batch: int, card: str) -> dict:
     return result
 
 
-# ----------------------------------------------------------- the bench phase
-
-#: ``python -m situation_recognition_tpu_torch.bench``'s run here: train
-#: mode, the flagship at the bench's batch of 768 a card, few timed steps
-#: (its secondary eval and serving numbers at their own minimum of 5), a
-#: budget well inside this script's time
-BENCH_BATCH, BENCH_STEPS, BENCH_BUDGET = 768, 5, 240
-#: the keys the bench's line must carry in train mode
-BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "step_ms", "mfu",
-              "eval_img_s", "serving_img_s")
-
-
-def _module_line(module: str, env: dict, timeout: float, tag: str,
-                 args=()) -> dict:
-    """``python -m module args`` in a child with ``env`` added → its last
-    stdout line as JSON; its stderr's tail is logged; a non-zero exit or
-    a last line that does not parse fails the phase."""
-    full = {k: v for k, v in os.environ.items() if not k.startswith("BENCH")}
-    full.update(PYTHONPATH=_REPO, **env)
-    proc = subprocess.run([sys.executable, "-m", module, *args], env=full,
-                          cwd=_REPO, capture_output=True, text=True,
-                          timeout=timeout)
-    for line in proc.stderr.splitlines()[-25:]:
-        _log(f"[{tag}] stderr | {line}")
-    lines = proc.stdout.strip().splitlines()
-    if proc.returncode != 0 or not lines:
-        raise SystemExit(f"[{tag}] {module} exited {proc.returncode}: "
-                         f"{proc.stdout[-2000:]}")
-    try:
-        return json.loads(lines[-1])
-    except json.JSONDecodeError:
-        raise SystemExit(f"[{tag}] {module}'s last line is no JSON: "
-                         f"{lines[-1]!r}")
-
-
-def phase_bench(enc, seed: int, card: str) -> dict:
-    """K1 against its twin at the bench's shapes (``BENCH_BATCH`` × 6 and
-    × 1, d=2048), then the port's bench as a user runs it, ``python -m
-    situation_recognition_tpu_torch.bench`` in a child: the flagship's
-    train step at ``BENCH_BATCH``, with the eval and serving numbers on
-    the same line; rc 0, every ``BENCH_KEYS`` key, ``0 < mfu < 1`` on the
-    card.  Then ``tools/perf_guard.py`` once (K1 against the masked GGNN,
-    the ViT stream stack against the per-block path), its ratios
-    printed."""
-    import numpy as np
-    import torch
-
-    k1_rows = _k1_rows_at(enc, torch.Generator().manual_seed(seed + 31),
-                          BENCH_BATCH, D, tag="bench")
-    torch.cuda.empty_cache()
-    env = {"BENCH_MODE": "train", "BENCH_BATCH": str(BENCH_BATCH),
-           "BENCH_BACKBONE": BACKBONE, "BENCH_STEPS": str(BENCH_STEPS),
-           "BENCH_TOTAL_BUDGET": str(BENCH_BUDGET), "BENCH_SECONDARY": "1"}
-    if DEVICE == "cpu":
-        env["BENCH_DEVICE"] = "cpu"
-    t = time.perf_counter()
-    line = _module_line("situation_recognition_tpu_torch.bench", env,
-                        BENCH_BUDGET + 60, "bench")
-    bench_s = time.perf_counter() - t
-    missing = [k for k in BENCH_KEYS if k not in line]
-    if missing or "secondary_error" in line or not line.get("value"):
-        raise SystemExit(f"[bench] the line lacks {missing}: {line}")
-    mfu = line["mfu"]
-    if DEVICE == "cuda" and not (mfu is not None and 0 < mfu < 1):
-        raise SystemExit(f"[bench] mfu {mfu} is not in (0, 1): {line}")
-    _log(f"[bench] {json.dumps(line)} ({bench_s:.1f} s; {card})")
-    t = time.perf_counter()
-    guard_env = {"PERF_GUARD_ITERS": "3"}
-    args = []
-    if DEVICE == "cpu":
-        args = ["--device", "cpu", "--batch", "4", "--hidden", str(D),
-                "--vit-batch", "2", "--vit-tokens", "17", "--vit-width",
-                "128", "--vit-blocks", "1"]
-    guard = _module_line("situation_recognition_tpu_torch.tools.perf_guard",
-                         guard_env, 300, "perf_guard", args)
-    for k in ("ggnn_ratio", "vit_ratio"):
-        if not np.isfinite(guard.get(k, float("nan"))) or guard[k] <= 0:
-            raise SystemExit(f"[perf_guard] {k}: {guard}")
-    _log(f"[perf_guard] {json.dumps(guard)} "
-         f"({time.perf_counter() - t:.1f} s; {card})")
-    return {"k1_rows": k1_rows, "bench": line, "bench_s": bench_s,
-            "perf_guard": guard, "card": card}
-
-
 #: the phases ``--phase`` runs alone
-PHASES_ALONE = ("dist", "export", "remat", "bench", "batchnorm", "swin",
-                "layernorm")
+PHASES_ALONE = ("dist", "export", "remat", "batchnorm", "swin", "layernorm")
 
 
 def main(argv=None) -> int:
@@ -5595,7 +5498,6 @@ def main(argv=None) -> int:
         alone = {"dist": lambda: phase_dist(enc, args.seed, BATCH, smi),
                  "export": lambda: phase_export(enc, args.seed, BATCH, smi),
                  "remat": lambda: phase_remat(enc, args.seed, BATCH),
-                 "bench": lambda: phase_bench(enc, args.seed, smi),
                  "batchnorm": lambda: phase_batchnorm(args.seed),
                  "swin": lambda: phase_swin(enc, args.seed),
                  "layernorm": lambda: phase_layernorm(enc, args.seed)
@@ -5698,9 +5600,6 @@ def main(argv=None) -> int:
     export = phase_export(enc, args.seed, BATCH, smi)
     _phase("export", t)
     torch.cuda.empty_cache()
-    t = time.perf_counter()
-    bench = phase_bench(enc, args.seed, smi)
-    _phase("bench", t)
     vit_launches = {k: {path: c[k] for path, c in (
         ("export_program", export["launches"]["vit"]),
         ("serve_stream", vit_path["launches"]["stream"]),
@@ -5733,8 +5632,7 @@ def main(argv=None) -> int:
         ("ggnn_bwd_agg_kernel", "ggnn_bwd_prep_kernel"))
     print(json.dumps({"kernels": [
         _kernel_line("ggnn_folded", "ggnn_folded.cu", 217,
-                     kernel["shapes"] + kernel["k1_more"] + vit_kernel["K1"]
-                     + bench["k1_rows"],
+                     kernel["shapes"] + kernel["k1_more"] + vit_kernel["K1"],
                      {"serve": path["launches"],
                       "train": train_launches["K1"],
                       "accum": accum["launches"]["K1"],

@@ -1,11 +1,19 @@
 """Build a CUDA source of this package with ``nvcc`` into a shared library
-with a plain C interface, and load it with ``ctypes``.
+with a plain C interface, load it with ``ctypes``, and call its entry
+points.
 
 The library is built at first use into ``build/torch_kernels/`` beside the
 package (``build/`` is ignored by git), under a name that carries a hash of
 the source, the headers of ``csrc/`` it includes and the flags, so an
 edited source or header is rebuilt and an unchanged one is loaded as it
 is.  Nothing here runs at import time.
+
+Every entry point of ``csrc/*.cu`` returns a C ``int`` (a CUDA error code
+for a launch, the value asked for by a query) and is bound from a
+signature table that the module owning the kernel keeps: entry name → the
+ctypes types of its C parameters (``c_void_p`` for a pointer or a stream,
+``c_int``, ``c_float``, ``c_double``).  ``bind`` sets them once and caches
+the bound function; ``launch`` calls it and raises on an error code.
 """
 
 from __future__ import annotations
@@ -18,6 +26,8 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -28,6 +38,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict = {}
+# (source, entry) → the bound ctypes function
+_bound: dict = {}
+# device index → its SM count
+_sms: dict = {}
 
 
 def _nvcc() -> str:
@@ -119,6 +133,43 @@ def load(source: str) -> ctypes.CDLL:
         if source not in _libs:
             _libs[source] = ctypes.CDLL(_target(source)[1])
         return _libs[source]
+
+
+def bind(source: str, entry: str, signatures: dict):
+    """The C entry point ``entry`` of ``csrc/<source>`` as a ctypes function
+    returning a C ``int`` and taking ``signatures[entry]``: bound at first
+    use (the library built and loaded then), the same function after."""
+    key = (source, entry)
+    fn = _bound.get(key)
+    if fn is None:
+        fn = getattr(load(source), entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = signatures[entry]
+        _bound[key] = fn
+    return fn
+
+
+def launch(source: str, entry: str, signatures: dict, *args) -> None:
+    """Call ``entry`` of ``csrc/<source>`` (``bind``) with ``args``; a
+    nonzero return, a CUDA error code, raises."""
+    fn = _bound.get((source, entry)) or bind(source, entry, signatures)
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{entry} failed to launch: CUDA error {rc}")
+
+
+def stream(t: torch.Tensor) -> int:
+    """The handle of the current stream of t's card."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA ``device`` (with its index), read once."""
+    n = _sms.get(device.index)
+    if n is None:
+        n = _sms[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
 
 
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")

@@ -35,6 +35,8 @@ from typing import NamedTuple
 
 import torch
 
+from situation_recognition_tpu_torch.ops import _build
+
 #: csrc/batchnorm.cu's block size, loads in flight a thread, and the
 #: statistics kernel's blocks an SM (its ``__launch_bounds__``)
 THREADS, UNROLL, STATS_BLOCKS_PER_SM = 256, 4, 4
@@ -47,7 +49,8 @@ SCALAR, VECTOR, PLANAR = 0, 1, 2
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_double
-_SIGNATURES = {
+#: csrc/batchnorm.cu's entry points → their parameters' ctypes types
+SIGNATURES = {
     "batchnorm_stats": [_I, _I, _P] + [_I] * 5 + [_P] * 6
                        + [_F, _F, _D, _P],
     "batchnorm_apply": [_I, _I, _P, _P, _P] + [_I] * 5 + [_P] * 3
@@ -57,7 +60,6 @@ _SIGNATURES = {
 # per (device index, stream): the statistics kernel's tickets, zero
 # between launches (each launch's last blocks reset theirs)
 _tickets: dict = {}
-_sms: dict = {}
 
 
 class Grid(NamedTuple):
@@ -176,22 +178,6 @@ def batchnorm_act_reference(x: torch.Tensor, bn, residual=None,
 # ------------------------------------------------------------- the card
 
 
-def _lib(entry: str) -> ctypes.CDLL:
-    from situation_recognition_tpu_torch.ops import _build
-
-    lib = _build.load("batchnorm.cu")
-    fn = getattr(lib, entry)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = _SIGNATURES[entry]
-    return lib
-
-
-def _raise_on(rc: int, entry: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{entry} failed to launch: CUDA error {rc}")
-
-
 def _geometry(x: torch.Tensor, *others) -> tuple:
     """(rows, C, H·W, layout, plan) of x on its card."""
     n, c, h, w = x.shape
@@ -201,11 +187,8 @@ def _geometry(x: torch.Tensor, *others) -> tuple:
     if planar or c % vec or any(t.data_ptr() % 16 for t in (x,) + others):
         vec = 1
     layout = PLANAR if planar else VECTOR if vec > 1 else SCALAR
-    dev = x.device.index
-    if dev not in _sms:
-        _sms[dev] = torch.cuda.get_device_properties(
-            x.device).multi_processor_count
-    return rows, c, h * w, layout, plan(rows, c, vec, _sms[dev], planar)
+    return rows, c, h * w, layout, plan(rows, c, vec,
+                                        _build.sm_count(x.device), planar)
 
 
 def _tickets_for(x: torch.Tensor, stream: int, gx: int) -> torch.Tensor:
@@ -240,25 +223,24 @@ def _stats(x, bn, geometry, stream: int) -> torch.Tensor:
     scratch = torch.empty(2 * g.gy * c + g.gx * g.gy, dtype=torch.float32,
                           device=x.device)
     m = bn.momentum
-    rc = _lib("batchnorm_stats").batchnorm_stats(
-        _DTYPES[x.dtype], layout, x.data_ptr(), rows, c, hw, g.tx, g.gy,
-        scratch.data_ptr(), _tickets_for(x, stream, g.gx).data_ptr(),
-        stats.data_ptr(), bn.running_mean.data_ptr(),
-        bn.running_var.data_ptr(), bn.num_batches_tracked.data_ptr(), 1 - m,
-        m, float(bn.eps), stream)
-    _raise_on(rc, "batchnorm_stats")
+    _build.launch(
+        "batchnorm.cu", "batchnorm_stats", SIGNATURES, _DTYPES[x.dtype],
+        layout, x.data_ptr(), rows, c, hw, g.tx, g.gy, scratch.data_ptr(),
+        _tickets_for(x, stream, g.gx).data_ptr(), stats.data_ptr(),
+        bn.running_mean.data_ptr(), bn.running_var.data_ptr(),
+        bn.num_batches_tracked.data_ptr(), 1 - m, m, float(bn.eps), stream)
     return stats
 
 
 def _apply(x, bn, stats, residual, relu: bool, out, geometry,
            stream: int) -> None:
     rows, c, hw, layout, p = geometry
-    rc = _lib("batchnorm_apply").batchnorm_apply(
-        _DTYPES[x.dtype], layout, x.data_ptr(),
+    _build.launch(
+        "batchnorm.cu", "batchnorm_apply", SIGNATURES, _DTYPES[x.dtype],
+        layout, x.data_ptr(),
         None if residual is None else residual.data_ptr(), out.data_ptr(),
         rows, c, hw, p.apply.tx, p.apply.gy, stats.data_ptr(),
         bn.weight.data_ptr(), bn.bias.data_ptr(), int(relu), stream)
-    _raise_on(rc, "batchnorm_apply")
 
 
 def _lone_stats(x: torch.Tensor, bn) -> torch.Tensor:
@@ -268,8 +250,7 @@ def _lone_stats(x: torch.Tensor, bn) -> torch.Tensor:
     updated."""
     _check(x, bn, None)
     with torch.cuda.device(x.device):
-        return _stats(x, bn, _geometry(x),
-                      torch.cuda.current_stream().cuda_stream)
+        return _stats(x, bn, _geometry(x), _build.stream(x))
 
 
 def _lone_apply(x: torch.Tensor, bn, stats: torch.Tensor,
@@ -287,7 +268,7 @@ def _lone_apply(x: torch.Tensor, bn, stats: torch.Tensor,
     with torch.cuda.device(x.device):
         _apply(x, bn, stats, residual, relu, out, _geometry(
             x, out, *(() if residual is None else (residual,))),
-            torch.cuda.current_stream().cuda_stream)
+            _build.stream(x))
     return out
 
 
@@ -302,7 +283,7 @@ def batchnorm_act(x: torch.Tensor, bn, residual=None,
     _check(x, bn, residual)
     geometry = _geometry(x, *(() if residual is None else (residual,)))
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = _build.stream(x)
         _apply(x, bn, _stats(x, bn, geometry, stream), residual, relu, x,
                geometry, stream)
     batchnorm_act.launches += 1

@@ -54,6 +54,7 @@ from typing import NamedTuple
 
 import torch
 
+from situation_recognition_tpu_torch.ops import _build
 from situation_recognition_tpu_torch.ops.ggnn import GGNNParams
 
 #: the kernels take any d that is a multiple of this (a gate tile's group
@@ -342,8 +343,9 @@ def _check_cuda_args(h, mask_rows, weights, r: int) -> None:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# argument types of each C entry: pointers, ints, the stream last
-_SIGNATURES = {
+#: csrc/ggnn_folded.cu's and csrc/ggnn_folded_bwd.cu's entry points → their
+#: parameters' ctypes types
+SIGNATURES = {
     "ggnn_folded_forward": [_P] * 10 + [_I] * 8 + [_P],
     "ggnn_folded_forward_res": [_P] * 14 + [_I] * 8 + [_P],
     "ggnn_folded_backward": [_P] * 14 + [_I] * 10 + [_P],
@@ -352,21 +354,6 @@ _SIGNATURES = {
     "ggnn_folded_bwd_smem": [_I] * 2,
     "ggnn_folded_bwd_maxnreg": [_I],
 }
-
-
-def _lib(source: str, entry: str) -> ctypes.CDLL:
-    from situation_recognition_tpu_torch.ops import _build
-
-    lib = _build.load(source)
-    fn = getattr(lib, entry)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = _SIGNATURES[entry]
-    return lib
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _forward_args(h, mask_rows, weights, r: int, plan):
@@ -390,8 +377,7 @@ def _prepared_args(h, mask_rows, operands, ba, r: int, plan):
         "w_h": (w_h, (d, d), bf), "u_h": (u_h, (d, d), bf),
         "ba": (ba, (1, 3 * d), f32)})
     if plan is None:
-        sms = torch.cuda.get_device_properties(h.device).multi_processor_count
-        plan = tile_plan(m, d, sms)
+        plan = tile_plan(m, d, _build.sm_count(h.device))
     out = h.clone()
     keep = [mask_rows, *operands, ba,
             torch.empty((m, d), dtype=bf, device=h.device),
@@ -413,14 +399,11 @@ def _launch_prepared(h, mask_rows, operands, ba, r: int, steps: int,
     """K1 on the card from prepared operands (``_prepared_args``)."""
     out, keep, plan = _prepared_args(h, mask_rows, operands, ba, r, plan)
     m, d = h.shape
-    lib = _lib("ggnn_folded.cu", "ggnn_folded_forward")
     with torch.cuda.device(h.device):
-        rc = lib.ggnn_folded_forward(
+        _build.launch(
+            "ggnn_folded.cu", "ggnn_folded_forward", SIGNATURES,
             out.data_ptr(), *(t.data_ptr() for t in keep), m, d, r, steps,
-            *plan, _stream(h))
-    if rc != 0:
-        raise RuntimeError(f"ggnn_folded_forward failed to launch: CUDA "
-                           f"error {rc}")
+            *plan, _build.stream(h))
     folded_rows.launches += 1
     return out
 
@@ -467,14 +450,12 @@ def _launch_res(h, mask_rows, weights, r: int, steps: int, plan=None):
     m, d = h.shape
     res = tuple(torch.empty((steps, m, d), dtype=torch.bfloat16,
                             device=h.device) for _ in range(4))
-    lib = _lib("ggnn_folded.cu", "ggnn_folded_forward_res")
     with torch.cuda.device(h.device):
-        rc = lib.ggnn_folded_forward_res(
+        _build.launch(
+            "ggnn_folded.cu", "ggnn_folded_forward_res", SIGNATURES,
             out.data_ptr(), *(t.data_ptr() for t in keep),
-            *(x.data_ptr() for x in res), m, d, r, steps, *plan, _stream(h))
-    if rc != 0:
-        raise RuntimeError(f"ggnn_folded_forward_res failed to launch: "
-                           f"CUDA error {rc}")
+            *(x.data_ptr() for x in res), m, d, r, steps, *plan,
+            _build.stream(h))
     folded_rows_res.launches += 1
     return out, res
 
@@ -495,23 +476,19 @@ def _launch_bwd(g, mask_rows, resids, weights, r: int, steps: int,
     if steps == 0:
         return g.clone(), g.new_empty((0, m, 3 * d))
     if plan is None:
-        sms = torch.cuda.get_device_properties(g.device).multi_processor_count
-        plan = bwd_tile_plan(m, d, sms)
+        plan = bwd_tile_plan(m, d, _build.sm_count(g.device))
     scratch = [torch.empty((m, d), dtype=f32, device=g.device),
                torch.empty((m, d), dtype=f32, device=g.device),
                torch.empty((m, d), dtype=bf, device=g.device)]
     da = torch.empty((steps, m, 3 * d), dtype=bf, device=g.device)
     out = torch.empty_like(g)
-    lib = _lib("ggnn_folded_bwd.cu", "ggnn_folded_backward")
     with torch.cuda.device(g.device):
-        rc = lib.ggnn_folded_backward(
+        _build.launch(
+            "ggnn_folded_bwd.cu", "ggnn_folded_backward", SIGNATURES,
             g.data_ptr(), mask_rows.data_ptr(),
             *(x.data_ptr() for x in resids), wa.data_ptr(), uzr.data_ptr(),
             uh.data_ptr(), *(t.data_ptr() for t in scratch), da.data_ptr(),
-            out.data_ptr(), m, d, r, steps, *plan, _stream(g))
-    if rc != 0:
-        raise RuntimeError(f"ggnn_folded_backward failed to launch: CUDA "
-                           f"error {rc}")
+            out.data_ptr(), m, d, r, steps, *plan, _build.stream(g))
     folded_bwd_rows.launches += 1
     return out, da
 

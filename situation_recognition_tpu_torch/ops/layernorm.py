@@ -45,6 +45,7 @@ import ctypes
 
 import torch
 
+from situation_recognition_tpu_torch.ops import _build
 from situation_recognition_tpu_torch.ops.vit import ln_f32
 
 #: csrc/layernorm.cu's block size, the most 16-byte loads a thread holds
@@ -56,12 +57,11 @@ THREADS, MAX_VPT, MAX_VPT_BWD, BWD_BLOCKS_PER_SM = 256, 4, 3, 2
 _OUT_DTYPES = (torch.bfloat16, torch.float32)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
+#: csrc/layernorm.cu's entry points → their parameters' ctypes types
+SIGNATURES = {
     "ln_rows_forward": [_I] + [_P] * 6 + [_I] * 4 + [_F, _P],
     "ln_rows_backward": [_I] + [_P] * 8 + [_I] * 5 + [_P],
 }
-
-_sms: dict = {}
 
 
 def plan(d: int, most: int = MAX_VPT):
@@ -129,22 +129,6 @@ def ln_bwd_reference(x: torch.Tensor, dy: torch.Tensor, g: torch.Tensor,
 # ------------------------------------------------------------- the card
 
 
-def _lib(entry: str) -> ctypes.CDLL:
-    from situation_recognition_tpu_torch.ops import _build
-
-    lib = _build.load("layernorm.cu")
-    fn = getattr(lib, entry)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = _SIGNATURES[entry]
-    return lib
-
-
-def _raise_on(rc: int, entry: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{entry} failed to launch: CUDA error {rc}")
-
-
 def _aligned(x: torch.Tensor, *others) -> None:
     for t in (x,) + others:
         if t.device != x.device or not t.is_contiguous() \
@@ -178,10 +162,6 @@ def _check(x: torch.Tensor, other_dtype: torch.dtype, most: int,
     return x.numel() // d, d, *p
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def ln_forward(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                eps: float, out_dtype=None):
     """``ln_rows_fwd_kernel`` on x's card: x (..., D) contiguous bf16, γ
@@ -194,11 +174,11 @@ def ln_forward(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     mean, rstd = (torch.empty(rows, dtype=torch.float32, device=x.device)
                   for _ in range(2))
     with torch.cuda.device(x.device):
-        rc = _lib("ln_rows_forward").ln_rows_forward(
-            int(out_dtype == torch.float32), x.data_ptr(),
-            g.data_ptr(), b.data_ptr(), y.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), rows, d, tpr, vpt, float(eps), _stream(x))
-    _raise_on(rc, "ln_rows_forward")
+        _build.launch(
+            "layernorm.cu", "ln_rows_forward", SIGNATURES,
+            int(out_dtype == torch.float32), x.data_ptr(), g.data_ptr(),
+            b.data_ptr(), y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            rows, d, tpr, vpt, float(eps), _build.stream(x))
     layer_norm.launches += 1
     return y, mean, rstd
 
@@ -206,12 +186,8 @@ def ln_forward(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
 def _blocks(x: torch.Tensor, rows: int, tpr: int) -> int:
     """The backward's persistent grid: ``BWD_BLOCKS_PER_SM`` blocks an SM,
     or fewer where the rows do not fill them."""
-    dev = x.device.index
-    if dev not in _sms:
-        _sms[dev] = torch.cuda.get_device_properties(
-            x.device).multi_processor_count
     return max(1, min(-(-rows // (THREADS // tpr)),
-                      BWD_BLOCKS_PER_SM * _sms[dev]))
+                      BWD_BLOCKS_PER_SM * _build.sm_count(x.device)))
 
 
 def ln_backward(x: torch.Tensor, dy: torch.Tensor, g: torch.Tensor,
@@ -235,12 +211,12 @@ def ln_backward(x: torch.Tensor, dy: torch.Tensor, g: torch.Tensor,
     part = torch.empty((blocks, 2, d), dtype=torch.float32, device=x.device)
     dparams = torch.empty((2, d), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        rc = _lib("ln_rows_backward").ln_rows_backward(
+        _build.launch(
+            "layernorm.cu", "ln_rows_backward", SIGNATURES,
             int(dy.dtype == torch.float32), x.data_ptr(), dy.data_ptr(),
             g.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
             part.data_ptr(), dparams.data_ptr(), rows, d, tpr, vpt, blocks,
-            _stream(x))
-    _raise_on(rc, "ln_rows_backward")
+            _build.stream(x))
     layer_norm.bwd_launches += 1
     return dx, dparams[0], dparams[1]
 

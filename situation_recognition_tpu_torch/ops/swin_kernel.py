@@ -37,6 +37,7 @@ import ctypes
 
 import torch
 
+from situation_recognition_tpu_torch.ops import _build
 from situation_recognition_tpu_torch.ops.ggnn_kernel import _check_tensors
 from situation_recognition_tpu_torch.ops.swin import (
     wattn_bwd_reference, wattn_reference)
@@ -49,7 +50,8 @@ MAX_TOKENS = 64
 GRID_BLOCKS = 1536
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
+#: csrc/swin_attention.cu's entry points → their parameters' ctypes types
+SIGNATURES = {
     "swin_wattn_forward": [_P] * 4 + [_I] * 6 + [_F, _P],
     "swin_wattn_backward": [_P] * 7 + [_I] * 6 + [_F, _P],
 }
@@ -69,26 +71,6 @@ def groups(windows: int, heads: int) -> int:
     the shape alone, so that the bias's gradient is summed in the same
     order on every call."""
     return max(1, min(windows, -(-GRID_BLOCKS // heads)))
-
-
-def _lib(entry: str) -> ctypes.CDLL:
-    from situation_recognition_tpu_torch.ops import _build
-
-    lib = _build.load("swin_attention.cu")
-    fn = getattr(lib, entry)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = _SIGNATURES[entry]
-    return lib
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(rc: int, entry: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{entry} failed to launch: CUDA error {rc}")
 
 
 def _check(qkv, bias, mask, heads: int, n: int, dout=None) -> tuple:
@@ -136,12 +118,12 @@ def wattn_forward(qkv: torch.Tensor, bias: torch.Tensor, mask, heads: int,
         raise ValueError(f"no window-attention kernel for {qkv.device}")
     bw, c, nw = _check(qkv, bias, mask, heads, n)
     out = torch.empty((qkv.shape[0], c), dtype=qkv.dtype, device=qkv.device)
-    lib = _lib("swin_wattn_forward")
     with torch.cuda.device(qkv.device):
-        rc = lib.swin_wattn_forward(
+        _build.launch(
+            "swin_attention.cu", "swin_wattn_forward", SIGNATURES,
             qkv.data_ptr(), bias.data_ptr(), _ptr(mask), out.data_ptr(), bw,
-            nw, n, heads, c, groups(bw, heads), float(scale), _stream(qkv))
-    _raise_on(rc, "swin_wattn_forward")
+            nw, n, heads, c, groups(bw, heads), float(scale),
+            _build.stream(qkv))
     wattn_forward.launches += 1
     return out
 
@@ -169,13 +151,12 @@ def wattn_backward(qkv: torch.Tensor, bias: torch.Tensor, mask,
                        device=qkv.device)
     dbias = torch.empty((heads, n, n), dtype=torch.float32,
                         device=qkv.device)
-    lib = _lib("swin_wattn_backward")
     with torch.cuda.device(qkv.device):
-        rc = lib.swin_wattn_backward(
+        _build.launch(
+            "swin_attention.cu", "swin_wattn_backward", SIGNATURES,
             qkv.data_ptr(), bias.data_ptr(), _ptr(mask), dout.data_ptr(),
             dqkv.data_ptr(), part.data_ptr(), dbias.data_ptr(), bw, nw, n,
-            heads, c, g, float(scale), _stream(qkv))
-    _raise_on(rc, "swin_wattn_backward")
+            heads, c, g, float(scale), _build.stream(qkv))
     wattn_backward.launches += 1
     return dqkv, dbias
 

@@ -53,6 +53,7 @@ import math
 
 import torch
 
+from situation_recognition_tpu_torch.ops import _build
 from situation_recognition_tpu_torch.ops.ggnn_kernel import _check_tensors
 from situation_recognition_tpu_torch.ops.vit import (
     BlockWeights, LOG2E, attn_bwd_reference, attn_core_reference,
@@ -63,7 +64,9 @@ from situation_recognition_tpu_torch.ops.vit import (
 D_MULTIPLE = 64
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
+#: csrc/vit_block.cu's, csrc/vit_attention.cu's and csrc/vit_attention_bwd.cu's
+#: entry points → their parameters' ctypes types
+SIGNATURES = {
     "vit_qkv_forward": [_P] * 9 + [_I, _I, _F, _P],
     "vit_out_mlp_forward": [_P] * 14 + [_I, _I, _I, _F, _I, _P],
     "vit_attention_forward": [_P] * 4 + [_I] * 5 + [_F, _F, _I, _P],
@@ -100,21 +103,6 @@ def kernel_weights(w: BlockWeights) -> BlockWeights:
         .contiguous() for t in w))
 
 
-def _lib(source: str, entry: str) -> ctypes.CDLL:
-    from situation_recognition_tpu_torch.ops import _build
-
-    lib = _build.load(source)
-    fn = getattr(lib, entry)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = _SIGNATURES[entry]
-    return lib
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _rows(x: torch.Tensor) -> tuple:
     if x.dim() != 2:
         raise ValueError(f"the stream must be (M, D), got {tuple(x.shape)}")
@@ -140,11 +128,6 @@ def _check_weights(x: torch.Tensor, w: BlockWeights, names) -> None:
     _check_tensors(x.device, want)
 
 
-def _raise_on(rc: int, entry: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{entry} failed to launch: CUDA error {rc}")
-
-
 # ------------------------------------------------------------------ K4
 
 
@@ -154,13 +137,12 @@ def _launch_qkv(x, w: BlockWeights, eps: float):
     _check_weights(x, w, ("ln1_w", "ln1_b", "in_w", "in_b"))
     y = torch.empty_like(x)
     q, k, v = (torch.empty_like(x) for _ in range(3))
-    lib = _lib("vit_block.cu", "vit_qkv_forward")
     with torch.cuda.device(x.device):
-        rc = lib.vit_qkv_forward(
-            x.data_ptr(), w.ln1_w.data_ptr(), w.ln1_b.data_ptr(),
-            w.in_w.data_ptr(), w.in_b.data_ptr(), y.data_ptr(), q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), m, d, float(eps), _stream(x))
-    _raise_on(rc, "vit_qkv_forward")
+        _build.launch(
+            "vit_block.cu", "vit_qkv_forward", SIGNATURES, x.data_ptr(),
+            w.ln1_w.data_ptr(), w.ln1_b.data_ptr(), w.in_w.data_ptr(),
+            w.in_b.data_ptr(), y.data_ptr(), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), m, d, float(eps), _build.stream(x))
     vit_qkv_forward.launches += 1
     return q, k, v
 
@@ -235,13 +217,12 @@ def _launch_attention(q, k, v, heads: int, folded: bool, row_stride: int,
     _, d, b = _attention_rows(q, heads, row_stride, n_valid,
                               {"q": q, "k": k, "v": v})
     out = torch.empty_like(q)
-    lib = _lib("vit_attention.cu", "vit_attention_forward")
     with torch.cuda.device(q.device):
-        rc = lib.vit_attention_forward(
+        _build.launch(
+            "vit_attention.cu", "vit_attention_forward", SIGNATURES,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
             row_stride, n_valid, d, heads, float(scale * LOG2E),
-            float(scale), int(folded), _stream(q))
-    _raise_on(rc, "vit_attention_forward")
+            float(scale), int(folded), _build.stream(q))
     return out
 
 
@@ -333,14 +314,13 @@ def vit_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     stats = torch.empty((3, b, heads, row_stride), dtype=torch.float32,
                         device=q.device)
-    lib = _lib("vit_attention_bwd.cu", "vit_attention_backward")
     with torch.cuda.device(q.device):
-        rc = lib.vit_attention_backward(
+        _build.launch(
+            "vit_attention_bwd.cu", "vit_attention_backward", SIGNATURES,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             stats.data_ptr(), b, row_stride, n_valid, d, heads, float(scale),
-            _stream(q))
-    _raise_on(rc, "vit_attention_backward")
+            _build.stream(q))
     vit_attention_backward.launches += 1
     return dq, dk, dv
 
@@ -365,15 +345,14 @@ def _launch_out_mlp(x, ctx, w: BlockWeights, eps: float, quick: bool):
     y = torch.empty_like(x)
     h = torch.empty((m, hid), dtype=bf, device=x.device)
     out = torch.empty_like(x)
-    lib = _lib("vit_block.cu", "vit_out_mlp_forward")
     with torch.cuda.device(x.device):
-        rc = lib.vit_out_mlp_forward(
-            x.data_ptr(), ctx.data_ptr(), w.out_w.data_ptr(),
-            w.out_b.data_ptr(), w.ln2_w.data_ptr(), w.ln2_b.data_ptr(),
-            w.fc1_w.data_ptr(), w.fc1_b.data_ptr(), w.fc2_w.data_ptr(),
-            w.fc2_b.data_ptr(), r.data_ptr(), y.data_ptr(), h.data_ptr(),
-            out.data_ptr(), m, d, hid, float(eps), int(quick), _stream(x))
-    _raise_on(rc, "vit_out_mlp_forward")
+        _build.launch(
+            "vit_block.cu", "vit_out_mlp_forward", SIGNATURES, x.data_ptr(),
+            ctx.data_ptr(), w.out_w.data_ptr(), w.out_b.data_ptr(),
+            w.ln2_w.data_ptr(), w.ln2_b.data_ptr(), w.fc1_w.data_ptr(),
+            w.fc1_b.data_ptr(), w.fc2_w.data_ptr(), w.fc2_b.data_ptr(),
+            r.data_ptr(), y.data_ptr(), h.data_ptr(), out.data_ptr(), m, d,
+            hid, float(eps), int(quick), _build.stream(x))
     vit_out_mlp_forward.launches += 1
     return out
 

@@ -35,25 +35,11 @@ class StepTimer:
         self._time = 0.0
         self._last: Optional[float] = None
 
-    def start(self) -> None:
-        self._last = time.perf_counter()
-
-    def stop(self, num_images: int) -> float:
-        if self._last is None:
-            raise RuntimeError("StepTimer.stop() without a matching "
-                               "start() (or after reset())")
-        dt = time.perf_counter() - self._last
-        self._steps += 1
-        if self._steps > self.warmup_steps:
-            self._images += num_images
-            self._time += dt
-        return dt
-
     def lap(self, num_images: int) -> float:
         """Interval timing for pipelined loops: each call records the time
         since the previous ``lap`` as one step of ``num_images``.  The
         first lap after ``reset`` only arms the clock, and
-        ``warmup_steps`` more are skipped, as with ``start``/``stop``."""
+        ``warmup_steps`` more are skipped."""
         now = time.perf_counter()
         if self._last is None:
             self._last = now

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from situation_recognition_tpu_torch.ops import _build
 from situation_recognition_tpu_torch.ops import ggnn_kernel as tk
 from situation_recognition_tpu_torch.ops.ggnn import GGNNParams
 
@@ -324,14 +325,14 @@ def test_folded_backward_ring_fits_shared_memory(cuda_device):
     """The library's shared memory per GEMM tile is the ring that
     ``gemm_smem`` describes to the host and fits a block; its setmaxnreg
     split is K1/K2's."""
-    lib = tk._lib("ggnn_folded_bwd.cu", "ggnn_folded_bwd_smem")
-    tk._lib("ggnn_folded_bwd.cu", "ggnn_folded_bwd_maxnreg")
+    smem, maxnreg = (_build.bind("ggnn_folded_bwd.cu", entry, tk.SIGNATURES)
+                     for entry in ("ggnn_folded_bwd_smem",
+                                   "ggnn_folded_bwd_maxnreg"))
     for bm in (64, 128):
         for bn in (64, 128, 256):
-            assert lib.ggnn_folded_bwd_smem(bm, bn) == tk.gemm_smem(bm, bn)
-    assert lib.ggnn_folded_bwd_smem(32, 64) == 0
-    assert (lib.ggnn_folded_bwd_maxnreg(0),
-            lib.ggnn_folded_bwd_maxnreg(1)) == (40, 232)
+            assert smem(bm, bn) == tk.gemm_smem(bm, bn)
+    assert smem(32, 64) == 0
+    assert (maxnreg(0), maxnreg(1)) == (40, 232)
 
 
 @pytest.mark.parametrize("b,r,d,verb", [(43, 6, 1024, False),

@@ -61,10 +61,8 @@ def test_importing_the_port_loads_no_jax():
         "ops.vit_train", "ops.swin", "ops.swin_kernel",
         "models.resnet", "models.vit", "models.swin", "models.backbone",
         "models.fcggnn",
-        "bench", "export_serving", "inference", "utils.msgpack",
+        "export_serving", "inference", "utils.msgpack",
         "parallel.distributed", "parallel.mesh", "parallel.spmd",
-        "tools.common", "tools.profile_step", "tools.perf_guard",
-        "tools.bench_e2e", "tools.bench_input", "tools.bench_vit_block",
         "tools.pack_dataset", "tools.convert_torch", "tools.export_torch")]
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in modules)

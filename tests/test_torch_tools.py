@@ -1,11 +1,7 @@
 """The port's tools (``situation_recognition_tpu_torch/tools/``) on the
-CPU: ``profile_step`` builds its table from a CPU ``torch.profiler`` run
-and names the hand kernels by their CUDA kernel names; ``perf_guard``,
-``bench_vit_block``, ``bench_input`` and ``bench_e2e`` run end to end at
-tiny sizes (checks of the tools, not measurements); ``pack_dataset``
-writes the JAX tool's store byte for byte; a JAX msgpack checkpoint →
-``convert_torch`` → ``.pth`` resumes the port equal to
-``convert.export_reference_checkpoint``, and ``export_torch`` writes it
+CPU: ``pack_dataset`` writes the JAX tool's store byte for byte; a JAX
+msgpack checkpoint → ``convert_torch`` → ``.pth`` resumes the port equal
+to ``convert.export_reference_checkpoint``, and ``export_torch`` writes it
 back to msgpack that the JAX package reads."""
 
 import json
@@ -26,93 +22,6 @@ def _two_intra_op_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
-
-
-def test_profile_step_table_from_a_cpu_run(tmp_path, monkeypatch, capsys):
-    from situation_recognition_tpu_torch.tools import profile_step
-
-    monkeypatch.setenv("BENCH_BATCH", "2")
-    monkeypatch.setenv("BENCH_IMAGE_SIZE", "32")
-    out = profile_step.main(["--device", "cpu", "--steps", "2", "--top", "5",
-                             "--json", str(tmp_path / "p.json"),
-                             "--keep-trace", str(tmp_path / "trace")])
-    printed = capsys.readouterr().out
-    assert "by category:" in printed and "host operators" in printed
-    assert out["rows"] and out["idle_share"] is None
-    assert abs(sum(r["pct"] for r in out["rows"]) - 100.0) < 1e-6
-    assert {"convolution", "gemm"} <= set(out["categories"])
-    assert out["rows"][0]["ms_per_step"] >= out["rows"][-1]["ms_per_step"]
-    with open(tmp_path / "p.json") as f:
-        assert json.load(f)["mode"] == "train"
-    assert os.listdir(tmp_path / "trace") == ["profile_step_train.json"]
-
-
-@pytest.mark.parametrize("name,want", [
-    ("void ggnn_gemm_kernel<0, 128, 256, StepArgs>(CUtensorMap)",
-     "K1/K2 ggnn_folded"),
-    ("ggnn_agg_kernel(bf16 const*)", "K1/K2 ggnn_folded"),
-    ("void ggnn_gemm_kernel<3, 128, 128, BwdArgs>(CUtensorMap)",
-     "K3 ggnn_folded_bwd"),
-    ("ggnn_bwd_prep_kernel(bf16 const*)", "K3 ggnn_folded_bwd"),
-    ("void attn_kernel<true, false>(bf16 const*)", "K5/K7 vit_attention"),
-    ("void dkv_kernel<true>(bf16 const*)", "K8 vit_attention_bwd"),
-    ("void gemm_kernel<0, 256>(CUtensorMap)", "K4/K6 vit_block"),
-    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc",
-     "convolution"),
-    ("nvjet_hsh_256x128_64x4_1x2_h_bz_coopA_NTN", "gemm"),
-    ("ncclDevKernel_AllReduce_Sum_f32_RING_LL", "collective"),
-    ("Memcpy HtoD (Pinned -> Device)", "copy"),
-    ("void at::native::vectorized_elementwise_kernel<4>", "elementwise")])
-def test_profile_step_categories(name, want):
-    from situation_recognition_tpu_torch.tools.profile_step import category
-
-    assert category(name) == want
-
-
-def test_perf_guard_and_bench_vit_block_run(capsys):
-    from situation_recognition_tpu_torch.tools import (
-        bench_vit_block, perf_guard)
-
-    os.environ["PERF_GUARD_ITERS"] = "1"
-    try:
-        out = perf_guard.main(["--device", "cpu", "--batch", "2",
-                               "--hidden", "64", "--vit-batch", "1",
-                               "--vit-tokens", "9", "--vit-width", "64",
-                               "--vit-blocks", "1"])
-    finally:
-        del os.environ["PERF_GUARD_ITERS"]
-    for k in ("ggnn_kernel_ms", "ggnn_masked_ms", "ggnn_ratio",
-              "vit_stream_ms", "vit_block_ms", "vit_ratio"):
-        assert out[k] > 0, k
-    assert json.loads(capsys.readouterr().out.strip()) == out
-    rows = bench_vit_block.main(["--device", "cpu", "--batch", "1",
-                                 "--blocks", "1", "--tokens", "9", "--dim",
-                                 "64", "--iters", "1"])
-    assert [r["variant"] for r in rows] == [
-        "plain", "block:softmax", "block:exp2", "stream:exp2"]
-    assert rows[0]["max_abs_diff_vs_plain"] == 0.0
-    # the kernels' twins in bf16 against the plain block
-    assert all(r["max_abs_diff_vs_plain"] < 0.05 for r in rows)
-
-
-def test_bench_input_and_bench_e2e_run(monkeypatch, capsys):
-    from situation_recognition_tpu_torch.tools import bench_e2e, bench_input
-
-    rows = bench_input.main(["--n", "8", "--batch", "4", "--workers", "1",
-                             "--epochs", "1"])
-    assert [r["decoder"] for r in rows] == ["native", "python",
-                                            "python cached"]
-    assert rows[1]["img_s"][0] > 0 and rows[2]["img_s"][0] > 0
-    assert "img_s" in rows[0] or "unavailable" in rows[0]
-    monkeypatch.setenv("BENCH_BATCH", "4")
-    monkeypatch.setenv("BENCH_WORKERS", "1")
-    out = bench_e2e.main(["8", "--device", "cpu", "--steps", "1"])
-    for k in ("input_cold", "input_cache_fill", "input_warm", "step", "e2e",
-              "e2e_devcache"):
-        assert out[k] > 0, k
-    assert "h2d" not in out and out["bottleneck"] in ("input_warm", "step")
-    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
-        == out
 
 
 def test_pack_dataset_writes_the_jax_tools_store(tmp_path):
