@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA card (H100).
 
     python3 chip_smoke.py [--seed 0]
-        [--phase dist|export|remat|batchnorm|swin|layernorm]
+        [--phase dist|export|remat|batchnorm|swin|layernorm|gelu]
 
 (``--phase`` runs that phase alone, after the device and its kernels'
 build, and prints its result as the last line: ``remat`` is the train
@@ -76,6 +76,16 @@ Phases, each printing its seconds:
              ``Trainer`` step of Swin-L (101 forward, 53 backward
              launches) and of the smoke's ViT-L/14 (4 forward and 2
              backward launches a block) from zeroed counters.
+3e. gelu   — the bias + GELU pair of the fine-tuning MLPs (``ops/gelu.py``:
+             ``gelu_rows_fwd_kernel``, ``gelu_rows_bwd_kernel`` with
+             ``gelu_rows_dbias_kernel``) at every fc1 shape of the two
+             cells, batch 256: y, dh and db against the twins within
+             ``GELU_MAX_REL`` and ``GELU_DBIAS_REL``, the backward twice
+             bit-equal, one launch a call; each timed beside the twins and
+             ATen's ``F.gelu(h + b)`` and its backward (the library's
+             yardstick), each model's totals a step beside the bound; then
+             the ``layernorm`` phase's ``Trainer`` steps: 2 forward and 1
+             backward launches a block.
 4. path    — a full-width ResNet-152 + FCGGNN at bf16 with random weights
              from ``--seed`` and the ``synthetic_full`` vocabulary:
              ``export_inference`` into a temporary directory outside the
@@ -361,7 +371,7 @@ BATCH = 256
 # Swin
 SOURCES = ("ggnn_folded.cu", "ggnn_folded_bwd.cu", "vit_block.cu",
            "vit_attention.cu", "vit_attention_bwd.cu", "batchnorm.cu",
-           "swin_attention.cu", "layernorm.cu")
+           "swin_attention.cu", "layernorm.cu", "gelu.cu")
 
 
 def _log(msg: str) -> None:
@@ -1545,12 +1555,14 @@ def _ln_check(key, counts, seed: int) -> dict:
 
 
 def _ln_step_launches(enc, seed: int, model: str) -> dict:
-    """Forward and backward launches of the pair in one fine-tuning
-    ``Trainer`` step (remat) of ``model`` at 4 images, from zeroed
-    counters, and the blocks of its backbone."""
+    """Forward and backward launches of the LayerNorm pair, and of the
+    bias + GELU pair (``gelu_*``), in one fine-tuning ``Trainer`` step
+    (remat) of ``model`` at 4 images, from zeroed counters, and the blocks
+    of its backbone."""
     import numpy as np
     import torch
 
+    from situation_recognition_tpu_torch.ops import gelu as gk
     from situation_recognition_tpu_torch.ops import layernorm as lk
     from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
 
@@ -1569,10 +1581,13 @@ def _ln_step_launches(enc, seed: int, model: str) -> dict:
     blocks = sum(len(layer.blocks) for layer in bb.layers) \
         if model == "swin_l" else len(bb.encoder.layers)
     lk.layer_norm.launches = lk.layer_norm.bwd_launches = 0
+    gk.bias_gelu.launches = gk.bias_gelu.bwd_launches = 0
     _, _, losses = tr.train_epoch(_train_batches(enc, seed, n, 1), 0)
     torch.cuda.synchronize()
     out = {"blocks": blocks, "forward": lk.layer_norm.launches,
            "backward": lk.layer_norm.bwd_launches,
+           "gelu_forward": gk.bias_gelu.launches,
+           "gelu_backward": gk.bias_gelu.bwd_launches,
            "finite": bool(np.all(np.isfinite(losses)))}
     del tr
     torch.cuda.empty_cache()
@@ -1662,6 +1677,165 @@ def _ln_line(ln: dict, resources: dict) -> dict:
                            f"{step['backwards']} backward LayerNorms at "
                            f"{BATCH} x 224^2, a fine-tuning step",
             "shapes": ln["shapes"], "resources": resources}
+
+
+#: the bias + GELU pair against its twins (as the card tests): y and dh
+#: one bf16 rounding of f32 values, db f32 sums in another order
+GELU_MAX_REL, GELU_DBIAS_REL = 2 ** -7, 1e-4
+
+
+def _gelu_shapes() -> dict:
+    """{(model, rows an image, H): [forward, backward launches a
+    fine-tuning step]} of every fc1 of ViT-L/14 (257 tokens x 4096) and of
+    Swin-L at 224² (read off the port's module on meta tensors), the
+    blocks' forwards twice under remat."""
+    import torch
+
+    from situation_recognition_tpu_torch.models.swin import build_swin
+
+    out = {("vit_l14", VIT_N, 4 * VIT_D): [2 * LN_VIT_BLOCKS,
+                                           LN_VIT_BLOCKS]}
+    with torch.device("meta"):
+        model = build_swin("swin_l", 224)
+    for layer in model.layers:
+        for blk in layer.blocks:
+            n = out.setdefault(("swin_l", blk.resolution ** 2,
+                                blk.mlp.fc1.out_features), [0, 0])
+            n[0] += 2
+            n[1] += 1
+    return out
+
+
+def _gelu_check(key, counts, seed: int) -> dict:
+    """One fc1 shape of ``_gelu_shapes`` at ``BATCH`` images, exact GELU
+    (the cells'): the pair against its twins (the backward twice,
+    bit-equal), then the forward, the backward, the twins and ATen's
+    ``F.gelu(h + b)`` and its backward with the bias's sum (the library's
+    yardstick, which the port never calls) timed with CUDA events, beside
+    the bytes' bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from situation_recognition_tpu_torch.ops import gelu as gk
+
+    model, per, d = key
+    rows = BATCH * per
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    h = (2 * torch.randn(rows, d, generator=g, device=DEVICE)).to(
+        torch.bfloat16)
+    b = 0.5 * torch.randn(d, generator=g, device=DEVICE)
+    dy = torch.randn(rows, d, generator=g, device=DEVICE).to(torch.bfloat16)
+    before = (gk.bias_gelu.launches, gk.bias_gelu.bwd_launches)
+    y = gk.bias_gelu_forward(h, b, False)
+    dh, db = gk.bias_gelu_backward(h, b, dy, False)
+    again = gk.bias_gelu_backward(h, b, dy, False)
+    torch.cuda.synchronize()
+    launched = (gk.bias_gelu.launches - before[0],
+                gk.bias_gelu.bwd_launches - before[1])
+
+    def rel(a, w):
+        return ((a.float() - w.float()).abs().max()
+                / w.float().abs().max()).item()
+
+    wdh, wdb = gk.gelu_bwd_reference(h, b, dy, False)
+    errs = {"y": rel(y, gk.gelu_fwd_reference(h, b, False)),
+            "dh": rel(dh, wdh), "db": rel(db, wdb)}
+    limits = {"y": GELU_MAX_REL, "dh": GELU_MAX_REL, "db": GELU_DBIAS_REL}
+    bitwise = all(torch.equal(a, w) for a, w in zip((dh, db), again))
+    shape = f"{model} {BATCH}x{per} rows x {d} bf16"
+    bad = [k for k, e in errs.items() if not e <= limits[k]]
+    if bad or not bitwise or launched != (1, 2):
+        _log(f"[gelu] {shape} errors {json.dumps(errs)} bit-equal backward "
+             f"{bitwise} launches {launched}")
+        raise SystemExit(f"the bias + GELU pair is off its twins at {shape}: "
+                         f"{bad}, bit-equal {bitwise}, launches {launched}")
+    del y, dh, db, again, wdh, wdb
+    bb = b.to(h.dtype)
+    x = h + bb
+    row = {"shape": shape, "model": model, "rows": rows, "d": d,
+           "forwards": counts[0], "backwards": counts[1], "errors": errs,
+           "fwd_ms": _time_ms(lambda: gk.bias_gelu_forward(h, b, False),
+                              LN_REPS),
+           "bwd_ms": _time_ms(lambda: gk.bias_gelu_backward(h, b, dy, False),
+                              LN_REPS),
+           "twin_fwd_ms": _time_ms(lambda: gk.gelu_fwd_reference(h, b, False),
+                                   3, 1),
+           "twin_bwd_ms": _time_ms(
+               lambda: gk.gelu_bwd_reference(h, b, dy, False), 3, 1),
+           "library_fwd_ms": _time_ms(lambda: F.gelu(h + bb), LN_REPS),
+           "library_bwd_ms": _time_ms(
+               lambda: torch.ops.aten.gelu_backward(dy, x).sum(dim=0),
+               LN_REPS)}
+    for kind, nbytes in (("fwd", rows * d * 4), ("bwd", rows * d * 6)):
+        row[f"{kind}_bytes"] = nbytes
+        row[f"{kind}_bound_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+        row[f"{kind}_tb_s"] = nbytes / row[f"{kind}_ms"] / 1e9
+    _log("[gelu] " + json.dumps(row))
+    del h, b, dy, bb, x
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_gelu(enc, seed: int) -> dict:
+    """The bias + GELU pair at every fc1 shape of the ViT-L/14 and Swin-L
+    fine-tuning cells, ``BATCH`` images of 224² (``_gelu_check`` each),
+    each model's totals a step (each shape times its launches), then one
+    fine-tuning ``Trainer`` step of each from zeroed counters
+    (``_ln_step_launches``): 2 forward and 1 backward launches a block."""
+    from situation_recognition_tpu_torch.ops import _build
+
+    rows = [_gelu_check(key, counts, seed + i) for i, (key, counts) in
+            enumerate(sorted(_gelu_shapes().items()))]
+    steps = {}
+    for model in ("vit_l14", "swin_l"):
+        mine = [r for r in rows if r["model"] == model]
+        step = {k: sum(r[k] for r in mine) for k in ("forwards", "backwards")}
+        for k in ("fwd", "twin_fwd", "library_fwd", "fwd_bound", "bwd",
+                  "twin_bwd", "library_bwd", "bwd_bound"):
+            times = "forwards" if "fwd" in k else "backwards"
+            step[k + "_ms"] = sum(r[k + "_ms"] * r[times] for r in mine)
+        step["pair_ms"] = step["fwd_ms"] + step["bwd_ms"]
+        step["bound_ms"] = step["fwd_bound_ms"] + step["bwd_bound_ms"]
+        step["share_of_bound"] = step["bound_ms"] / step["pair_ms"]
+        steps[model] = step
+        _log(f"[gelu] a {model} step " + json.dumps(step))
+    launches = {m: _ln_step_launches(enc, seed, m)
+                for m in ("swin_l", "vit_l14")}
+    _log("[gelu] fine-tuning steps " + json.dumps(launches))
+    for m, got in launches.items():
+        want = (2 * got["blocks"], got["blocks"])
+        if (got["gelu_forward"], got["gelu_backward"]) != want \
+                or not got["finite"]:
+            raise SystemExit(f"a {m} fine-tuning step launched {got}, not "
+                             f"{want} of the GELU pair, or lost finite "
+                             f"losses")
+    resources = _build.kernel_resources(_build.build_log("gelu.cu"),
+                                        "gelu_rows_")
+    if not resources:
+        raise SystemExit("no -Xptxas -v report of the GELU kernels in the "
+                         "build log of gelu.cu")
+    _log("[gelu] kernel resources " + json.dumps(resources))
+    step = steps["vit_l14"]
+    line = {"name": "bias_gelu_pair", "route": "cuda",
+            "source": "situation_recognition_tpu_torch/csrc/gelu.cu",
+            "replaces": None,
+            "launches_by_path": {f"ft_train_{m}_{k}": v["gelu_" + k]
+                                 for m, v in launches.items()
+                                 for k in ("forward", "backward")},
+            "checked": True,
+            "ms": step["fwd_ms"], "plain_ms": step["twin_fwd_ms"],
+            "bound_ms": step["fwd_bound_ms"], "bound_by": "bytes",
+            "library_ms": step["library_fwd_ms"],
+            "bwd_ms": step["bwd_ms"], "bwd_plain_ms": step["twin_bwd_ms"],
+            "bwd_bound_ms": step["bwd_bound_ms"],
+            "bwd_library_ms": step["library_bwd_ms"],
+            "swin_l_step": steps["swin_l"],
+            "timed_shape": f"ViT-L/14's {step['forwards']} forward and "
+                           f"{step['backwards']} backward fc1 activations "
+                           f"at {BATCH} x 224^2, a fine-tuning step",
+            "resources": resources}
+    return {"shapes": rows, "steps": steps, "train_launches": launches,
+            "line": line}
 
 
 def phase_path(enc, seed: int, batch: int, card: str) -> dict:
@@ -5421,7 +5595,8 @@ def phase_dist(enc, seed: int, batch: int, card: str) -> dict:
 
 
 #: the phases ``--phase`` runs alone
-PHASES_ALONE = ("dist", "export", "remat", "batchnorm", "swin", "layernorm")
+PHASES_ALONE = ("dist", "export", "remat", "batchnorm", "swin", "layernorm",
+                "gelu")
 
 
 def main(argv=None) -> int:
@@ -5478,10 +5653,13 @@ def main(argv=None) -> int:
     sources = {"dist": ("ggnn_folded.cu",),
                "batchnorm": ("batchnorm.cu",),
                "swin": ("swin_attention.cu", "ggnn_folded.cu",
-                        "layernorm.cu"),
-               "layernorm": ("layernorm.cu", "swin_attention.cu",
+                        "layernorm.cu", "gelu.cu"),
+               "layernorm": ("layernorm.cu", "gelu.cu", "swin_attention.cu",
                              "ggnn_folded.cu", "vit_attention.cu",
-                             "vit_attention_bwd.cu")
+                             "vit_attention_bwd.cu"),
+               "gelu": ("gelu.cu", "layernorm.cu", "swin_attention.cu",
+                        "ggnn_folded.cu", "vit_attention.cu",
+                        "vit_attention_bwd.cu")
                }.get(args.phase, SOURCES)
     _build.build(sources)
     for src in sources:
@@ -5500,7 +5678,8 @@ def main(argv=None) -> int:
                  "remat": lambda: phase_remat(enc, args.seed, BATCH),
                  "batchnorm": lambda: phase_batchnorm(args.seed),
                  "swin": lambda: phase_swin(enc, args.seed),
-                 "layernorm": lambda: phase_layernorm(enc, args.seed)
+                 "layernorm": lambda: phase_layernorm(enc, args.seed),
+                 "gelu": lambda: phase_gelu(enc, args.seed)
                  }[args.phase]()
         _phase(args.phase, t)
         print(json.dumps(alone, default=str), flush=True)
@@ -5522,6 +5701,11 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     ln = phase_layernorm(enc, args.seed)
     _phase("layernorm", t)
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    ge = phase_gelu(enc, args.seed)
+    _phase("gelu", t)
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
@@ -5688,6 +5872,7 @@ def main(argv=None) -> int:
                          for n, r in resnets.items()}}, _bn_resources()),
         sw["line"],
         ln["line"],
+        ge["line"],
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

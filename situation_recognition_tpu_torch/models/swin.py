@@ -31,14 +31,15 @@ Parameters stay f32 and are cast to the compute type at use, as in
 layer_norm`` (on the card the hand pair, on the CPU ``ops.vit.ln_f32``)
 rounded to the compute type once (the final norm kept in f32 for the
 mean over the tokens), the projections and the MLP in the compute type under
-autograd, GELU by ``ops.vit.gelu``, the relative-position bias gathered
-from its table in f32 (``F.embedding``, differentiable).  The attention
-core is the window-attention pair of ``ops/swin_kernel.py``: a
-differentiated call through ``WindowAttention`` (the forward kernel, then
-the backward kernel with the bias's gradient), any other through the
-forward kernel alone; on CPU tensors the wrappers run the twins of
-``ops/swin.py``, at any float type, and on the card a type other than
-bf16 raises.  ``remat`` checkpoints each block of a differentiated call
+autograd, fc1's bias and the GELU by ``ops.gelu.bias_gelu`` (on the card
+the hand pair, on the CPU ``ops.vit.gelu`` after the bias add), the
+relative-position bias gathered from its table in f32 (``F.embedding``,
+differentiable).  The attention core is the window-attention pair of
+``ops/swin_kernel.py``: a differentiated call through ``WindowAttention``
+(the forward kernel, then the backward kernel with the bias's gradient),
+any other through the forward kernel alone; on CPU tensors the wrappers
+run the twins of ``ops/swin.py``, at any float type, and on the card a
+type other than bf16 raises.  ``remat`` checkpoints each block of a differentiated call
 (non-reentrant), so that only the block inputs are kept for the backward
 and each block's forward, the attention core's included, runs again
 inside it.
@@ -54,10 +55,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from situation_recognition_tpu_torch.ops import swin_kernel
+from situation_recognition_tpu_torch.ops.gelu import bias_gelu
 from situation_recognition_tpu_torch.ops.layernorm import layer_norm
 from situation_recognition_tpu_torch.ops.swin import (
     relative_position_index, shift_mask, window_partition, window_reverse)
-from situation_recognition_tpu_torch.ops.vit import gelu
 
 EPS = 1e-5
 
@@ -174,7 +175,9 @@ def _block(x: torch.Tensor, blk: Block) -> torch.Tensor:
         y = torch.roll(y, (shift, shift), (1, 2))
     x = x + y
     y = layer_norm(x, blk.norm2.weight, blk.norm2.bias, EPS, dt)
-    return x + _lin(gelu(_lin(y, blk.mlp.fc1), False), blk.mlp.fc2)
+    fc1 = blk.mlp.fc1
+    h = bias_gelu(F.linear(y, fc1.weight.to(dt)), fc1.bias, False)
+    return x + _lin(h, blk.mlp.fc2)
 
 
 def _merge(x: torch.Tensor, m: PatchMerging) -> torch.Tensor:

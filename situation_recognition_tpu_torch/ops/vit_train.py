@@ -7,9 +7,11 @@ backward route.  Only the attention core has a hand-written backward: it is
 the one operation whose autograd would keep (B, h, N, N) probabilities in
 device memory.  The LayerNorms go through ``ops/layernorm.py``
 ``layer_norm`` (on the card the hand pair with its own backward; on the
-CPU ``ln_f32`` under autograd).  Everything else of a block (the q/k/v and
-out projections, the MLP) is plain torch on the flattened (B·N, D) stream,
-where autograd emits ordinary products, as XLA's AD does in JAX.
+CPU ``ln_f32`` under autograd), and fc1's bias with the GELU through
+``ops/gelu.py`` ``bias_gelu`` (on the card the hand pair, on the CPU
+``gelu`` under autograd).  Everything else of a block (the q/k/v and out
+projections, the MLP's products) is plain torch on the flattened (B·N, D)
+stream, where autograd emits ordinary products, as XLA's AD does in JAX.
 
 * ``DiffAttention`` — the attention core as a ``torch.autograd.Function``:
   the forward is K7 (``vit_kernel.vit_attention_stream_forward``) and saves
@@ -33,8 +35,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from situation_recognition_tpu_torch.ops import vit_kernel
+from situation_recognition_tpu_torch.ops.gelu import bias_gelu
 from situation_recognition_tpu_torch.ops.layernorm import layer_norm
-from situation_recognition_tpu_torch.ops.vit import BlockWeights, gelu
+from situation_recognition_tpu_torch.ops.vit import BlockWeights
 
 
 class DiffAttention(torch.autograd.Function):
@@ -63,7 +66,8 @@ def ft_block(x2: torch.Tensor, w: BlockWeights, heads: int, eps: float,
              quick: bool, folded: bool, n: int) -> torch.Tensor:
     """One encoder block on the (B·n, D) stream of n-token examples, in
     its type: f32 LayerNorms (``layer_norm``), projections in the
-    stream's type, the attention core through ``DiffAttention``, GELU —
+    stream's type, the attention core through ``DiffAttention``, fc1's
+    bias and GELU through ``bias_gelu`` —
     ``reference_block``'s math with the per-head reshapes inside the
     core."""
     dt = x2.dtype
@@ -75,7 +79,7 @@ def ft_block(x2: torch.Tensor, w: BlockWeights, heads: int, eps: float,
     ctx = DiffAttention.apply(q, k, v, heads, folded, n, n)
     x2 = x2 + ctx @ w.out_w.to(dt).t() + w.out_b.to(dt)
     y = layer_norm(x2, w.ln2_w, w.ln2_b, eps, dt)
-    h = gelu(y @ w.fc1_w.to(dt).t() + w.fc1_b.to(dt), quick)
+    h = bias_gelu(y @ w.fc1_w.to(dt).t(), w.fc1_b, quick)
     return x2 + h @ w.fc2_w.to(dt).t() + w.fc2_b.to(dt)
 
 

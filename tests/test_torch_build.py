@@ -157,10 +157,11 @@ def _tables() -> dict:
     """The signature tables of the kernel modules, merged: entry → (the
     module that binds it, its ctypes types)."""
     from situation_recognition_tpu_torch.ops import (
-        batchnorm, ggnn_kernel, layernorm, swin_kernel, vit_kernel)
+        batchnorm, gelu, ggnn_kernel, layernorm, swin_kernel, vit_kernel)
 
     out = {}
-    for mod in (batchnorm, ggnn_kernel, layernorm, swin_kernel, vit_kernel):
+    for mod in (batchnorm, gelu, ggnn_kernel, layernorm, swin_kernel,
+                vit_kernel):
         for entry, types in mod.SIGNATURES.items():
             assert entry not in out, f"{entry} in two tables"
             out[entry] = (mod.__name__, list(types))

@@ -1943,3 +1943,135 @@ def test_fine_tuning_steps_launch_the_layernorm_pair(cuda_device, backbone,
     assert np.isfinite(losses).all()
     assert (lk.layer_norm.launches - before[0],
             lk.layer_norm.bwd_launches - before[1]) == want
+
+
+# every fc1 shape of the fine-tuning cells at batch 256 (rows an image, H):
+# ViT-L/14's 257 tokens x 4096; Swin-L's four stages, 3136 / 784 / 196 / 49
+# tokens x 768 / 1536 / 3072 / 6144
+GELU_CELL_SHAPES = [(257, 4096), (3136, 768), (784, 1536), (196, 3072),
+                    (49, 6144)]
+# y and dh against the twins: one rounding to bf16 of f32 values whose erf
+# and exp may differ from torch's by an f32 ulp, so an element may land one
+# bf16 step away, 2^-7 of the largest element at most; db f32 sums over the
+# rows in another order
+GELU_MAX_REL = 2 ** -7
+GELU_DBIAS_REL = 1e-4
+
+
+def _gelu_case(rows, d, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    h = (2 * torch.randn(rows, d, generator=g, device=device)).to(
+        torch.bfloat16)
+    b = 0.5 * torch.randn(d, generator=g, device=device)
+    dy = torch.randn(rows, d, generator=g, device=device).to(torch.bfloat16)
+    return h, b, dy
+
+
+@pytest.mark.parametrize("quick", [False, True])
+@pytest.mark.parametrize("images", [3, 256])
+@pytest.mark.parametrize("per,d", GELU_CELL_SHAPES)
+def test_gelu_pair_matches_twins_at_the_cells_shapes(cuda_device, per, d,
+                                                    images, quick):
+    """The bias + GELU pair at each fc1 shape of the fine-tuning cells (3
+    images: rows that fill no whole grid; the cells' 256) against its
+    twins on the same operands, one launch of each a call."""
+    from situation_recognition_tpu_torch.ops import gelu as gk
+
+    h, b, dy = _gelu_case(images * per, d, per + d + quick, cuda_device)
+    before = (gk.bias_gelu.launches, gk.bias_gelu.bwd_launches)
+    y = gk.bias_gelu_forward(h, b, quick)
+    dh, db = gk.bias_gelu_backward(h, b, dy, quick)
+    torch.cuda.synchronize()
+    assert (gk.bias_gelu.launches - before[0],
+            gk.bias_gelu.bwd_launches - before[1]) == (1, 1)
+    assert y.dtype == dh.dtype == torch.bfloat16 and db.dtype == torch.float32
+    assert _rel(y, gk.gelu_fwd_reference(h, b, quick)) <= GELU_MAX_REL
+    wdh, wdb = gk.gelu_bwd_reference(h, b, dy, quick)
+    assert _rel(dh, wdh) <= GELU_MAX_REL
+    assert _rel(db, wdb) <= GELU_DBIAS_REL
+
+
+def test_gelu_pair_is_deterministic(cuda_device):
+    from situation_recognition_tpu_torch.ops import gelu as gk
+
+    h, b, dy = _gelu_case(16 * 3136, 768, 5, cuda_device)
+    first = gk.bias_gelu_backward(h, b, dy, False)
+    second = gk.bias_gelu_backward(h, b, dy, False)
+    for a, w in zip(first, second):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("quick", [False, True])
+def test_bias_gelu_under_autograd_matches_the_composition_on_the_card(
+        cuda_device, quick):
+    """``bias_gelu`` through ``BiasGeluRows`` against autograd over the
+    bf16 composition ``gelu(h + b)`` on the card: the same values and
+    gradients within the composition's own roundings (five bf16 passes
+    forward, eleven backward, the bias gradient summed in bf16)."""
+    from situation_recognition_tpu_torch.ops import gelu as gk
+    from situation_recognition_tpu_torch.ops.vit import gelu
+
+    h0, b0, dy = _gelu_case(4 * 257, 4096, 9, cuda_device)
+
+    def run(fn):
+        h, b = h0.clone().requires_grad_(), b0.clone().requires_grad_()
+        y = fn(h, b)
+        y.backward(dy)
+        return y.detach(), h.grad, b.grad
+
+    got = run(lambda h, b: gk.bias_gelu(h, b, quick))
+    want = run(lambda h, b: gelu(h + b.to(h.dtype), quick))
+    assert got[2].dtype == torch.float32
+    for name, a, w, tol in zip(("y", "dh", "db"), got, want,
+                               (2 ** -6, 2 ** -5, 2 ** -5)):
+        assert _rel(a, w) <= tol, name
+
+
+@pytest.mark.parametrize("backbone,hidden", [("vit_l14", 1024),
+                                             ("swin_l", 1536)])
+def test_fine_tuning_steps_launch_the_gelu_pair(cuda_device, backbone,
+                                               hidden):
+    """One fine-tuning ``Trainer`` step (remat) launches the bias + GELU
+    pair twice forward and once backward a block: 48 + 24 in ViT-L/14 and
+    in Swin-L (24 blocks each)."""
+    from situation_recognition_tpu_torch.data.encoder import ImsituEncoder
+    from situation_recognition_tpu_torch.ops import gelu as gk
+    from situation_recognition_tpu_torch.train import Trainer, TrainerConfig
+
+    enc = ImsituEncoder.synthetic_full(0)
+    rng = np.random.default_rng(2)
+    n = 4
+    verbs = rng.integers(0, 504, n)
+    labels = np.where(np.arange(6)[None, None, :]
+                      < enc.role_counts[verbs][:, None, None],
+                      rng.integers(0, 2001, (n, 3, 6)), 2001)
+    batch = {"images": rng.integers(0, 256, (n, 256, 256, 3),
+                                    dtype=np.uint8),
+             "flip": rng.random(n) < 0.5, "verbs": verbs, "labels": labels}
+    tr = Trainer(enc, TrainerConfig(hidden=hidden, batch_size=n,
+                                    backbone=backbone, train_backbone=True,
+                                    remat_backbone=True))
+    before = (gk.bias_gelu.launches, gk.bias_gelu.bwd_launches)
+    _, _, losses = tr.train_epoch([batch], 0)
+    torch.cuda.synchronize()
+    assert np.isfinite(losses).all()
+    assert (gk.bias_gelu.launches - before[0],
+            gk.bias_gelu.bwd_launches - before[1]) == (48, 24)
+
+
+def test_an_undifferentiated_swin_call_launches_the_gelu_forward_alone(
+        cuda_device):
+    from situation_recognition_tpu_torch.models.swin import build_swin
+    from situation_recognition_tpu_torch.ops import gelu as gk
+
+    net = build_swin("swin_l", 224, torch.bfloat16, remat=True)
+    net.reset_parameters(torch.Generator().manual_seed(0))
+    net.to(cuda_device)
+    x = torch.rand(2, 224, 224, 3, device=cuda_device)
+    before = (gk.bias_gelu.launches, gk.bias_gelu.bwd_launches)
+    with torch.no_grad():
+        out = net(x)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert (gk.bias_gelu.launches - before[0],
+            gk.bias_gelu.bwd_launches - before[1]) == (24, 0)
